@@ -1,0 +1,187 @@
+"""Negacyclic number-theoretic transform, batched over RNS limbs.
+
+Port of ``pir_tpu/ops/ntt.py``.  The twiddle tables are built with the
+original's numpy/Python-int code, so ``psi_rev``, its Shoup companions and
+``n_inv`` are bit-equal to ``pir_tpu``'s.  The transform is the merged-
+twiddle radix-2 formulation: forward is decimation-in-time producing
+bit-reversed evaluations, inverse consumes that order and returns natural
+coefficient order, so no permutation is ever materialized.
+
+Layout contract used everywhere in this package:
+  * polynomial tensors are int64 ``[..., L, N]`` — limb axis second-to-last;
+  * "NTT form" means bit-reversed-order evaluations at odd powers of ψ.
+
+A CUDA tensor goes through kernel A (``csrc/ntt.cu``, :func:`ntt_cuda`); a
+CPU tensor through the plain per-stage version (:func:`ntt_plain`), which
+is the reference the kernel is tested against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pir_tpu_torch import kernels
+from pir_tpu_torch.core import primes as primes_mod
+from pir_tpu_torch.ops import modular
+from pir_tpu_torch.ops.modular import tensor_u64
+
+KERNEL_MIN_N = 64
+KERNEL_MAX_N = 4096  # one limb of 8-byte words in 32 KB of shared memory
+
+
+def _bit_reverse_indices(n: int) -> np.ndarray:
+    logn = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.uint64)
+    out = np.zeros(n, dtype=np.uint64)
+    for b in range(logn):
+        out |= ((idx >> b) & 1) << (logn - 1 - b)
+    return out
+
+
+class NttTables:
+    """Precomputed twiddle tables for a list of NTT-friendly primes.
+
+    Host tables (numpy u64, as in ``pir_tpu``) have shape [L, N]; the device
+    copies are int64 tensors on ``device``, scalar companions shaped [L, 1]
+    so they broadcast over ``[..., L, N]`` operands.
+    """
+
+    def __init__(self, moduli, n: int, device=None):
+        self.n = n
+        self.moduli = tuple(int(m) for m in moduli)
+        self.limbs = modular.LimbConstants(self.moduli, device)
+        self.device = self.limbs.device
+        L = len(self.moduli)
+        brv = _bit_reverse_indices(n)
+
+        psi_rev = np.zeros((L, n), dtype=np.uint64)
+        psi_inv_rev = np.zeros((L, n), dtype=np.uint64)
+        n_inv = np.zeros((L, 1), dtype=np.uint64)
+        for li, q in enumerate(self.moduli):
+            psi = primes_mod.primitive_root_2n(q, 2 * n)
+            psi_inv = pow(psi, -1, q)
+            powers = np.zeros(n, dtype=object)
+            inv_powers = np.zeros(n, dtype=object)
+            acc = 1
+            acc_inv = 1
+            for i in range(n):
+                powers[i] = acc
+                inv_powers[i] = acc_inv
+                acc = acc * psi % q
+                acc_inv = acc_inv * psi_inv % q
+            psi_rev[li] = powers[brv.astype(np.int64)].astype(np.uint64)
+            psi_inv_rev[li] = inv_powers[brv.astype(np.int64)].astype(np.uint64)
+            n_inv[li, 0] = pow(n, -1, q)
+
+        q_col = np.array(self.moduli, dtype=np.uint64).reshape(L, 1)
+        self.host = {
+            "psi_rev": psi_rev,
+            "psi_rev_shoup": modular.shoup_precompute(psi_rev, q_col),
+            "psi_inv_rev": psi_inv_rev,
+            "psi_inv_rev_shoup": modular.shoup_precompute(psi_inv_rev, q_col),
+            "n_inv": n_inv,
+            "n_inv_shoup": modular.shoup_precompute(n_inv, q_col),
+        }
+        for name, arr in self.host.items():
+            setattr(self, name, tensor_u64(arr, self.device))
+
+    def slice(self, count: int) -> "NttTables":
+        """Tables restricted to the first `count` limbs (shares storage)."""
+        out = object.__new__(NttTables)
+        out.n = self.n
+        out.moduli = self.moduli[:count]
+        out.limbs = self.limbs.slice(count)
+        out.device = self.device
+        out.host = {k: v[:count] for k, v in self.host.items()}
+        for name in self.host:
+            setattr(out, name, getattr(self, name)[:count])
+        return out
+
+    # ------------------------------------------------------------------
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Coefficient order -> bit-reversed NTT order.  x: int64[..., L, N]."""
+        if x.is_cuda:
+            return ntt_cuda(self, x.contiguous(), inverse=False)
+        return ntt_plain(self, x, inverse=False)
+
+    def inverse(self, x: torch.Tensor) -> torch.Tensor:
+        """Bit-reversed NTT order -> coefficient order.  x: int64[..., L, N]."""
+        if x.is_cuda:
+            return ntt_cuda(self, x.contiguous(), inverse=True)
+        return ntt_plain(self, x, inverse=True)
+
+
+def ntt_plain(tables: NttTables, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The transform as log2 N vectorized butterfly stages over
+    ``[..., L, N]`` (the plain PyTorch version of kernel A)."""
+    n = tables.n
+    L = len(tables.moduli)
+    q3 = tables.limbs.q[:, :, None]  # [L, 1, 1]
+    batch = x.shape[:-2]
+    if not inverse:
+        m = 1
+        while m < n:
+            t = n // (2 * m)
+            xr = x.reshape(*batch, L, m, 2, t)
+            u = xr[..., 0, :]
+            v = xr[..., 1, :]
+            s = tables.psi_rev[:, m : 2 * m, None]  # [L, m, 1]
+            s_sh = tables.psi_rev_shoup[:, m : 2 * m, None]
+            vs = modular.mul_mod_shoup(v, s, s_sh, q3)
+            nu = modular.add_mod(u, vs, q3)
+            nv = modular.sub_mod(u, vs, q3)
+            x = torch.stack([nu, nv], dim=-2).reshape(*batch, L, n)
+            m *= 2
+        return x
+    t = 1
+    m = n
+    while m > 1:
+        h = m // 2
+        xr = x.reshape(*batch, L, h, 2, t)
+        u = xr[..., 0, :]
+        v = xr[..., 1, :]
+        s = tables.psi_inv_rev[:, h : 2 * h, None]
+        s_sh = tables.psi_inv_rev_shoup[:, h : 2 * h, None]
+        nu = modular.add_mod(u, v, q3)
+        nv = modular.mul_mod_shoup(modular.sub_mod(u, v, q3), s, s_sh, q3)
+        x = torch.stack([nu, nv], dim=-2).reshape(*batch, L, n)
+        t *= 2
+        m = h
+    return modular.mul_mod_shoup(
+        x, tables.n_inv, tables.n_inv_shoup, tables.limbs.q
+    )
+
+
+def ntt_cuda(tables: NttTables, x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """Kernel A on a contiguous int64 CUDA tensor ``[..., L, N]``."""
+    n = tables.n
+    L = len(tables.moduli)
+    if not x.is_cuda or x.dtype != torch.int64:
+        raise ValueError(f"ntt_cuda needs an int64 CUDA tensor, got {x.dtype} on {x.device}")
+    if x.shape[-2:] != (L, n):
+        raise ValueError(f"ntt_cuda expects [..., {L}, {n}], got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("ntt_cuda needs a contiguous tensor")
+    if x.device != tables.device:
+        raise ValueError(f"tables live on {tables.device}, tensor on {x.device}")
+    if not (KERNEL_MIN_N <= n <= KERNEL_MAX_N):
+        raise ValueError(
+            f"kernel A handles {KERNEL_MIN_N} <= N <= {KERNEL_MAX_N}, got N={n}"
+        )
+    out = torch.empty_like(x)
+    batch = x.numel() // (L * n)
+    if batch == 0:
+        return out
+    if inverse:
+        tw, tw_sh = tables.psi_inv_rev, tables.psi_inv_rev_shoup
+    else:
+        tw, tw_sh = tables.psi_rev, tables.psi_rev_shoup
+    kernels.NTT.launch(
+        "pir_ntt",
+        x.data_ptr(), out.data_ptr(), batch, L, n.bit_length() - 1, int(inverse),
+        tw.data_ptr(), tw_sh.data_ptr(), tables.limbs.q_vec.data_ptr(),
+        tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(),
+        kernels.stream_handle(x),
+    )
+    return out

@@ -1,0 +1,235 @@
+"""Where a request's time goes: a stage profile of PirServer on a CUDA card.
+
+    python3 -m pir_tpu_torch.profile_request                  # 2^20 items
+    python3 -m pir_tpu_torch.profile_request --log2-items 16 --out prof.json
+
+Builds the benchmark configuration (288-byte items, d=2, N=4096, 24-bit
+plain modulus, SEAL's BFVDefault chain, database from seed 42, client seed 7,
+seeded queries, replies mod-switched by ``reply_limbs_for``), fills the key
+cache with one request, then measures warm single-query requests:
+
+* ``stages_ms``: the steps of ``process_request`` run one by one, each
+  bracketed by ``torch.cuda.synchronize()``, mean over ``--reps`` requests;
+  ``expansion_levels_ms`` splits the expansion by doubling level.  The staged
+  Response must equal ``process_request``'s byte for byte;
+* ``latency_ms``: host-clock time of ``--spread`` whole ``process_request``
+  calls, no profiler;
+* ``profiler``: ``torch.profiler`` over 3 requests — device kernels and
+  copies launched, their summed and merged device time, the wall time, the
+  busy share (merged device time / wall) and the device time by kernel name.
+
+Prints one line per section and, as the last line, the whole result as one
+JSON object, which it also writes to ``--out`` when one is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+import pir_tpu_torch as pt
+from pir_tpu_torch.ops import expand, modswitch, scan
+from pir_tpu_torch.ops.modular import tensor_u64
+from pir_tpu_torch.pir import wire
+from pir_tpu_torch.utils.math import ceil_log2
+
+ITEM_SIZE = 288
+DB_SEED = 42
+CLIENT_SEED = 7
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _Laps:
+    """Host-clock laps between device synchronizations, summed by name."""
+
+    def __init__(self, ms: dict, device: torch.device):
+        self.ms = ms
+        self.device = device
+        _sync(device)
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> float:
+        _sync(self.device)
+        now = time.perf_counter()
+        ms = (now - self.t) * 1e3
+        self.ms[name] = self.ms.get(name, 0.0) + ms
+        self.t = now
+        return ms
+
+
+def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
+    """process_request for a one-query request, one synchronized stage at a
+    time (the same calls, in the same order); adds each stage's ms to
+    ``stages`` and each expansion level's ms to ``levels``."""
+    ctx = server.ctx
+    clock = _Laps(stages, server.device)
+    keys = server._device_keys(request)
+    cts = tensor_u64(wire.load_ciphertexts(request.query[0], ctx), server.device)
+    clock.lap("load query + keys")
+    outs = []
+    remaining = server.params.dimensions_sum
+    for i in range(cts.shape[0]):  # expand.expand_query, level by level
+        count = min(ctx.n, remaining)
+        remaining -= ctx.n
+        x = cts[i][None]
+        for j in range(ceil_log2(count) if count else 0):
+            x = expand.expand_level(ctx, keys, x, j)
+            levels[j] += clock.lap("oblivious expansion")
+        outs.append(x[:count])
+    sv = torch.cat(outs, dim=0)
+    clock.lap("oblivious expansion")
+    sv_ntt = ctx.ntt_q.forward(sv)
+    clock.lap("selection-vector NTT")
+    reply = scan.database_scan_decomp(
+        ctx, server.params.dimensions, sv_ntt, server.db.db_planes
+    )
+    clock.lap("database scan (all dimensions)")
+    if server.reply_limbs is not None:
+        reply = modswitch.mod_switch_to(ctx, reply, server.reply_limbs)
+    clock.lap("mod switch")
+    response = server.finalize_response([reply])
+    clock.lap("reply copy to host + serialize")
+    return response
+
+
+def device_profile(server: pt.PirServer, requests) -> dict:
+    """torch.profiler over the given requests: device events, busy share and
+    device time by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for req in requests:
+            server.process_request(req)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device events")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    merged_us = 0.0
+    cur_start, cur_end = spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            merged_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    merged_us += cur_end - cur_start
+    by_name: dict = defaultdict(lambda: [0, 0.0])
+    for e in events:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {
+        "requests": len(requests),
+        "device_events": len(events),
+        "device_ms_summed": sum(v[1] for v in by_name.values()) / 1e3,
+        "device_ms_merged": merged_us / 1e3,
+        "wall_ms": wall_ms,
+        "busy_share": merged_us / 1e3 / wall_ms,
+        "by_name": [
+            {"name": name[:120], "count": c, "ms": us / 1e3} for name, (c, us) in top
+        ],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log2-items", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=5, help="staged requests")
+    ap.add_argument("--spread", type=int, default=10, help="timed whole requests")
+    ap.add_argument("--out", help="also write the JSON result to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_request: no CUDA device available")
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+
+    db_size = 1 << args.log2_items
+    params = pt.create_pir_parameters(
+        db_size, ITEM_SIZE, 2, pt.generate_encryption_params(4096, 24)
+    )
+    rng = np.random.default_rng(DB_SEED)
+    pool = [rng.integers(0, 256, ITEM_SIZE, dtype=np.uint8).tobytes()
+            for _ in range(min(db_size, 4096))]
+    t0 = time.perf_counter()
+    db = pt.PirDatabase.create(
+        [pool[i % len(pool)] for i in range(db_size)], params, device
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    server = pt.PirServer(db, params, reply_limbs=pt.reply_limbs_for(params))
+    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True)
+    n_req = max(args.reps, args.spread, 3) + 1
+    requests = [client.create_request([(k * 7919) % db_size]) for k in range(n_req)]
+    server.process_request(requests[0])  # fills the key cache; builds kernels
+
+    stages: dict = {}
+    levels = [0.0] * ceil_log2(min(params.dimensions_sum, params.encryption_params.poly_modulus_degree))
+    for req in requests[1 : 1 + args.reps]:
+        staged = staged_request(server, req, stages, levels)
+        if staged.SerializeToString() != server.process_request(req).SerializeToString():
+            raise AssertionError("staged request differs from process_request")
+    stages = {k: v / args.reps for k, v in stages.items()}
+    levels = [v / args.reps for v in levels]
+
+    latency = []
+    for req in requests[1 : 1 + args.spread]:
+        t0 = time.perf_counter()
+        server.process_request(req)
+        latency.append((time.perf_counter() - t0) * 1e3)
+    prof = device_profile(server, requests[1:4])
+
+    result = {
+        "card": smi,
+        "config": {"items": db_size, "item_bytes": ITEM_SIZE,
+                   "dimensions": list(params.dimensions), "poly_degree": 4096,
+                   "plain_bits": 24, "reply_limbs": server.reply_limbs},
+        "database_build_s": build_s,
+        "stages_ms": stages,
+        "stages_total_ms": sum(stages.values()),
+        "expansion_levels_ms": levels,
+        "latency_ms": latency,
+        "profiler": prof,
+    }
+    total = result["stages_total_ms"]
+    print(f"database: {db_size} items, built in {build_s:.2f} s", flush=True)
+    for name, ms in stages.items():
+        print(f"stage {name}: {ms:.3f} ms ({ms / total:.1%})", flush=True)
+    print(f"stages total {total:.3f} ms (mean of {args.reps} staged requests)")
+    print("expansion per level (ms): " + ", ".join(f"{x:.3f}" for x in levels))
+    print("whole-request latency (ms): " + ", ".join(f"{x:.2f}" for x in latency))
+    print(f"profiler, {prof['requests']} requests: {prof['device_events']} device "
+          f"events, device {prof['device_ms_merged']:.3f} ms (merged) of "
+          f"{prof['wall_ms']:.3f} ms wall, busy share {prof['busy_share']:.3f}")
+    for row in prof["by_name"][:12]:
+        print(f"  {row['ms']:9.3f} ms  {row['count']:6d}x  {row['name']}")
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
