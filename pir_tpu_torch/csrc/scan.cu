@@ -1,8 +1,9 @@
 // Kernel B: the database scan contraction, exact 128-bit accumulation.
 //
-// Replaces pir_tpu/ops/pallas_scan.py::_raw_kernel (K1), reached through
-// contract_dim_raw / contract_dim_auto, which computes both the inner scan
-// over the whole database and every upper-dimension scan:
+// Replaces pir_tpu/ops/pallas_scan.py::_raw_kernel (K1) and, without a hi
+// plane, ::_raw_kernel_u32 (K5, the tpu32 profile's moduli below 2^32),
+// reached through contract_dim_raw / contract_dim_auto, which compute both
+// the inner scan over the whole database and every upper-dimension scan:
 //
 //   out[p, s, l, n] = sum_j sv[j, s, l, n] * db[p, l, j, n]  mod q_l
 //
@@ -10,7 +11,7 @@
 //
 // Layout: sv is u64 [D, 2, L, N] (the selection vector, NTT form); the
 // database is split into a narrow hi plane (u8 for moduli of 33-40 bits, u16
-// up to 48) and a u32 lo plane, both [P, L, D_total, N], as
+// up to 48; none below 2^32) and a u32 lo plane, both [P, L, D_total, N], as
 // pallas_scan.split_planes lays them out; the kernel reads j in
 // [j_begin, j_begin + D).  The moduli arrive as a u64 [L, 3] tensor of
 // (q, floor(2^128/q) hi word, lo word) rows, not as compile-time constants.
@@ -22,7 +23,8 @@
 // take consecutive n, so the lo/hi plane loads of a warp are contiguous.
 // Products (< 2^96) accumulate in unsigned __int128 with no reduction; one
 // Barrett reduction per output closes the sum.  D <= 2^16 keeps the sum far
-// below 2^128.
+// below 2^128.  Without a hi plane (K5) each product is one 32x32 multiply
+// into the same accumulator, and the database is 4 bytes per coefficient.
 //
 // What bounds it on the H100: reading the database planes, 5 bytes per
 // coefficient at the 36-bit chain (26,244 x 2 x 4096 x 5 B ~ 1.07 GB per
@@ -31,31 +33,19 @@
 // keeps selection-vector traffic (L2) below the database stream.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
+
+#include "modarith.cuh"
 
 namespace {
 
 constexpr int kPTile = 4;
 constexpr int kThreads = 128;
 
-// Port of pir_tpu/ops/modular.py::barrett_reduce_128 (q < 2^61).
-__device__ __forceinline__ uint64_t barrett_reduce_128(uint64_t hi,
-                                                       uint64_t lo, uint64_t q,
-                                                       uint64_t ratio_hi,
-                                                       uint64_t ratio_lo) {
-  const uint64_t carry = __umul64hi(lo, ratio_lo);
-  const uint64_t t2_lo = lo * ratio_hi;
-  const uint64_t t2_hi = __umul64hi(lo, ratio_hi);
-  const uint64_t tmp1 = t2_lo + carry;
-  const uint64_t tmp3 = t2_hi + (tmp1 < t2_lo ? 1 : 0);
-  const uint64_t t4_lo = hi * ratio_lo;
-  const uint64_t t4_hi = __umul64hi(hi, ratio_lo);
-  const uint64_t tmp1b = tmp1 + t4_lo;
-  const uint64_t carry4 = t4_hi + (tmp1b < t4_lo ? 1 : 0);
-  const uint64_t quot = hi * ratio_hi + tmp3 + carry4;
-  const uint64_t r = lo - quot * q;
-  return r >= q ? r - q : r;
-}
+// The "no hi plane" case: moduli below 2^32, one u32 word per coefficient.
+struct NoHi {};
 
 template <typename HiT>
 __global__ void __launch_bounds__(kThreads)
@@ -88,10 +78,17 @@ scan_kernel(const uint64_t* __restrict__ sv, const HiT* __restrict__ db_hi,
     for (int t = 0; t < kPTile; ++t) {
       if (p0 + t < P) {
         const int64_t idx = off + t * db_p;
-        const uint64_t w =
-            (static_cast<uint64_t>(db_hi[idx]) << 32) | db_lo[idx];
-        acc0[t] += static_cast<unsigned __int128>(x0) * w;
-        acc1[t] += static_cast<unsigned __int128>(x1) * w;
+        if constexpr (std::is_same<HiT, NoHi>::value) {
+          // K5: x, w < 2^32, so one 32x32 product is the whole of x * w
+          const uint32_t w = db_lo[idx];
+          acc0[t] += static_cast<uint64_t>(static_cast<uint32_t>(x0)) * w;
+          acc1[t] += static_cast<uint64_t>(static_cast<uint32_t>(x1)) * w;
+        } else {
+          const uint64_t w =
+              (static_cast<uint64_t>(db_hi[idx]) << 32) | db_lo[idx];
+          acc0[t] += static_cast<unsigned __int128>(x0) * w;
+          acc1[t] += static_cast<unsigned __int128>(x1) * w;
+        }
       }
     }
   }
@@ -118,12 +115,14 @@ scan_kernel(const uint64_t* __restrict__ sv, const HiT* __restrict__ db_hi,
 extern "C" {
 
 // out[P, 2, L, N] = contraction of sv[D, 2, L, N] with planes
-// [P, L, d_total, N] over j in [j_begin, j_begin + D).  hi_bytes is 1 or 2
-// (the hi plane's element size).  Returns cudaGetLastError().
+// [P, L, d_total, N] over j in [j_begin, j_begin + D).  hi_bytes is the hi
+// plane's element size: 1 or 2, or 0 for no hi plane (db_hi unused, moduli
+// below 2^32).  S must be 2.  Returns cudaGetLastError().
 int pir_scan(const void* sv, const void* db_hi, const void* db_lo,
-             const void* consts, void* out, int hi_bytes, int64_t P, int L,
-             int64_t d_total, int64_t j_begin, int64_t D, int64_t N,
+             const void* consts, void* out, int hi_bytes, int64_t P, int S,
+             int L, int64_t d_total, int64_t j_begin, int64_t D, int64_t N,
              void* stream) {
+  if (S != 2) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((N + kThreads - 1) / kThreads),
                   static_cast<unsigned>(L),
                   static_cast<unsigned>((P + kPTile - 1) / kPTile));
@@ -132,7 +131,10 @@ int pir_scan(const void* sv, const void* db_hi, const void* db_lo,
   const auto* lo = static_cast<const uint32_t*>(db_lo);
   const auto* c = static_cast<const uint64_t*>(consts);
   auto* y = static_cast<uint64_t*>(out);
-  if (hi_bytes == 1) {
+  if (hi_bytes == 0) {
+    scan_kernel<NoHi><<<grid, kThreads, 0, s>>>(
+        x, nullptr, lo, c, y, P, L, d_total, j_begin, D, N);
+  } else if (hi_bytes == 1) {
     scan_kernel<uint8_t><<<grid, kThreads, 0, s>>>(
         x, static_cast<const uint8_t*>(db_hi), lo, c, y, P, L, d_total,
         j_begin, D, N);

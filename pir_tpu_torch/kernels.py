@@ -9,8 +9,10 @@ module is imported, so the CPU tests import every module freely.
 
 Every C entry point launches on the stream it is handed and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises when that is not 0
-and otherwise adds one to the kernel's ``launches`` count — the count a run
-reads to show that its main path went through the kernel.
+and otherwise adds one to the kernel's ``launches`` count and to the count
+of the variant it launched (``entry_point.variant``, e.g. ``pir_scan.u32``)
+— the counts a run reads to show that its main path went through each
+kernel and each of its variants.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ class CudaKernel:
         self.source = CSRC / source
         self._entry_points = entry_points  # C function -> argtypes
         self.launches = 0
+        self.variant_launches: "dict[str, int]" = {}
         self.build_seconds: "float | None" = None
         self.build_log = ""
         self._lib = None
@@ -62,9 +65,10 @@ class CudaKernel:
         REGISTRY[name] = self
 
     def library_path(self) -> pathlib.Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+        h = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:16]
         return BUILD / f"lib{self.source.stem}-{digest}.so"
 
     def lib(self):
@@ -98,13 +102,15 @@ class CudaKernel:
         self.build_seconds = time.perf_counter() - t0
         return lib
 
-    def launch(self, fn_name: str, *args) -> None:
+    def launch(self, fn_name: str, *args, variant: "str | None" = None) -> None:
         lib = self.lib()
         rc = getattr(lib, fn_name)(*args)
         if rc != 0:
             msg = lib.cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({rc})")
         self.launches += 1
+        key = fn_name if variant is None else f"{fn_name}.{variant}"
+        self.variant_launches[key] = self.variant_launches.get(key, 0) + 1
 
 
 REGISTRY: "dict[str, CudaKernel]" = {}
@@ -113,10 +119,17 @@ REGISTRY: "dict[str, CudaKernel]" = {}
 def reset_launch_counts() -> None:
     for k in REGISTRY.values():
         k.launches = 0
+        k.variant_launches.clear()
 
 
 def launch_counts() -> "dict[str, int]":
+    """Launches per kernel (per source)."""
     return {name: k.launches for name, k in REGISTRY.items()}
+
+
+def variant_launch_counts() -> "dict[str, int]":
+    """Launches per entry point and variant, e.g. ``pir_scan.hi``."""
+    return {v: c for k in REGISTRY.values() for v, c in k.variant_launches.items()}
 
 
 def stream_handle(t) -> int:
@@ -130,7 +143,7 @@ NTT = CudaKernel(
     "ntt", "ntt.cu",
     {"pir_ntt": [_P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P]},
 )
-SCAN = CudaKernel(
-    "scan", "scan.cu",
-    {"pir_scan": [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64, _P]},
-)
+# sv, db_hi, db_lo, consts, out, hi_bytes, P, S, L, d_total, j_begin, D, N, stream
+_SCAN_ARGS = [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _P]
+SCAN = CudaKernel("scan", "scan.cu", {"pir_scan": _SCAN_ARGS})
+SCAN_WIDE = CudaKernel("scan_wide", "scan_wide.cu", {"pir_scan_wide": _SCAN_ARGS})

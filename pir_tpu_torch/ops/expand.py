@@ -19,10 +19,14 @@ from pir_tpu_torch.utils.math import ceil_log2, next_power_two
 
 
 def expand_level(
-    ctx: PirContext, galois_keys, cts: torch.Tensor, j: int
+    ctx: PirContext, galois_keys, cts: torch.Tensor, j: int, axis: int = 0
 ) -> torch.Tensor:
     """One doubling level: int64[B, 2, L, N] -> [2B, 2, L, N] (level j uses
-    Galois element N/2^j + 1)."""
+    Galois element N/2^j + 1).
+
+    axis: which axis doubles — batched serving runs Q trees as
+    int64[Q, B, 2, L, N] with axis=1 (every step is batched over leading
+    axes)."""
     n = ctx.n
     q = ctx.limbs_q.q
     galois_elt = (n >> j) + 1
@@ -34,7 +38,7 @@ def expand_level(
         q,
     )
     upper = modular.add_mod(cts, sub, q)
-    return torch.cat([upper, lower], dim=0)
+    return torch.cat([upper, lower], dim=axis)
 
 
 def expand_single(

@@ -22,6 +22,18 @@ from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import modular, poly, wide32
 
 
+def inner_product_method(ctx, qp) -> str:
+    """Which arithmetic :func:`_digit_inner_product` uses for key chain qp:
+    "u32", "48-bit" or "generic" (the same static choice as pir_tpu's)."""
+    moduli = tuple(int(m) for m in qp.moduli)
+    bits = max(m.bit_length() for m in moduli)
+    if bits <= 31 and ctx.L * (max(moduli) - 1) ** 2 < (1 << 64):
+        return "u32"
+    if bits <= 48 and ctx.L < (1 << 16):
+        return "48-bit"
+    return "generic"
+
+
 def _digit_inner_product(ctx, digits, data, qp):
     """acc[k] = Σ_i digits[i] ⊙ ksk[i, k] over the decomposition axis,
     reduced mod every key prime — the key switch's hot contraction.
@@ -29,17 +41,25 @@ def _digit_inner_product(ctx, digits, data, qp):
     digits: int64[..., L, Lp, N] NTT form; data: int64[L, 2, Lp, N].
     Returns reduced int64[..., 2, Lp, N].
 
+    * **u32** — key primes below 2^31 with the whole digit sum below 2^64
+      (L·q² < 2^64; the tpu32 profile): one 32×32 product per term, summed
+      as plain int64 (u64 bits), one Barrett reduction per output.
     * **48-bit raw** — primes below 2^48 (the SEAL default chain's 36/37-bit
       primes): three-word raw products summed exactly over the digit axis,
       one 96-bit Barrett reduction per output.
     * **generic** — any chain up to 61 bits: a Barrett reduction per
       product, reduced summands summed in u64.
     """
-    moduli = tuple(int(m) for m in qp.moduli)
-    bits = max(m.bit_length() for m in moduli)
+    method = inner_product_method(ctx, qp)
     x = digits[..., :, None, :, :]  # [..., L, 1, Lp, N]
 
-    if bits <= 48 and ctx.L < (1 << 16):
+    if method == "u32":
+        # both factors are reduced residues below 2^31: the int64 product is
+        # the exact 32x32 product
+        tot = (x * data).sum(dim=-4)
+        return modular.barrett_reduce_64(tot, qp.q, qp.ratio_hi)
+
+    if method == "48-bit":
         xh, xl = wide32.split_u64(x)
         wh, wl = wide32.split_u64(data)
         p2, p1, p0 = wide32.mul_u48_3w(xh, xl, wh, wl)

@@ -42,6 +42,15 @@ def mul_u48_3w(xh, xl, wh, wl):
     return p2, p1, ll_lo
 
 
+def sum64_over_axis(p1, p0, axis):
+    """Exact sum of 2-word products along `axis` (< 2^16 terms): the
+    single-word (moduli below 2^32) twin of :func:`sum96_over_axis`.
+    Returns (s2, s1, s0) words of the 96-bit total."""
+    s0 = p0.sum(dim=axis)
+    s1 = p1.sum(dim=axis) + (s0 >> 32)
+    return s1 >> 32, s1 & M32, s0 & M32
+
+
 def sum96_over_axis(p2, p1, p0, axis):
     """Exact sum of 3-word products along `axis` (< 2^16 terms).
 

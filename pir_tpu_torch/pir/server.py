@@ -1,18 +1,24 @@
 """PirServer: request processing — oblivious expansion + database scan.
 
-Port of the single-query serving path of ``pir_tpu/pir/server.py``
-(decomposition mode, planes scan).  The array-level core is
-:meth:`PirServer.process_query`: query ciphertexts and Galois keys on the
-device in, reply ciphertexts on the device out.  ``process_request_async``,
-``finalize_response`` and ``process_request`` wrap it with the wire format;
-replies are byte-identical to ``pir_tpu``'s for the same request.  A
-multi-query request runs its queries one after another.
+Port of the serving path of ``pir_tpu/pir/server.py`` (decomposition mode,
+planes scan).  The array-level cores are :meth:`PirServer.process_query`
+(one query) and :meth:`PirServer.process_batch` (B queries sharing one
+pass over the database): query ciphertexts and Galois keys on the device
+in, reply ciphertexts on the device out.  ``process_request_async``,
+``finalize_response``, ``process_request`` and ``process_request_batched``
+wrap them with the wire format; replies are byte-identical to
+``pir_tpu``'s for the same request.  A multi-query request whose query
+stacks share one shape goes through the batched path, in chunks of
+:meth:`PirServer.batch_lanes` queries.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Optional
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
 
 import torch
 
@@ -22,7 +28,7 @@ from pir_tpu_torch.ops.modular import numpy_u64, resolve_device, tensor_u64
 from pir_tpu_torch.pir import wire
 from pir_tpu_torch.pir.database import PirDatabase
 from pir_tpu_torch.proto import payload_pb2 as pb
-from pir_tpu_torch.utils.math import generate_galois_elts
+from pir_tpu_torch.utils.math import ceil_log2, generate_galois_elts
 
 _KEY_CACHE_ENTRIES = 8
 _REPLY_MARGIN_BITS = 12
@@ -41,6 +47,14 @@ def reply_limbs_for(params: PirParams) -> int:
         if bits >= t_bits + _REPLY_MARGIN_BITS:
             break
     return limbs
+
+
+class BatchedReplies(NamedTuple):
+    """A batched request's pending replies: per chunk, the device replies
+    int64[lanes, R, 2, L', N] and how many of its lanes are real queries
+    (the ragged tail's padding lanes are dropped)."""
+
+    chunks: list
 
 
 class PirServer:
@@ -91,6 +105,60 @@ class PirServer:
             reply = modswitch.mod_switch_to(ctx, reply, self.reply_limbs)
         return reply
 
+    def process_batch(self, query_cts: torch.Tensor, galois_keys) -> torch.Tensor:
+        """B queries at once: int64[B, k, 2, L, N] ciphertexts ->
+        replies int64[B, R, 2, L', N], each equal to process_query's.  The
+        expansion trees run side by side (levels double axis 1) and the
+        inner scan reads the database once for the whole batch."""
+        ctx = self.ctx
+        n = ctx.n
+        outs = []
+        remaining = self.params.dimensions_sum
+        for i in range(query_cts.shape[1]):
+            count = min(n, remaining)
+            remaining -= n
+            if count == 0:
+                continue
+            x = query_cts[:, i][:, None]
+            for j in range(ceil_log2(count)):
+                x = expand.expand_level(ctx, galois_keys, x, j, axis=1)
+            outs.append(x[:, :count])
+        sv = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+        sv_ntt = ctx.ntt_q.forward(sv)
+        reply = scan.database_scan_decomp_batched(
+            ctx, self.params.dimensions, sv_ntt, self.db.db_planes
+        )
+        if self.reply_limbs is not None:
+            reply = modswitch.mod_switch_to(ctx, reply, self.reply_limbs)
+        return reply
+
+    def batch_lanes(self) -> int:
+        """Queries per batched pass (pir_tpu's rule): per-lane transients are
+        about one selection vector and expansion tree, 3·dim_sum·2·L·N·8
+        bytes, within a 4 GiB budget, at most 16.  PIR_BATCH_LANES sets the
+        width and PIR_BATCH_MEM_BUDGET the budget, in both packages."""
+        cap = os.environ.get("PIR_BATCH_LANES")
+        if cap:
+            return max(1, int(cap))
+        lane_bytes = 3 * self.params.dimensions_sum * 2 * self.ctx.L * self.ctx.n * 8
+        budget = int(os.environ.get("PIR_BATCH_MEM_BUDGET", 4 << 30))
+        return max(1, min(16, budget // max(1, lane_bytes)))
+
+    def _batched_wide_async(self, all_queries: np.ndarray, galois_keys) -> BatchedReplies:
+        """Enqueue a host [Q, k, 2, L, N] query stack in chunks of
+        batch_lanes() queries, the ragged tail padded with the chunk's first
+        query."""
+        lanes = min(self.batch_lanes(), all_queries.shape[0])
+        chunks = []
+        for start in range(0, all_queries.shape[0], lanes):
+            chunk = all_queries[start : start + lanes]
+            count = chunk.shape[0]
+            if count != lanes:
+                chunk = np.concatenate([chunk, chunk[:1].repeat(lanes - count, 0)])
+            replies = self.process_batch(tensor_u64(chunk, self.device), galois_keys)
+            chunks.append((replies, count))
+        return BatchedReplies(chunks)
+
     # ------------------------------------------------------------------
     @staticmethod
     def _key_digest(gal: bytes, rel: bytes) -> bytes:
@@ -117,25 +185,49 @@ class PirServer:
         self._key_cache[digest] = keys
         return keys
 
+    def _query_stacks(self, request: pb.Request) -> list:
+        return [wire.load_ciphertexts(query, self.ctx) for query in request.query]
+
     def process_request_async(self, request: pb.Request):
         """Enqueue a request's device work and return a pending handle
-        (the replies, still on the device) for :meth:`finalize_response`."""
+        (the replies, still on the device) for :meth:`finalize_response`.
+        A multi-query request whose query stacks share one shape takes the
+        batched path (pir_tpu's reroute); its replies are byte-identical to
+        the per-query path's."""
         galois_keys = self._device_keys(request)
+        stacks = self._query_stacks(request)
+        if len(stacks) > 1 and len({s.shape for s in stacks}) == 1:
+            return self._batched_wide_async(np.stack(stacks), galois_keys)
         return [
-            self.process_query(
-                tensor_u64(wire.load_ciphertexts(query, self.ctx), self.device),
-                galois_keys,
-            )
-            for query in request.query
+            self.process_query(tensor_u64(stack, self.device), galois_keys)
+            for stack in stacks
         ]
 
     def finalize_response(self, pending) -> pb.Response:
         """Copy a process_request_async handle's replies to the host and
-        serialize them into a Response."""
+        serialize them into a Response.  The handle is a list of per-query
+        replies or a :class:`BatchedReplies`."""
         response = pb.Response()
+        if isinstance(pending, BatchedReplies):
+            for replies, count in pending.chunks:
+                host = numpy_u64(replies)
+                for qi in range(count):
+                    wire.save_ciphertexts(host[qi], response.reply.add())
+            return response
         for reply in pending:
             wire.save_ciphertexts(numpy_u64(reply), response.reply.add())
         return response
 
     def process_request(self, request: pb.Request) -> pb.Response:
         return self.finalize_response(self.process_request_async(request))
+
+    def process_request_batched(self, request: pb.Request) -> pb.Response:
+        """Like process_request, with every query (one included) on the
+        batched path: chunks of batch_lanes() queries, one pass over the
+        database each.  Query stacks of unequal shapes fall back to
+        process_request."""
+        galois_keys = self._device_keys(request)
+        stacks = self._query_stacks(request)
+        if len({s.shape for s in stacks}) != 1:
+            return self.process_request(request)
+        return self.finalize_response(self._batched_wide_async(np.stack(stacks), galois_keys))

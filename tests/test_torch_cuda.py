@@ -1,6 +1,7 @@
-"""Kernels A (NTT) and B (scan) on the card against their plain PyTorch
-versions, bit for bit (tolerance 0), and the port's server on the card
-against the same server on the CPU.
+"""Kernels A (NTT), B (scan, with and without a hi plane) and C (the wide
+scan of batched serving, both variants) on the card against their plain
+PyTorch versions, bit for bit (tolerance 0), and the port's server on the
+card against the same server on the CPU.
 
 These tests need an NVIDIA GPU and carry the ``cuda`` marker; without a card
 they skip.  This file imports no JAX, so it also runs on a machine that has
@@ -78,14 +79,48 @@ def test_scan_kernel_matches_plain(dev, bits, P, D):
     assert torch.equal(got.cpu(), want)
 
 
-def test_scan_kernel_needs_a_hi_plane(dev):
-    moduli = primes.coeff_modulus_from_bits(256, [26, 27])
+def test_scan_kernel_without_hi_plane_matches_plain(dev):
+    """Kernel B's single-word variant (K5) at moduli below 2^32."""
+    moduli = primes.coeff_modulus_from_bits(1024, [26, 26, 26])
     limbs = modular.LimbConstants(moduli, dev)
-    sv = residues(moduli, (3, 2), 256, dev, seed=1)
-    hi, lo = scan_kernel.split_planes(residues(moduli, (2, 3), 256, dev, 2).transpose(1, 2).contiguous(), moduli)
+    sv = residues(moduli, (162, 2), 256, dev, seed=1)
+    hi, lo = scan_kernel.split_planes(residues(moduli, (9, 162), 256, dev, 2).transpose(1, 2).contiguous(), moduli)
     assert hi is None
-    with pytest.raises(ValueError, match="tpu32"):
-        scan_kernel.contract_dim_auto(sv, hi, lo, limbs)
+    before = kernels.SCAN.variant_launches.get("pir_scan.u32", 0)
+    got = scan_kernel.contract_dim_auto(sv, hi, lo, limbs)
+    torch.cuda.synchronize()
+    assert kernels.SCAN.variant_launches["pir_scan.u32"] == before + 1
+    want = scan_kernel.contract_plain(sv.cpu(), None, lo.cpu(), modular.LimbConstants(moduli))
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="need a hi plane"):
+        wide = modular.LimbConstants(primes.coeff_modulus_from_bits(1024, [34, 36]), dev)
+        scan_kernel.contract_cuda(sv[:, :, :2].contiguous(), None, lo[:, :2].contiguous(), wide)
+
+
+@pytest.mark.parametrize(
+    "bits,P,D,S",
+    [((34, 36), 5, 7, 1), ((36, 36), 162, 162, 32), ((44, 46), 3, 40, 5),
+     ((26, 26, 26), 162, 162, 32), ((26, 27), 9, 20, 3), ((30, 30), 4, 33, 34)],
+)
+def test_scan_wide_kernel_matches_plain(dev, bits, P, D, S):
+    """Kernel C (K4 with a hi plane, K4-u32 without) at odd S, S=32 and a
+    width beyond one block pass (S=34)."""
+    moduli = primes.coeff_modulus_from_bits(1024, list(bits))
+    limbs = modular.LimbConstants(moduli, dev)
+    n = 256
+    sv = residues(moduli, (D, S), n, dev, seed=P + S)
+    db = residues(moduli, (P, D), n, dev, seed=D).transpose(1, 2).contiguous()
+    hi, lo = scan_kernel.split_planes(db, moduli)
+    assert (hi is None) == (max(bits) <= 32)
+    variant = "pir_scan_wide." + ("u32" if hi is None else "hi")
+    before = kernels.SCAN_WIDE.variant_launches.get(variant, 0)
+    got = scan_kernel.contract_dim_wide_auto(sv, hi, lo, limbs)  # 46-bit: 3 chunks
+    torch.cuda.synchronize()
+    assert kernels.SCAN_WIDE.variant_launches[variant] > before
+    want = scan_kernel.contract_dim_wide_auto(
+        sv.cpu(), None if hi is None else hi.cpu(), lo.cpu(), modular.LimbConstants(moduli)
+    )
+    assert torch.equal(got.cpu(), want)
 
 
 def test_launch_counts(dev):
@@ -96,7 +131,15 @@ def test_launch_counts(dev):
     tables.inverse(x)
     assert kernels.NTT.launches == before + 2
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"ntt": 0, "scan": 0}
+    assert kernels.launch_counts() == {"ntt": 0, "scan": 0, "scan_wide": 0}
+    assert kernels.variant_launch_counts() == {}
+    limbs = modular.LimbConstants(tables.moduli[:1], dev)
+    sv = residues(tables.moduli[:1], (3, 4), 64, dev, seed=4)
+    _, lo = scan_kernel.split_planes(residues(tables.moduli[:1], (2, 3), 64, dev, 5).transpose(1, 2).contiguous(), tables.moduli[:1])
+    scan_kernel.contract_dim_raw(sv[:, :2], None, lo, limbs)
+    scan_kernel.contract_dim_raw_wide(sv, None, lo, limbs)
+    assert kernels.launch_counts() == {"ntt": 0, "scan": 1, "scan_wide": 1}
+    assert kernels.variant_launch_counts() == {"pir_scan.u32": 1, "pir_scan_wide.u32": 1}
 
 
 @pytest.mark.parametrize("dims", [1, 2])
@@ -116,6 +159,35 @@ def test_server_on_card_matches_cpu(dev, dims):
     on_card = pt.PirServer(pt.PirDatabase.create(raw, params, dev), params).process_request(req)
     counts = kernels.launch_counts()
     on_cpu = pt.PirServer(pt.PirDatabase.create(raw, params, "cpu"), params).process_request(req)
-    assert counts["ntt"] > 0 and counts["scan"] > 0
+    # two queries take the batched path: kernel C, and kernel B above d=1
+    assert counts["ntt"] > 0 and counts["scan_wide"] > 0
+    assert (counts["scan"] > 0) == (dims > 1)
     assert on_card.SerializeToString() == on_cpu.SerializeToString()
     assert client.process_response([2, 49], on_card) == [raw[2], raw[49]]
+
+
+@pytest.mark.parametrize("bits", [(30, 30, 32), (34, 36, 37)], ids=["q32", "q36"])
+def test_multi_query_server_on_card_matches_cpu(dev, bits, monkeypatch):
+    """A 3-query request in lanes of 2 (the batched path, a ragged tail),
+    through kernel C and kernel B, with and without a hi plane."""
+    monkeypatch.setenv("PIR_BATCH_LANES", "2")
+    n = 128
+    ep = pt.EncryptionParams(
+        poly_modulus_degree=n,
+        plain_modulus=primes.get_prime(2 * n, 13),
+        coeff_modulus=tuple(primes.coeff_modulus_from_bits(n, list(bits))),
+    )
+    params = pt.create_pir_parameters(50, 8, 2, ep)
+    rng = np.random.default_rng(7)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    client = pt.PirClient(params, seed=8, compress_queries=True)
+    indexes = [2, 49, 17]
+    req = client.create_request(indexes)
+    variant = "u32" if max(bits) <= 32 else "hi"
+    kernels.reset_launch_counts()
+    on_card = pt.PirServer(pt.PirDatabase.create(raw, params, dev), params).process_request(req)
+    counts = kernels.variant_launch_counts()
+    on_cpu = pt.PirServer(pt.PirDatabase.create(raw, params, "cpu"), params).process_request(req)
+    assert counts[f"pir_scan_wide.{variant}"] == 2 and counts[f"pir_scan.{variant}"] == 4
+    assert on_card.SerializeToString() == on_cpu.SerializeToString()
+    assert client.process_response(indexes, on_card) == [raw[i] for i in indexes]

@@ -19,8 +19,8 @@ from pir_tpu_torch.ops import keyswitch as tks
 from pir_tpu_torch.ops.modular import numpy_u64, tensor_u64
 from pir_tpu_torch.utils.math import next_power_two
 
-# (26, 27, 28): pir_tpu's u32 key-switch branch vs the port's 48-bit branch;
-# (34, 36, 37): both 48-bit; (50, 52, 54): both generic (Barrett per product)
+# key-switch digit inner product: (26, 27, 28) u32 branch in both packages;
+# (34, 36, 37) 48-bit raw; (50, 52, 54) generic (Barrett per product)
 CHAINS = [(26, 27, 28), (34, 36, 37), (50, 52, 54)]
 
 
@@ -87,3 +87,39 @@ def test_expand_query_multi_ct(setup):
     assert np.array_equal(numpy_u64(got), ref)
     with pytest.raises(ValueError, match="number of ciphertexts"):
         texpand.expand_query(tctx, tkeys, tensor_u64(cts), 3)
+
+
+@pytest.mark.parametrize("level", [0, 3])
+def test_expand_level_axis1_two_trees(setup, level):
+    """Batched serving's expansion: Q=2 trees as [Q, B, 2, L, N], axis 1
+    doubling, equal to pir_tpu's and to each tree expanded alone."""
+    tk, tctx, keys, tkeys = setup
+    cts = rand_ct(np.random.default_rng(10 + level), tk.ctx, (2, 3))
+    jk = {e: jnp.asarray(v) for e, v in keys.items()}
+    ref = np.asarray(jexpand.expand_level(tk.ctx, jk, jnp.asarray(cts), level, axis=1))
+    got = texpand.expand_level(tctx, tkeys, tensor_u64(cts), level, axis=1)
+    assert got.shape == (2, 6, 2, tctx.L, tctx.n)
+    assert np.array_equal(numpy_u64(got), ref)
+    for q in range(2):
+        alone = texpand.expand_level(tctx, tkeys, tensor_u64(cts[q]), level)
+        assert np.array_equal(numpy_u64(alone), ref[q])
+
+
+def test_digit_inner_product_branch(setup):
+    """The key switch's inner product against pir_tpu's on NTT-form digits,
+    and the branch each chain takes (u32 at the ≤31-bit chain)."""
+    tk, tctx, keys, tkeys = setup
+    bits = max(int(q).bit_length() for q in tctx.key_moduli)
+    want = "u32" if bits <= 31 else "48-bit" if bits <= 48 else "generic"
+    assert tks.inner_product_method(tctx, tctx.limbs_qp) == want
+    rng = np.random.default_rng(bits)
+    digits = np.zeros((2, tctx.L, tctx.Lp, tctx.n), dtype=np.uint64)
+    for k, q in enumerate(tctx.key_moduli):
+        digits[..., k, :] = rng.integers(0, q, size=(2, tctx.L, tctx.n), dtype=np.uint64)
+    jc = tk.ctx
+    ksk = keys[tk.ctx.n + 1]
+    ref = jks._digit_inner_product(jc, jnp.asarray(digits), jnp.asarray(ksk), jc.limbs_qp)
+    got = tks._digit_inner_product(
+        tctx, tensor_u64(digits), tkeys[tk.ctx.n + 1], tctx.limbs_qp
+    )
+    assert np.array_equal(numpy_u64(got), np.asarray(ref))
