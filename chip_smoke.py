@@ -1,20 +1,24 @@
 """Drive pir_tpu_torch on one CUDA card: build its kernels, check each against
 its plain PyTorch version, then serve SealPIR requests at the benchmark
-configuration, single and batched, on SEAL's chain and on the tpu32 profile,
-and check every retrieved item.
+configuration — single and batched, on SEAL's chain and on the tpu32
+profile, on the planes and on the Shoup-table database, and on meshes of
+ranks that share the card — and check every retrieved item.
 
     python3 chip_smoke.py               # 2^20 items of 288 B, d=2, N=4096
 
 Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build kernels A (NTT), B (scan) and C (wide scan) from pir_tpu_torch/csrc
-   with nvcc, all three at once;
+2. build kernels A (NTT), B (scan), C (wide scan) and D (Shoup-table scan)
+   from pir_tpu_torch/csrc with nvcc, all at once;
 3. each kernel against its plain version on the card, bit for bit, at the
-   shapes the main paths give it, with both times: A; B with a hi plane (K1)
-   and without (K5, tpu32); C at S = 32 columns with a hi plane (K4) and
-   without (K4-u32), beside 16 calls of kernel B on the same columns, with
-   GB/s of database planes;
+   shapes the main paths give it, with both times and the bound: A; B with
+   a hi plane (K1) and without (K5, tpu32); C at S = 32 columns with a hi
+   plane (K4) and without (K4-u32), beside 16 calls of kernel B on the same
+   columns, with GB/s of database planes; B's runtime-moduli entry (K6) at
+   the shapes of one rank of the limb-sharded meshes below; D (K7) at the
+   inner scan of the Shoup-table database, on SEAL's chain and on a chain of
+   60-bit moduli (above the planes' 48 bits, where its sums fold);
 4. a small database served on the card and on the CPU (plain versions):
    the Response bytes must be equal;
 5. the benchmark configuration (288-byte items, d=2, N=4096, 24-bit plain
@@ -37,7 +41,25 @@ Phases, each of which raises on failure:
    plane) on a stamped 2^20-item database: a batched request of 16 queries
    and the 16 single-query requests of its queries, every item decoded, the
    same bytes both ways; kernel B's and kernel C's single-word variants must
-   have run.  The same latencies and peak memory.
+   have run.  The same latencies and peak memory;
+9. the Shoup-table database (scan_impl="xla") of the stamped items: three
+   requests, each Response byte-equal to the planes database's, every item
+   decoded; kernel D must have run;
+10. the mesh on the one card: 4 ranks (db=2 x batch=1 x limb=2, gloo, each
+   its own process on cuda:0) serve one request of 2 queries on the stamped
+   SEAL database; every rank's Response must equal the single-device
+   server's byte for byte and decode; the ranks must have launched K6 and
+   kernel A.  Then 3 ranks (limb=3) on the tpu32 database, through K6's
+   single-word variant.  The latency is of co-located ranks over gloo on
+   one card, not a multi-GPU figure.  Each rank's device memory once its
+   server holds only its shard, and its peak over the build and requests.
+
+Bounds: the least time for a kernel's work on an H100 SXM — the larger of
+its bytes (each input read once, each output written once) at 3.35 TB/s and
+its 32-bit integer multiply instructions at 16.75 T/s (the on-chip
+guide's 67 TFLOP/s float32 rate is 128 lanes per SM; Hopper has 64 INT32
+lanes per SM).  No single PyTorch call computes a modular contraction or a
+negacyclic NTT, so library_ms is null for every kernel.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
@@ -64,6 +86,13 @@ DB_SEED = 42
 CLIENT_SEED = 7
 POOL_ITEMS = 4096  # distinct random items the benchmark data repeats
 BATCH_QUERIES = 18  # one chunk of 16 lanes and a ragged tail of 2
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 67e12 / 4  # 132 SMs x 64 INT32 lanes x 1.98 GHz
+# 32-bit multiply instructions per product (a 32x32 -> 64 product is two)
+MULS_48BIT = 8  # kernels B and C with a hi plane: four partial products
+MULS_32BIT = 3  # without: one product and its carry
+MULS_SHOUP = 16  # kernels A and D: x*w, the companion's high word, est*q
+MESH_TIMEOUT_S = 420
 
 
 def log(msg: str) -> None:
@@ -82,6 +111,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, muls: float) -> dict:
+    """The least time for the work on the card, and which limit sets it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = muls / IMAD_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
+
+
+def scan_bound(sv, hi, lo, out_cols: int) -> dict:
+    """Bound of a planes contraction: sv and planes read once, [P, S, L, N]
+    written once; one product per (prefix, row, column, limb, coefficient)."""
+    P, L, D, N = lo.shape
+    nbytes = sv.numel() * 8 + planes_gb(hi, lo) * 1e9 + P * out_cols * L * N * 8
+    muls = P * D * L * N * out_cols * (MULS_32BIT if hi is None else MULS_48BIT)
+    return bound(nbytes, muls)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -128,10 +175,15 @@ def check_ntt(device, gen) -> dict:
             ms = cuda_ms(lambda: ntt_cuda(tables, x, inverse), 20)
             plain_ms = cuda_ms(lambda: ntt_plain(tables, x, inverse), 3)
             name = "inverse" if inverse else "forward"
+            polys = x.numel() // tables.n
+            butterflies = polys * tables.n // 2 * (tables.n.bit_length() - 1)
+            nbytes = 2 * x.numel() * 8 + 2 * tables.psi_rev.numel() * 8
+            numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **bound(nbytes, butterflies * MULS_SHOUP)}
             log(f"kernel A {name} {label}: bit-equal to plain (max_abs_err 0); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if headline is None:
-                headline = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
+            headline = headline or numbers
         back = ntt_cuda(tables, ntt_cuda(tables, x, False), True)
         if not torch.equal(back, x):
             raise AssertionError(f"kernel A round trip fails at {label}")
@@ -179,17 +231,20 @@ def check_scan(device, gen) -> dict:
             sv = random_residues(chain, (D, 2), POLY_DEGREE, device, gen)
             hi, lo = random_planes(chain, P, D, device, gen)
             got = scan_kernel.contract_cuda(sv, hi, lo, limbs)
-            want = scan_kernel.contract_plain(sv, hi, lo, limbs)
+            want = scan_kernel.contract_plain(sv, hi, lo, limbs.table)
             err = max_abs_err(got, want)
             if err != 0 or not torch.equal(got, want):
                 raise AssertionError(f"kernel B differs from plain at {profile} {label}")
             ms = cuda_ms(lambda: scan_kernel.contract_cuda(sv, hi, lo, limbs), 10)
-            plain_ms = cuda_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs), 2)
+            plain_ms = cuda_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
             variant = "K1" if hi is not None else "K5"
+            numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **scan_bound(sv, hi, lo, 2)}
             log(f"kernel B ({variant}) {profile} {label}: bit-equal to plain (max_abs_err 0); "
                 f"kernel {ms:.4f} ms ({planes_gb(hi, lo) / ms * 1e3:.1f} GB/s of planes), "
-                f"plain {plain_ms:.4f} ms")
-            headline.setdefault(variant, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                f"plain {plain_ms:.4f} ms, bound {numbers['bound_ms']:.4f} ms "
+                f"({numbers['bound_by']})")
+            headline.setdefault(variant, numbers)
     return headline
 
 
@@ -208,7 +263,7 @@ def check_scan_wide(device, gen) -> dict:
         sv = random_residues(chain, (162, S), POLY_DEGREE, device, gen)
         hi, lo = random_planes(chain, 162, 162, device, gen)
         got = scan_kernel.contract_wide_cuda(sv, hi, lo, limbs)
-        want = scan_kernel.contract_wide_plain(sv, hi, lo, limbs)
+        want = scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table)
         err = max_abs_err(got, want)
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"kernel C differs from plain at {profile}")
@@ -218,14 +273,84 @@ def check_scan_wide(device, gen) -> dict:
                 raise AssertionError(f"kernel C columns differ from kernel B at {profile}")
         ms = cuda_ms(lambda: scan_kernel.contract_wide_cuda(sv, hi, lo, limbs), 5)
         b16_ms = cuda_ms(lambda: [scan_kernel.contract_cuda(x, hi, lo, limbs) for x in pairs], 3)
-        plain_ms = cuda_ms(lambda: scan_kernel.contract_wide_plain(sv, hi, lo, limbs), 1)
+        plain_ms = cuda_ms(lambda: scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table), 1)
         gb = planes_gb(hi, lo)
         variant = "K4" if hi is not None else "K4-u32"
+        headline[variant] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             **scan_bound(sv, hi, lo, S)}
         log(f"kernel C ({variant}) {profile} sv [162,{S},{L},4096] planes [162,{L},162,4096]: "
             f"bit-equal to plain (max_abs_err 0); kernel {ms:.4f} ms "
             f"({gb / ms * 1e3:.1f} GB/s of planes); 16 x kernel B on the same columns "
-            f"{b16_ms:.4f} ms ({gb / (b16_ms / 16) * 1e3:.1f} GB/s each); plain {plain_ms:.4f} ms")
-        headline[variant] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            f"{b16_ms:.4f} ms ({gb / (b16_ms / 16) * 1e3:.1f} GB/s each); plain {plain_ms:.4f} ms, "
+            f"bound {headline[variant]['bound_ms']:.4f} ms ({headline[variant]['bound_by']})")
+    return headline
+
+
+def check_scan_dyn(device, gen) -> dict:
+    """Kernel B's runtime-moduli entry (K6) vs its plain version (tolerance
+    0) at one rank's shapes: limb 1 of SEAL's chain on a db=2 x limb=2 mesh
+    (planes [81, 1, 162, 4096], a hi plane), and one limb of tpu32 on a
+    limb=3 mesh (no hi plane)."""
+    from pir_tpu_torch.ops import modular, scan_kernel
+
+    headline = None
+    for profile, ep, limb, P in (("seal", chains()["seal"], 1, 81), ("tpu32", chains()["tpu32"], 2, 162)):
+        chain = ep.ct_modulus
+        bits = max(q.bit_length() for q in chain)
+        limbs = modular.LimbConstants(chain, device).limb_range(limb, limb + 1)
+        consts = scan_kernel.limb_consts(limbs.q, limbs.ratio_hi, limbs.ratio_lo)
+        sv = random_residues(limbs.moduli, (162, 2), POLY_DEGREE, device, gen)
+        db = random_residues(limbs.moduli, (P, 162), POLY_DEGREE, device, gen)
+        hi, lo = scan_kernel.split_planes(db.transpose(1, 2).contiguous(), bits=bits)
+        got = scan_kernel.contract_dim_raw_dyn(sv, hi, lo, consts, bits)
+        want = scan_kernel.contract_plain(sv, hi, lo, limbs.table)
+        err = max_abs_err(got, want)
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"K6 differs from plain at {profile} limb {limb}")
+        ms = cuda_ms(lambda: scan_kernel.contract_dim_raw_dyn(sv, hi, lo, consts, bits), 10)
+        plain_ms = cuda_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
+        numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **scan_bound(sv, hi, lo, 2)}
+        log(f"kernel B runtime moduli (K6) {profile} limb {limb} sv [162,2,1,4096] planes "
+            f"[{P},1,162,4096] ({'hi plane' if hi is not None else 'no hi plane'}): bit-equal "
+            f"to plain (max_abs_err 0); kernel {ms:.4f} ms "
+            f"({planes_gb(hi, lo) / ms * 1e3:.1f} GB/s of planes), plain {plain_ms:.4f} ms, "
+            f"bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
+        headline = headline or numbers
+    return headline
+
+
+def check_scan_shoup(device, gen) -> dict:
+    """Kernel D (K7) vs its plain version (tolerance 0) at the inner scan of
+    the Shoup-table database: sv [162, 2, 2, 4096], db and companions
+    [162, 162, 2, 4096] — on SEAL's chain (the headline, served below), and
+    on a chain of two 60-bit moduli, which only this layout serves: its u64
+    sums fold every 8 rows, 21 times over the 162."""
+    from pir_tpu_torch.core import primes
+    from pir_tpu_torch.ops import modular, scan_kernel
+
+    headline = None
+    for label, chain in (("SEAL chain", chains()["seal"].ct_modulus),
+                         ("60-bit chain", primes.coeff_modulus_from_bits(POLY_DEGREE, [60, 60]))):
+        limbs = modular.LimbConstants(chain, device)
+        sv = random_residues(chain, (162, 2), POLY_DEGREE, device, gen)
+        db = random_residues(chain, (162, 162), POLY_DEGREE, device, gen)
+        shoup = modular.shoup_precompute_device(db, limbs.q, limbs.ratio_hi, limbs.ratio_lo)
+        got = scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs)
+        want = scan_kernel.contract_shoup_plain(sv, db, shoup, limbs)
+        err = max_abs_err(got, want)
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"kernel D differs from plain at the inner scan, {label}")
+        ms = cuda_ms(lambda: scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs), 10)
+        plain_ms = cuda_ms(lambda: scan_kernel.contract_shoup_plain(sv, db, shoup, limbs), 2)
+        nbytes = (sv.numel() + 2 * db.numel() + got.numel()) * 8
+        numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   **bound(nbytes, db.numel() * 2 * MULS_SHOUP)}
+        log(f"kernel D (K7) {label} sv [162,2,2,4096] db+shoup [162,162,2,4096]: bit-equal "
+            f"to plain (max_abs_err 0); kernel {ms:.4f} ms ({nbytes / 1e9 / ms * 1e3:.1f} GB/s "
+            f"of {nbytes / 1e9:.2f} GB), plain {plain_ms:.4f} ms, bound "
+            f"{numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
+        headline = headline or numbers
+        del sv, db, shoup, got, want
     return headline
 
 
@@ -244,10 +369,10 @@ def check_small_against_cpu(device) -> None:
     params = pt.create_pir_parameters(60, 64, 2, ep)
     rng = np.random.default_rng(3)
     raw = [rng.integers(0, 256, 64, dtype=np.uint8).tobytes() for _ in range(60)]
-    client = pt.PirClient(params, seed=5, compress_queries=True)
+    client = pt.PirClient(params, seed=5, compress_queries=True, device="cpu")
     req = client.create_request([0, 37])
     responses = [
-        pt.PirServer(pt.PirDatabase.create(raw, params, dev), params).process_request(req)
+        pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params).process_request(req)
         for dev in (device, "cpu")
     ]
     if responses[0].SerializeToString() != responses[1].SerializeToString():
@@ -272,13 +397,13 @@ def serve_bench_config(device, log2_items: int):
     pool = [rng.integers(0, 256, ITEM_SIZE, dtype=np.uint8).tobytes()
             for _ in range(min(db_size, POOL_ITEMS))]
     raw = [pool[i % len(pool)] for i in range(db_size)]
-    db = pt.PirDatabase.create(raw, params, device)
+    db = pt.PirDatabase.create(raw, params, device=device)
     torch.cuda.synchronize()
     log(f"database: {db_size} items of {ITEM_SIZE} B, dims {params.dimensions}, "
         f"{params.num_pt} plaintexts, planes on {device} in "
         f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True)
+    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device="cpu")
     reply_limbs = pt.reply_limbs_for(params)
     server = pt.PirServer(db, params, reply_limbs=reply_limbs)
     indexes = [db_size // 3, 7, db_size - 1]
@@ -322,7 +447,7 @@ def check_full_size_indexing(device, params, client, raw):
 
     stamped = stamped_items(raw)
     t0 = time.perf_counter()
-    db = pt.PirDatabase.create(stamped, params, device)
+    db = pt.PirDatabase.create(stamped, params, device=device)
     server = pt.PirServer(db, params, reply_limbs=pt.reply_limbs_for(params))
     torch.cuda.synchronize()
     log(f"stamped database (item index in bytes 0-3) built in "
@@ -418,18 +543,103 @@ def serve_tpu32(device) -> dict:
     pool = [rng.integers(0, 256, ITEM_SIZE, dtype=np.uint8).tobytes() for _ in range(POOL_ITEMS)]
     items = stamped_items([pool[i % POOL_ITEMS] for i in range(db_size)])
     t0 = time.perf_counter()
-    db = pt.PirDatabase.create(items, params, device)
+    db = pt.PirDatabase.create(items, params, device=device)
     torch.cuda.synchronize()
     if db.db_planes[0] is not None:
         raise AssertionError("the tpu32 database has a hi plane")
     reply_limbs = pt.reply_limbs_for(params)
     server = pt.PirServer(db, params, reply_limbs=reply_limbs)
-    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True)
+    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device="cpu")
     log(f"tpu32 profile: ct moduli {[q.bit_length() for q in ep.ct_modulus]} bits, special "
         f"{ep.special_modulus.bit_length()} bits, reply_limbs={reply_limbs}; stamped "
         f"database of {db_size} items on {device} in {time.perf_counter() - t0:.2f} s")
     indexes = [(k * 65537 + 11) % db_size for k in range(15)] + [db_size - 1]
-    return serve_batched(server, client, items, indexes, "tpu32")
+    return serve_batched(server, client, items, indexes, "tpu32"), (params, db, client, items)
+
+
+def serve_shoup(device, params, client, items, planes_server) -> dict:
+    """The Shoup-table layout (scan_impl="xla") of the stamped items: three
+    requests, each Response equal to the planes server's, every item
+    decoded.  Returns the launch counts of the three requests."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    db = pt.PirDatabase.create(items, params, scan_impl="xla", device=device)
+    torch.cuda.synchronize()
+    gb = (db.db_ntt.numel() + db.db_ntt_shoup.numel()) * 8 / 1e9
+    log(f"Shoup-table database of the stamped items: db_ntt + db_ntt_shoup {gb:.2f} GB "
+        f"on {device}, built in {time.perf_counter() - t0:.2f} s")
+    server = pt.PirServer(db, params, reply_limbs=planes_server.reply_limbs)
+    indexes = [5, len(items) // 2 + 3, len(items) - 2]
+    requests = [client.create_request([i]) for i in indexes]
+    kernels.reset_launch_counts()
+    responses, latencies = [], []
+    for req in requests:
+        resp, ms = timed(lambda: server.process_request(req))
+        responses.append(resp)
+        latencies.append(ms)
+    counts = kernels.variant_launch_counts()
+    for idx, req, resp in zip(indexes, requests, responses):
+        if resp.SerializeToString() != planes_server.process_request(req).SerializeToString():
+            raise AssertionError(f"Shoup-table and planes Responses differ at item {idx}")
+        check_items(client, [idx], resp, items, "Shoup-table layout")
+    log(f"Shoup-table layout: 3/3 requests at {indexes} byte-equal to the planes "
+        f"database's and retrieved; latency {', '.join(f'{x:.2f}' for x in latencies)} ms; "
+        f"launches {counts}")
+    require(counts, ("pir_ntt", "pir_scan_shoup"), "Shoup-table")
+    del server, db
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, limb) -> dict:
+    """One request of len(indexes) queries on a mesh of gloo ranks that all
+    run on `device` (one process each, pir_tpu_torch.parallel.mesh_worker):
+    every rank's Response must equal the single-device server's and decode.
+    Returns the launch counts summed over the ranks."""
+    import tempfile
+
+    import pir_tpu_torch as pt
+    from pir_tpu_torch.parallel import mesh_worker
+    from pir_tpu_torch.pir import wire
+    from pir_tpu_torch.proto import payload_pb2 as pb
+
+    world = n_db * batch * limb
+    request = client.create_request(indexes)
+    want = pt.PirServer(db, params).process_request(request).SerializeToString()
+    case = {
+        "name": label, "params": wire.pir_params_to_proto(params).SerializeToString(),
+        "items": b"".join(items), "scan_impl": "pallas", "batch": batch, "limb": limb,
+        "requests": [request.SerializeToString()] * 2,
+    }
+    job = {"world": world, "backend": "gloo", "devices": [str(device)] * world,
+           "timeout_s": MESH_TIMEOUT_S, "cases": [case]}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        results = mesh_worker.run_job(job, tmp, MESH_TIMEOUT_S)
+    total_s = time.perf_counter() - t0
+    counts = {}
+    for rank, res in enumerate(results):
+        got = res[label]
+        if not res["replicate_ok"] or any(r != want for r in got["responses"]):
+            raise AssertionError(f"{label} mesh: rank {rank}'s Response differs from single-device")
+        for k, v in got["counts"][-1].items():
+            counts[k] = counts.get(k, 0) + v
+    check_items(client, indexes, pb.Response.FromString(want), items, f"{label} mesh")
+    first = [res[label]["ms"][0] for res in results]
+    warm = [res[label]["ms"][1] for res in results]
+    held = ", ".join(f"{res[label]['held_mib']:.1f}" for res in results)
+    peak = ", ".join(f"{res[label]['peak_mib']:.1f}" for res in results)
+    log(f"{label} mesh: {world} ranks (db={n_db} x batch={batch} x "
+        f"limb={limb}, gloo, co-located on one card — not a multi-GPU figure), request of "
+        f"{len(indexes)} queries: every rank's Response byte-equal to the single-device "
+        f"server's, items retrieved; latency first {max(first):.2f} ms, warm "
+        f"{max(warm):.2f} ms (slowest rank); launches summed over ranks {counts}; "
+        f"device memory per rank held after the build (its shard) [{held}] MiB, peak over "
+        f"the build and the requests [{peak}] MiB; job {total_s:.2f} s with the ranks' "
+        f"database builds")
+    return counts
 
 
 def build_kernels() -> None:
@@ -441,7 +651,7 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels.REGISTRY)) as ex:
         list(ex.map(lambda k: k.lib(), kernels.REGISTRY.values()))
-    log(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s (in parallel)")
     for k in kernels.REGISTRY.values():
         log(f"kernel {k.name}: {k.library_path().name} ({k.build_seconds:.2f} s)")
         for line in k.build_log.splitlines():
@@ -475,6 +685,8 @@ def main() -> int:
     ntt = check_ntt(device, gen)
     scan = check_scan(device, gen)
     wide = check_scan_wide(device, gen)
+    dyn = check_scan_dyn(device, gen)
+    shoup = check_scan_shoup(device, gen)
     check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
     server, stamped = check_full_size_indexing(device, params, client, raw)
@@ -482,9 +694,17 @@ def main() -> int:
     indexes = [(k * 58271 + 5) % len(stamped) for k in range(BATCH_QUERIES - 1)] + [len(stamped) - 1]
     batched = serve_batched(server, client, stamped, indexes, "SEAL chain")
     require(batched, ("pir_ntt", "pir_scan_wide.hi", "pir_scan.hi"), "batched")
+    shoup_counts = serve_shoup(device, params, client, stamped, server)
+    mesh = serve_mesh(device, "SEAL chain", params, client, stamped, server.db,
+                      [len(stamped) // 5, len(stamped) - 3], n_db=2, batch=1, limb=2)
+    require(mesh, ("pir_ntt", "pir_scan.hi.dyn"), "SEAL-chain mesh")
     del server, stamped
-    tpu32 = serve_tpu32(device)
+    torch.cuda.empty_cache()
+    tpu32, (params32, db32, client32, items32) = serve_tpu32(device)
     require(tpu32, ("pir_ntt", "pir_scan_wide.u32", "pir_scan.u32"), "tpu32")
+    mesh32 = serve_mesh(device, "tpu32", params32, client32, items32, db32,
+                        [17, len(items32) - 5], n_db=1, batch=1, limb=3)
+    require(mesh32, ("pir_ntt", "pir_scan.u32.dyn"), "tpu32 mesh")
 
     src = "pir_tpu_torch/csrc/"
     rows = [
@@ -496,6 +716,10 @@ def main() -> int:
          tpu32["pir_scan_wide.u32"], wide["K4-u32"]),
         ("scan u32 (K5)", "scan.cu", "pir_tpu/ops/pallas_scan.py:167",
          tpu32["pir_scan.u32"], scan["K5"]),
+        ("scan dyn (K6)", "scan.cu", "pir_tpu/ops/pallas_scan.py:204 and :187",
+         mesh["pir_scan.hi.dyn"] + mesh32["pir_scan.u32.dyn"], dyn),
+        ("scan_shoup (K7)", "scan_shoup.cu", "pir_tpu/ops/pallas_scan.py:32",
+         shoup_counts["pir_scan_shoup"], shoup),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + file, "replaces": replaces,

@@ -28,13 +28,14 @@ def galois_keys_from_numpy(keys: dict, device=None) -> "dict[int, torch.Tensor]"
 
 
 def database_from_plaintexts(
-    params: PirParams, db_pts_u64: np.ndarray, device=None
+    params: PirParams, db_pts_u64: np.ndarray, device=None, scan_impl: str = "auto"
 ) -> PirDatabase:
     """A PirDatabase from already-encoded plaintexts u64[num_pt, N]
-    (e.g. ``pir_tpu.PirDatabase.db_pts``)."""
+    (e.g. ``pir_tpu.PirDatabase.db_pts``), on `device` (the card by
+    default)."""
     pts = np.asarray(db_pts_u64, dtype=np.uint64)
     if pts.shape != (params.num_pt, params.encryption_params.poly_modulus_degree):
         raise ValueError(f"plaintexts of shape {pts.shape} do not match params")
-    db = PirDatabase(params, device)
+    db = PirDatabase(params, scan_impl=scan_impl, device=device)
     db._finalize(pts)
     return db

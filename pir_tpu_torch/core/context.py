@@ -19,6 +19,10 @@ from pir_tpu_torch.ops.ntt import NttTables
 
 
 class PirContext:
+    # Set on the per-rank views of a limb-sharded mesh
+    # (parallel/sharded.py); the base context is always limb-dense.
+    limb_axis_name: "str | None" = None
+
     def __init__(self, params: PirParams, device=None):
         self.params = params
         self.device = modular.resolve_device(device)
@@ -64,6 +68,12 @@ class PirContext:
         # tables derived lazily from this context, keyed by the deriving
         # code's own names (permutations here, ops/modswitch.py's constants)
         self.derived: dict = {}
+
+    def take_ct_limbs(self, x: torch.Tensor) -> torch.Tensor:
+        """The ciphertext-level limbs this context owns out of a
+        key-basis tensor [..., Lp, N].  Limb-shard views override this with
+        the rank's own slice."""
+        return x[..., : self.L, :]
 
     # ------------------------------------------------------------------
     # Permutation tables (Galois automorphisms, negacyclic monomial shifts)

@@ -1,4 +1,5 @@
-// Modular helpers shared by the scan kernels (csrc/scan.cu, csrc/scan_wide.cu).
+// Modular helpers shared by the kernels (csrc/ntt.cu, csrc/scan.cu,
+// csrc/scan_wide.cu, csrc/scan_shoup.cu).  Every modulus is below 2^61.
 #pragma once
 
 #include <cstdint>
@@ -21,4 +22,28 @@ __device__ __forceinline__ uint64_t barrett_reduce_128(uint64_t hi,
   const uint64_t quot = hi * ratio_hi + tmp3 + carry4;
   const uint64_t r = lo - quot * q;
   return r >= q ? r - q : r;
+}
+
+// Port of pir_tpu/ops/modular.py::barrett_reduce_64: x mod q with
+// ratio_hi = floor(2^64 / q) (the high word of floor(2^128 / q)).
+__device__ __forceinline__ uint64_t barrett_reduce_64(uint64_t x, uint64_t q,
+                                                      uint64_t ratio_hi) {
+  const uint64_t r = x - __umul64hi(x, ratio_hi) * q;
+  return r >= q ? r - q : r;
+}
+
+// x * w mod q by Shoup's method, w_shoup = floor(w * 2^64 / q), x < 2^64:
+// one high product against the companion, two low products, one
+// conditional subtract.
+__device__ __forceinline__ uint64_t mul_shoup(uint64_t x, uint64_t w,
+                                              uint64_t w_shoup, uint64_t q) {
+  const uint64_t est = __umul64hi(x, w_shoup);
+  const uint64_t r = x * w - est * q;
+  return r >= q ? r - q : r;
+}
+
+__device__ __forceinline__ uint64_t add_mod(uint64_t a, uint64_t b,
+                                            uint64_t q) {
+  const uint64_t s = a + b;
+  return s >= q ? s - q : s;
 }

@@ -26,20 +26,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "modarith.cuh"
+
 namespace {
-
-__device__ __forceinline__ uint64_t mul_shoup(uint64_t x, uint64_t w,
-                                              uint64_t w_shoup, uint64_t q) {
-  const uint64_t est = __umul64hi(x, w_shoup);
-  const uint64_t r = x * w - est * q;
-  return r >= q ? r - q : r;
-}
-
-__device__ __forceinline__ uint64_t add_mod(uint64_t a, uint64_t b,
-                                            uint64_t q) {
-  const uint64_t s = a + b;
-  return s >= q ? s - q : s;
-}
 
 __device__ __forceinline__ uint64_t sub_mod(uint64_t a, uint64_t b,
                                             uint64_t q) {

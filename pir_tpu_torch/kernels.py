@@ -10,7 +10,8 @@ module is imported, so the CPU tests import every module freely.
 Every C entry point launches on the stream it is handed and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises when that is not 0
 and otherwise adds one to the kernel's ``launches`` count and to the count
-of the variant it launched (``entry_point.variant``, e.g. ``pir_scan.u32``)
+of the variant it launched (``entry_point.variant``, e.g. ``pir_scan.u32``,
+or ``pir_scan.hi.dyn`` for the runtime-moduli entry of a limb-sharded mesh)
 — the counts a run reads to show that its main path went through each
 kernel and each of its variants.
 """
@@ -147,3 +148,8 @@ NTT = CudaKernel(
 _SCAN_ARGS = [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _P]
 SCAN = CudaKernel("scan", "scan.cu", {"pir_scan": _SCAN_ARGS})
 SCAN_WIDE = CudaKernel("scan_wide", "scan_wide.cu", {"pir_scan_wide": _SCAN_ARGS})
+# sv, db, db_shoup, consts, out, P, D, L, N, chunk, stream
+SCAN_SHOUP = CudaKernel(
+    "scan_shoup", "scan_shoup.cu",
+    {"pir_scan_shoup": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P]},
+)

@@ -1,6 +1,7 @@
 """Oblivious query expansion (Angel et al., SealPIR).
 
-Port of ``expand_level``, ``expand_single`` and ``expand_query`` of
+Port of ``expand_level``, ``expand_single``, ``expand_query`` and their
+mesh forms ``expand_single_sharded`` / ``expand_query_sharded`` of
 ``pir_tpu/ops/expand.py``.  Turns one ciphertext encrypting a packed
 one-hot polynomial into m ciphertexts, the k-th encrypting coefficient k
 (scaled by next_power_two(m) — the client pre-cancels this with an m⁻¹
@@ -80,5 +81,60 @@ def expand_query(
     for i in range(cts.shape[0]):
         count = min(n, remaining)
         outs.append(expand_single(ctx, galois_keys, cts[i], count))
+        remaining -= n
+    return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+
+
+def expand_single_sharded(
+    ctx: PirContext, galois_keys, ct: torch.Tensor, num_items: int, mesh, axis_name: str
+) -> torch.Tensor:
+    """expand_single with the doubling tree sharded over a mesh axis.
+
+    Level j maps ciphertext k to outputs (k, k + 2^j) using only ciphertext
+    k, so after log2(S) levels run on every rank each of the S ranks of the
+    axis expands its own subtree — rank s's local output m is global output
+    s + m·S — with no traffic until one all_gather and a stride unshuffle.
+    Equal to expand_single bit for bit.  A non-power-of-two axis, or a tree
+    of at most S leaves, is expanded whole on every rank.
+    """
+    n_shards = mesh.size(axis_name)
+    if num_items > ctx.n:
+        raise ValueError("cannot expand more items from a CT than poly degree")
+    logm = ceil_log2(num_items)
+    if n_shards <= 1 or n_shards & (n_shards - 1) or (1 << logm) <= n_shards:
+        return expand_single(ctx, galois_keys, ct, num_items)
+    j0 = n_shards.bit_length() - 1  # log2(S)
+    cts = ct[None]
+    for j in range(j0):
+        cts = expand_level(ctx, galois_keys, cts, j)  # every rank: S cts
+    me = mesh.coord(axis_name)
+    mine = cts[me : me + 1]
+    for j in range(j0, logm):
+        mine = expand_level(ctx, galois_keys, mine, j)
+    # mine[m] is global output s + m*S: gather [S, M, 2, L, N], unshuffle
+    full = mesh.all_gather(mine[None], axis_name, dim=0)
+    out = full.transpose(0, 1).reshape(n_shards * mine.shape[0], *mine.shape[1:])
+    assert out.shape[0] == next_power_two(num_items)
+    return out[:num_items]
+
+
+def expand_query_sharded(
+    ctx: PirContext, galois_keys, cts: torch.Tensor, total_items: int, mesh, axis_name: str
+) -> torch.Tensor:
+    """expand_query with each ciphertext's tree sharded (see above)."""
+    n = ctx.n
+    if cts.shape[0] != total_items // n + 1:
+        raise ValueError(
+            "number of ciphertexts doesn't match number of items for "
+            "oblivious expansion"
+        )
+    outs = []
+    remaining = total_items
+    for i in range(cts.shape[0]):
+        count = min(n, remaining)
+        if count > 0:
+            outs.append(
+                expand_single_sharded(ctx, galois_keys, cts[i], count, mesh, axis_name)
+            )
         remaining -= n
     return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]

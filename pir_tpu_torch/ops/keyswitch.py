@@ -12,6 +12,13 @@ Pipeline for input polynomial c (coefficient form, ciphertext level q):
 
 The whole pipeline is batched over arbitrary leading axes — oblivious
 expansion feeds it 2^j ciphertexts at level j in one call.
+
+Limb sharding (parallel/sharded.py): when ``ctx`` is a rank's limb-shard
+view (``limb_axis_name`` set), the input carries only this rank's RNS limbs
+and the key only the matching decomposition rows; the digit inner
+product's sum becomes a local partial plus one ``all_reduce`` over the limb
+axis, and the full-basis tail (INTT over QP + P scale-down) runs on every
+rank before each keeps its own limbs (``ctx.take_ct_limbs``).
 """
 
 from __future__ import annotations
@@ -24,12 +31,14 @@ from pir_tpu_torch.ops import modular, poly, wide32
 
 def inner_product_method(ctx, qp) -> str:
     """Which arithmetic :func:`_digit_inner_product` uses for key chain qp:
-    "u32", "48-bit" or "generic" (the same static choice as pir_tpu's)."""
+    "u32", "48-bit" or "generic" (the same static choice as pir_tpu's).
+    The decomposition count is the whole chain's, on a limb-shard view too."""
+    L_total = len(ctx.ct_moduli)
     moduli = tuple(int(m) for m in qp.moduli)
     bits = max(m.bit_length() for m in moduli)
-    if bits <= 31 and ctx.L * (max(moduli) - 1) ** 2 < (1 << 64):
+    if bits <= 31 and L_total * (max(moduli) - 1) ** 2 < (1 << 64):
         return "u32"
-    if bits <= 48 and ctx.L < (1 << 16):
+    if bits <= 48 and L_total < (1 << 16):
         return "48-bit"
     return "generic"
 
@@ -39,7 +48,10 @@ def _digit_inner_product(ctx, digits, data, qp):
     reduced mod every key prime — the key switch's hot contraction.
 
     digits: int64[..., L, Lp, N] NTT form; data: int64[L, 2, Lp, N].
-    Returns reduced int64[..., 2, Lp, N].
+    Returns reduced int64[..., 2, Lp, N], including the all_reduce over
+    the limb axis on a limb-shard view (placed as in pir_tpu: after the sum
+    in the u32 and generic branches, after the 96-bit reduction in the
+    48-bit branch).
 
     * **u32** — key primes below 2^31 with the whole digit sum below 2^64
       (L·q² < 2^64; the tpu32 profile): one 32×32 product per term, summed
@@ -51,12 +63,15 @@ def _digit_inner_product(ctx, digits, data, qp):
       product, reduced summands summed in u64.
     """
     method = inner_product_method(ctx, qp)
+    limb_axis = getattr(ctx, "limb_axis_name", None)
     x = digits[..., :, None, :, :]  # [..., L, 1, Lp, N]
 
     if method == "u32":
         # both factors are reduced residues below 2^31: the int64 product is
-        # the exact 32x32 product
+        # the exact 32x32 product; the whole sum (all shards) fits u64 bits
         tot = (x * data).sum(dim=-4)
+        if limb_axis is not None:
+            tot = ctx.mesh.all_reduce(tot, limb_axis)
         return modular.barrett_reduce_64(tot, qp.q, qp.ratio_hi)
 
     if method == "48-bit":
@@ -64,13 +79,21 @@ def _digit_inner_product(ctx, digits, data, qp):
         wh, wl = wide32.split_u64(data)
         p2, p1, p0 = wide32.mul_u48_3w(xh, xl, wh, wl)
         s2, s1, s0 = wide32.sum96_over_axis(p2, p1, p0, axis=-4)
-        return wide32.join_u64(
+        tot = wide32.join_u64(
             *wide32.barrett_reduce96(s2, s1, s0, qp.q, qp.ratio_hi, qp.ratio_lo)
         )
+        if limb_axis is not None:
+            # the shards' totals are reduced (< q < 2^48): their sum stays
+            # exact in u64 and one more reduction closes it
+            tot = ctx.mesh.all_reduce(tot, limb_axis)
+            tot = modular.barrett_reduce_64(tot, qp.q, qp.ratio_hi)
+        return tot
 
     prod = modular.mul_mod(x, data, qp.q, qp.ratio_hi, qp.ratio_lo)
     # Reduced summands (< q_j < 2^61); L terms fit u64 without wrap.
     tot = prod.sum(dim=-4)
+    if limb_axis is not None:
+        tot = ctx.mesh.all_reduce(tot, limb_axis)
     return modular.barrett_reduce_64(tot, qp.q, qp.ratio_hi)
 
 
@@ -115,7 +138,7 @@ def switch_key(ctx: PirContext, ksk: torch.Tensor, c: torch.Tensor):
     u_mod_q = modular.barrett_reduce_64(u, lq.q, lq.ratio_hi)  # [..., 2, L, N]
     t_bar = modular.sub_mod(u_mod_q, ctx.p_half_mod_q, lq.q)
     out = modular.mul_mod_shoup(
-        modular.sub_mod(acc[..., : ctx.L, :], t_bar, lq.q),
+        modular.sub_mod(ctx.take_ct_limbs(acc), t_bar, lq.q),
         ctx.p_inv_mod_q,
         ctx.p_inv_mod_q_shoup,
         lq.q,

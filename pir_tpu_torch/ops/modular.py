@@ -30,8 +30,17 @@ def to_i64(v: int) -> int:
 
 
 def resolve_device(device=None) -> torch.device:
-    """A concrete torch.device (CPU by default; "cuda" gets its index)."""
-    d = torch.device("cpu" if device is None else device)
+    """A concrete torch.device: the current CUDA card by default ("cuda"
+    gets its index).  Without a card the default raises: the port never
+    carries on on the CPU unless the caller asks for it (device="cpu")."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "pir_tpu_torch computes on a CUDA card by default and none is "
+                'available; pass device="cpu" to compute on the host'
+            )
+        device = "cuda"
+    d = torch.device(device)
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
     return d
@@ -214,7 +223,12 @@ class LimbConstants:
 
     def slice(self, count: int) -> "LimbConstants":
         """Constants for the first `count` limbs (e.g. drop the special prime)."""
-        return LimbConstants(self.moduli[:count], self.device)
+        return self.limb_range(0, count)
+
+    def limb_range(self, start: int, stop: int) -> "LimbConstants":
+        """Constants for limbs [start, stop) — e.g. one rank's slice of a
+        limb-sharded mesh."""
+        return LimbConstants(self.moduli[start:stop], self.device)
 
     # Elementwise ops over [..., L, N] tensors ------------------------------
     def add(self, x, y):

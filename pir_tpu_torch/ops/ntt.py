@@ -88,14 +88,20 @@ class NttTables:
 
     def slice(self, count: int) -> "NttTables":
         """Tables restricted to the first `count` limbs (shares storage)."""
+        return self.limb_range(0, count)
+
+    def limb_range(self, start: int, stop: int) -> "NttTables":
+        """Tables restricted to limbs [start, stop): one rank's moduli on a
+        limb-sharded mesh.  The twiddle tensors are contiguous row slices,
+        so kernel A reads them in place."""
         out = object.__new__(NttTables)
         out.n = self.n
-        out.moduli = self.moduli[:count]
-        out.limbs = self.limbs.slice(count)
+        out.moduli = self.moduli[start:stop]
+        out.limbs = self.limbs.limb_range(start, stop)
         out.device = self.device
-        out.host = {k: v[:count] for k, v in self.host.items()}
+        out.host = {k: v[start:stop] for k, v in self.host.items()}
         for name in self.host:
-            setattr(out, name, getattr(self, name)[:count])
+            setattr(out, name, getattr(self, name)[start:stop])
         return out
 
     # ------------------------------------------------------------------

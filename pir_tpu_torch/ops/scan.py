@@ -1,17 +1,25 @@
-"""The ciphertext×database scan over split database planes.
+"""The ciphertext×database scan.
 
-Port of the planes path of ``pir_tpu/ops/scan.py``
-(``database_scan_decomp`` with ``db_planes``, ``items_to_planes``,
-``contract_dim_planes_wide`` and ``database_scan_decomp_batched``): the
-recursive hypercube dot product of SealPIR's decomposition mode.  The
-database is a zero-padded hypercube of NTT-form plaintexts held as
-[prefix, L, inner, N] planes; the innermost dimension is one contraction
-over all prefixes at once, and each upper dimension decomposes the
-intermediate ciphertexts into digit plaintexts and contracts again.  Every
-single-query contraction is :func:`scan_kernel.contract_dim_auto` (kernel B
-on the card); a batch's inner contraction is
-:func:`scan_kernel.contract_dim_wide_auto` (kernel C), one pass over the
-database for all its queries.
+Port of ``pir_tpu/ops/scan.py`` (``contract_dim``, ``contract_dim_planes``,
+``items_to_planes``, ``database_scan_decomp``, ``contract_dim_planes_wide``
+and ``database_scan_decomp_batched``): the recursive hypercube dot product
+of SealPIR's decomposition mode.  The database is a zero-padded hypercube
+of NTT-form plaintexts; the innermost dimension is one contraction over all
+prefixes at once, and each upper dimension decomposes the intermediate
+ciphertexts into digit plaintexts and contracts again.
+
+The database comes in one of two layouts (``PirDatabase.scan_impl``):
+
+* [prefix, L, inner, N] planes: every single-query contraction is
+  :func:`scan_kernel.contract_dim_auto` (kernel B on the card) — or, on a
+  rank of a limb-sharded mesh, its runtime-moduli entry
+  :func:`scan_kernel.contract_dim_auto_dyn` (K6); a batch's inner
+  contraction is :func:`scan_kernel.contract_dim_wide_auto` (kernel C), one
+  pass over the database for all its queries;
+* ``db_ntt`` + ``db_shoup`` [padded, L, N]: the inner contraction is
+  :func:`scan_kernel.contract_dim_shoup` (kernel D, K7); the upper levels
+  contract digit plaintexts with no companions, in plain torch
+  (:func:`contract_dim`), as ``pir_tpu`` does outside Pallas.
 """
 
 from __future__ import annotations
@@ -19,16 +27,60 @@ from __future__ import annotations
 import torch
 
 from pir_tpu_torch.core.context import PirContext
-from pir_tpu_torch.ops import decompose, scan_kernel
+from pir_tpu_torch.ops import decompose, modular, scan_kernel
 
 
 def _ct_moduli_bits(ctx: PirContext) -> int:
+    """Max bit width of the ciphertext moduli.  Uses the full chain
+    (ctx.ct_moduli delegates through limb-shard views), so the bound holds
+    on every rank of a limb-sharded mesh."""
     return max(int(q).bit_length() for q in ctx.ct_moduli)
 
 
+def _max_chunk(ctx: PirContext) -> int:
+    """How many reduced products fit in u64 before a reduction is needed."""
+    return max(1, 1 << (63 - _ct_moduli_bits(ctx)))
+
+
+def contract_dim(ctx: PirContext, sv_ntt, items_ntt, items_shoup=None) -> torch.Tensor:
+    """acc[p, ...] = Σ_j sv[j] ⊙ items[p, j, ...]  (NTT domain, mod q).
+
+    sv_ntt: int64[D, 2, L, N]; items_ntt: int64[P, D, L, N]; items_shoup:
+    their Shoup companions (the database's, precomputed at setup), which
+    route the contraction to :func:`scan_kernel.contract_dim_shoup` (kernel
+    D on the card).  Without companions (the upper levels' digit
+    plaintexts) each product is a Barrett multiply, in plain torch.
+    Returns int64[P, 2, L, N].
+    """
+    lq = ctx.limbs_q
+    if items_shoup is not None:
+        return scan_kernel.contract_dim_shoup(sv_ntt, items_ntt, items_shoup, lq)
+
+    def part(start, end):
+        prod = modular.mul_mod(
+            sv_ntt[None, start:end],  # [1, c, 2, L, N]
+            items_ntt[:, start:end, None],  # [P, c, 1, L, N]
+            lq.q, lq.ratio_hi, lq.ratio_lo,
+        )
+        return modular.barrett_reduce_64(prod.sum(dim=1), lq.q, lq.ratio_hi)
+
+    D = items_ntt.shape[1]
+    return scan_kernel.sum_row_chunks(part, D, min(_max_chunk(ctx), max(D, 1)), lq.q)
+
+
 def contract_dim_planes(ctx: PirContext, sv_ntt, db_hi, db_lo) -> torch.Tensor:
-    """sv int64[D, 2, L, N] against [P, L, D, N] planes -> [P, 2, L, N]."""
-    return scan_kernel.contract_dim_auto(sv_ntt, db_hi, db_lo, ctx.limbs_q)
+    """sv int64[D, 2, L, N] against [P, L, D, N] planes -> [P, 2, L, N].
+
+    On a rank of a limb-sharded mesh (ctx is a limb-shard view) the moduli
+    are the rank's own, so the runtime-table entry (K6) is used, with the
+    whole chain's width."""
+    lq = ctx.limbs_q
+    if getattr(ctx, "limb_axis_name", None) is not None:
+        consts = scan_kernel.limb_consts(lq.q, lq.ratio_hi, lq.ratio_lo)
+        return scan_kernel.contract_dim_auto_dyn(
+            sv_ntt, db_hi, db_lo, consts, lq.q, _ct_moduli_bits(ctx)
+        )
+    return scan_kernel.contract_dim_auto(sv_ntt, db_hi, db_lo, lq)
 
 
 def contract_dim_planes_wide(ctx: PirContext, sv_wide, db_hi, db_lo) -> torch.Tensor:
@@ -44,7 +96,12 @@ def items_to_planes(ctx: PirContext, items_ntt: torch.Tensor):
 
 
 def database_scan_decomp(
-    ctx: PirContext, dims: tuple, sv_ntt: torch.Tensor, db_planes
+    ctx: PirContext,
+    dims: tuple,
+    sv_ntt: torch.Tensor,
+    db_planes=None,
+    db_ntt: "torch.Tensor | None" = None,
+    db_shoup: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """Full d-dimensional decomposition-mode scan.
 
@@ -52,7 +109,10 @@ def database_scan_decomp(
             with D_0 outermost.
     sv_ntt: int64[sum(dims), 2, L, N] — expanded selection vector, NTT
             form, dimension blocks concatenated in order.
-    db_planes: (hi, lo) planes of the inner-grouped DB, [prefix, L, inner, N].
+    db_planes: (hi, lo) planes of the inner-grouped DB, [prefix, L, inner, N]
+            — every contraction then reads planes; or
+    db_ntt, db_shoup: int64[prod(dims), L, N] NTT-form database and its
+            Shoup companions (the inner contraction is kernel D's).
     Returns int64[(2·ER)^(d-1), 2, L, N] reply ciphertexts, coefficient form.
     """
     d = len(dims)
@@ -64,15 +124,22 @@ def database_scan_decomp(
     total = 1
     for dim in dims:
         total *= dim
-    db_hi, db_lo = db_planes
-    if db_lo.shape[0] * db_lo.shape[2] != total:
-        raise ValueError("db planes must cover the zero-padded hypercube")
+    if db_planes is not None:
+        if db_planes[1].shape[0] * db_planes[1].shape[2] != total:
+            raise ValueError("db planes must cover the zero-padded hypercube")
+    elif db_ntt is None or db_ntt.shape[0] != total:
+        raise ValueError("database must be zero-padded to the hypercube")
 
     # Innermost dimension: plain DB plaintexts, one ct per prefix.
     inner = dims[-1]
     prefix = total // inner
     sv_last = sv_ntt[offsets[-1] : offsets[-1] + inner]
-    result = contract_dim_planes(ctx, sv_last, db_hi, db_lo)
+    if db_planes is not None:
+        result = contract_dim_planes(ctx, sv_last, db_planes[0], db_planes[1])
+    else:
+        items = db_ntt.reshape(prefix, inner, *db_ntt.shape[1:])
+        shoup = db_shoup.reshape(items.shape) if db_shoup is not None else None
+        result = contract_dim(ctx, sv_last, items, shoup)  # [prefix, 2, L, N]
     result = ctx.ntt_q.inverse(result)  # coefficient form
 
     # Upper dimensions, bottom-up: decompose, re-NTT, contract.
@@ -84,7 +151,14 @@ def database_scan_decomp(
         if result.dim() == 4:
             result = result[:, None]
         C = result.shape[1]
-        pts = decompose.decompose_ct(ctx, result)  # [prefix*dim, C, 2*ER, N]
+        # a limb-shard view swaps in the all-gathering decomposition
+        # (parallel/sharded.py): digits live per limb, but every digit
+        # plaintext must reach every limb for the next contraction
+        decompose_fn = getattr(ctx, "decompose_fn", None)
+        if decompose_fn is not None:
+            pts = decompose_fn(result)
+        else:
+            pts = decompose.decompose_ct(ctx, result)  # [prefix*dim, C, 2*ER, N]
         pts_ntt = ctx.ntt_q.forward(
             pts[..., None, :].expand(*pts.shape[:-1], ctx.L, ctx.n)
         )  # [prefix*dim, C, 2*ER, L, N]
@@ -95,8 +169,12 @@ def database_scan_decomp(
         # contract over `dim` for each of the newC digit plaintexts:
         # (prefix, newC) jointly form the prefix axis.
         items_flat = items.transpose(1, 2).reshape(prefix * newC, dim, ctx.L, ctx.n)
-        ih, il = items_to_planes(ctx, items_flat)
-        res = ctx.ntt_q.inverse(contract_dim_planes(ctx, sv_lvl, ih, il))
+        if db_planes is not None:
+            ih, il = items_to_planes(ctx, items_flat)
+            res = contract_dim_planes(ctx, sv_lvl, ih, il)
+        else:
+            res = contract_dim(ctx, sv_lvl, items_flat)  # [prefix*newC, 2, L, N]
+        res = ctx.ntt_q.inverse(res)
         result = res.reshape(prefix, newC, 2, ctx.L, ctx.n)
 
     # top level: prefix == 1; C axis may be absent for d == 1

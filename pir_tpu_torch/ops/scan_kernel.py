@@ -1,8 +1,11 @@
-"""The database-scan contraction over split database planes.
+"""The database-scan contractions: over split database planes, and over
+the Shoup-table database.
 
-Port of the raw-accumulation path of ``pir_tpu/ops/pallas_scan.py``
+Port of ``pir_tpu/ops/pallas_scan.py``: the raw-accumulation path
 (``split_planes``, ``max_raw_chunk``, ``contract_dim_raw``,
-``contract_dim_auto``, ``contract_dim_raw_wide``, ``contract_dim_wide_auto``):
+``contract_dim_auto``, ``contract_dim_raw_wide``, ``contract_dim_wide_auto``,
+and the runtime-moduli ``limb_consts``, ``contract_dim_raw_dyn``,
+``contract_dim_auto_dyn`` of limb-sharded meshes, K6):
 
     out[p, s, l, n] = Σ_j sv[j, s, l, n] · db[p, l, j, n]  mod q_l
 
@@ -18,6 +21,11 @@ A CUDA tensor goes through a kernel: B (``csrc/scan.cu``,
 (query, size) columns of a batch.  A CPU tensor goes through
 :func:`contract_wide_plain`, the same exact sum written with the multi-word
 products of :mod:`pir_tpu_torch.ops.wide32`.
+
+The Shoup-table database (``scan_impl="xla"``) is contracted by
+:func:`contract_dim_shoup`, the counterpart of ``contract_dim_pallas``
+(K7): kernel D (``csrc/scan_shoup.cu``) on the card, the plain
+:func:`contract_shoup_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from pir_tpu_torch.ops import modular, wide32
 from pir_tpu_torch.ops.modular import M32
 
 KERNEL_MAX_D = 1 << 16
+PLANES_MAX_BITS = 48  # the planes hold moduli below 2^48
 _PLAIN_P_CHUNK = 8  # prefixes per step of the plain version (bounds memory)
 
 
@@ -73,12 +82,14 @@ def max_raw_chunk(moduli=None, bits: "int | None" = None) -> int:
     return max(1, min(1 << 16, 1 << max(0, 96 - 2 * b)))
 
 
-def contract_wide_plain(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
-    """The plain PyTorch version of kernels B and C (same arguments as
-    :func:`contract_wide_cuda`): three-word products summed exactly with
-    :mod:`wide32` — or, without a hi plane (moduli below 2^32), two-word
-    products — and one 96-bit Barrett reduction per output.  Prefixes go a
-    few at a time, fewer as S grows, to bound the temporaries."""
+def contract_wide_plain(sv, db_hi, db_lo, table, j_begin: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of kernels B and C (the arguments of
+    :func:`contract_wide_cuda`, with the int64 [L, 3] modulus table —
+    ``LimbConstants.table`` or :func:`limb_consts` — for the limbs):
+    three-word products summed exactly with :mod:`wide32` — or, without a
+    hi plane (moduli below 2^32), two-word products — and one 96-bit
+    Barrett reduction per output.  Prefixes go a few at a time, fewer as S
+    grows, to bound the temporaries."""
     D, S = sv.shape[0], sv.shape[1]
     P, L, _, N = db_lo.shape
     p_chunk = max(1, 2 * _PLAIN_P_CHUNK // max(S, 1))
@@ -87,7 +98,7 @@ def contract_wide_plain(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tens
         x = sv[:, :, li, :][None]  # [1, D, S, N]
         if db_hi is not None:
             xh, xl = wide32.split_u64(x)
-        cols = (limbs.q[li], limbs.ratio_hi[li], limbs.ratio_lo[li])
+        cols = (table[li, 0:1], table[li, 1:2], table[li, 2:3])
         for p0 in range(0, P, p_chunk):
             p1 = min(P, p0 + p_chunk)
             lo = db_lo[p0:p1, li, j_begin : j_begin + D, None, :]  # [Pc, D, 1, N]
@@ -111,12 +122,13 @@ def contract_wide_plain(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tens
 contract_plain = contract_wide_plain
 
 
-def _kernel_operands(sv, db_hi, db_lo, limbs, j_begin: int) -> int:
+def _kernel_operands(sv, db_hi, db_lo, table, bits: int, j_begin: int) -> int:
     """Check what kernels B and C take; returns the hi plane's byte width
-    (0 without a hi plane)."""
+    (0 without a hi plane).  table: int64 [L, 3] rows (q, ratio_hi,
+    ratio_lo); bits: the chain's modulus width, which sets the plane form."""
     D, S = sv.shape[0], sv.shape[1]
     P, L, d_total, N = db_lo.shape
-    for name, t in (("sv", sv), ("db_lo", db_lo), ("db_hi", db_hi)):
+    for name, t in (("sv", sv), ("db_lo", db_lo), ("db_hi", db_hi), ("moduli", table)):
         if t is None:
             continue
         if not t.is_cuda or t.device != sv.device:
@@ -131,14 +143,13 @@ def _kernel_operands(sv, db_hi, db_lo, limbs, j_begin: int) -> int:
         raise ValueError(f"rows [{j_begin}, {j_begin + D}) outside D={d_total}")
     if D > KERNEL_MAX_D:
         raise ValueError(f"the scan kernels contract at most {KERNEL_MAX_D} rows, got {D}")
-    if limbs.device != sv.device or len(limbs) != L:
-        raise ValueError("modulus table must match the limbs and device of sv")
-    bits = max(limbs.moduli).bit_length()
+    if table.shape != (L, 3) or table.dtype != torch.int64:
+        raise ValueError(f"modulus table must be int64 [{L}, 3], got {tuple(table.shape)}")
     if db_hi is None:
         if bits > 32:
             raise ValueError(f"{bits}-bit moduli need a hi plane (lo planes hold 32 bits)")
         return 0
-    if bits > 48:
+    if bits > PLANES_MAX_BITS:
         raise ValueError("the scan kernels take moduli below 2^48")
     if db_hi.shape != db_lo.shape:
         raise ValueError(f"planes differ: {tuple(db_hi.shape)} / {tuple(db_lo.shape)}")
@@ -148,22 +159,37 @@ def _kernel_operands(sv, db_hi, db_lo, limbs, j_begin: int) -> int:
     return hi_bytes
 
 
-def _launch(kernel, fn_name, sv, db_hi, db_lo, limbs, j_begin, out) -> torch.Tensor:
-    hi_bytes = _kernel_operands(sv, db_hi, db_lo, limbs, j_begin)
+def _launch(kernel, fn_name, sv, db_hi, db_lo, table, bits, j_begin, dyn=False):
+    """Kernel B or C over rows [j_begin, j_begin + D) -> reduced int64
+    [P, S, L, N]; ``dyn`` counts the launch as a runtime-moduli (K6) one."""
+    hi_bytes = _kernel_operands(sv, db_hi, db_lo, table, bits, j_begin)
     D, S = sv.shape[0], sv.shape[1]
     P, L, d_total, N = db_lo.shape
+    out = torch.empty((P, S, L, N), dtype=torch.int64, device=sv.device)
     if out.numel() == 0:
         return out
     if D == 0:
         return out.zero_()
+    variant = "hi" if hi_bytes else "u32"
     kernel.launch(
         fn_name,
         sv.data_ptr(), 0 if db_hi is None else db_hi.data_ptr(), db_lo.data_ptr(),
-        limbs.table.data_ptr(), out.data_ptr(), hi_bytes, P, S, L, d_total,
+        table.data_ptr(), out.data_ptr(), hi_bytes, P, S, L, d_total,
         j_begin, D, N, kernels.stream_handle(sv),
-        variant="hi" if hi_bytes else "u32",
+        variant=variant + ".dyn" if dyn else variant,
     )
     return out
+
+
+def _limbs_bits(limbs) -> int:
+    return max(limbs.moduli).bit_length()
+
+
+def _scan_b(sv, db_hi, db_lo, table, bits: int, j_begin: int, dyn: bool) -> torch.Tensor:
+    """Kernel B with the modulus table `table` and the chain width `bits`."""
+    if sv.dim() != 4 or sv.shape[1] != 2:
+        raise ValueError(f"kernel B takes sv [D, 2, L, N], got {tuple(sv.shape)}")
+    return _launch(kernels.SCAN, "pir_scan", sv, db_hi, db_lo, table, bits, j_begin, dyn)
 
 
 def contract_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
@@ -171,11 +197,7 @@ def contract_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
     over rows [j_begin, j_begin + D) -> reduced int64 [P, 2, L, N].
     Without a hi plane (db_hi None, moduli below 2^32) it runs its
     single-word variant, which replaces K5."""
-    if sv.dim() != 4 or sv.shape[1] != 2:
-        raise ValueError(f"kernel B takes sv [D, 2, L, N], got {tuple(sv.shape)}")
-    P, L, _, N = db_lo.shape
-    out = torch.empty((P, 2, L, N), dtype=torch.int64, device=sv.device)
-    return _launch(kernels.SCAN, "pir_scan", sv, db_hi, db_lo, limbs, j_begin, out)
+    return _scan_b(sv, db_hi, db_lo, limbs.table, _limbs_bits(limbs), j_begin, dyn=False)
 
 
 def contract_wide_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
@@ -190,9 +212,8 @@ def contract_wide_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tenso
         raise ValueError(
             f"{sv.shape[0]} rows exceed the exact bound {max_raw_chunk(limbs.moduli)}"
         )
-    P, L, _, N = db_lo.shape
-    out = torch.empty((P, sv.shape[1], L, N), dtype=torch.int64, device=sv.device)
-    return _launch(kernels.SCAN_WIDE, "pir_scan_wide", sv, db_hi, db_lo, limbs, j_begin, out)
+    return _launch(kernels.SCAN_WIDE, "pir_scan_wide", sv, db_hi, db_lo, limbs.table,
+                   _limbs_bits(limbs), j_begin)
 
 
 def contract_dim_raw(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
@@ -200,7 +221,7 @@ def contract_dim_raw(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
     tensors, the plain version for CPU tensors."""
     if sv.is_cuda:
         return contract_cuda(sv.contiguous(), db_hi, db_lo, limbs, j_begin)
-    return contract_plain(sv, db_hi, db_lo, limbs, j_begin)
+    return contract_plain(sv, db_hi, db_lo, limbs.table, j_begin)
 
 
 def contract_dim_raw_wide(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
@@ -208,22 +229,28 @@ def contract_dim_raw_wide(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Te
     tensors, the plain version for CPU tensors."""
     if sv.is_cuda:
         return contract_wide_cuda(sv.contiguous(), db_hi, db_lo, limbs, j_begin)
-    return contract_wide_plain(sv, db_hi, db_lo, limbs, j_begin)
+    return contract_wide_plain(sv, db_hi, db_lo, limbs.table, j_begin)
 
 
-def _chunked(raw, sv, db_hi, db_lo, limbs) -> torch.Tensor:
-    """raw() over row chunks of the exactness bound (max_raw_chunk), the
-    chunks' reduced sums combined with modular adds."""
+def sum_row_chunks(part, rows: int, chunk: int, q) -> torch.Tensor:
+    """part(start, end) — a reduced partial sum over rows [start, end) —
+    over chunks of `chunk` rows, the parts combined with modular adds mod
+    q (int64 [L, 1])."""
+    acc = None
+    for start in range(0, max(rows, 1), chunk):
+        part_sum = part(start, min(start + chunk, rows))
+        acc = part_sum if acc is None else modular.add_mod(acc, part_sum, q)
+    return acc
+
+
+def _chunked(raw, sv, db_lo, q, bits: int) -> torch.Tensor:
+    """raw(sv rows, j_begin) over row chunks of the exactness bound of
+    `bits`-bit moduli (max_raw_chunk), combined mod q."""
     D = db_lo.shape[2]
     if sv.shape[0] != D:
         raise ValueError(f"selection vector has {sv.shape[0]} rows, planes {D}")
-    chunk = min(max_raw_chunk(limbs.moduli), max(D, 1))
-    acc = None
-    for start in range(0, max(D, 1), chunk):
-        end = min(start + chunk, D)
-        part = raw(sv[start:end], db_hi, db_lo, limbs, j_begin=start)
-        acc = part if acc is None else modular.add_mod(acc, part, limbs.q)
-    return acc
+    chunk = min(max_raw_chunk(bits=bits), max(D, 1))
+    return sum_row_chunks(lambda s, e: raw(sv[s:e], s), D, chunk, q)
 
 
 def contract_dim_auto(sv, db_hi, db_lo, limbs) -> torch.Tensor:
@@ -232,7 +259,10 @@ def contract_dim_auto(sv, db_hi, db_lo, limbs) -> torch.Tensor:
     sv: int64 [D, 2, L, N]; db_hi/db_lo: [P, L, D, N] planes (db_hi None
     for moduli of at most 32 bits).  Returns int64 [P, 2, L, N].
     """
-    return _chunked(contract_dim_raw, sv, db_hi, db_lo, limbs)
+    return _chunked(
+        lambda x, j: contract_dim_raw(x, db_hi, db_lo, limbs, j),
+        sv, db_lo, limbs.q, _limbs_bits(limbs),
+    )
 
 
 def contract_dim_wide_auto(sv, db_hi, db_lo, limbs) -> torch.Tensor:
@@ -242,4 +272,131 @@ def contract_dim_wide_auto(sv, db_hi, db_lo, limbs) -> torch.Tensor:
     sv: int64 [D, S, L, N]; db_hi/db_lo: [P, L, D, N] planes.  Returns
     int64 [P, S, L, N].
     """
-    return _chunked(contract_dim_raw_wide, sv, db_hi, db_lo, limbs)
+    return _chunked(
+        lambda x, j: contract_dim_raw_wide(x, db_hi, db_lo, limbs, j),
+        sv, db_lo, limbs.q, _limbs_bits(limbs),
+    )
+
+
+# ---------------------------------------------------------------------------
+# K6: the contraction with the moduli as a runtime table (limb-sharded
+# meshes, where every rank owns other moduli)
+# ---------------------------------------------------------------------------
+
+
+def limb_consts(q, ratio_hi, ratio_lo) -> torch.Tensor:
+    """(q, ratio_hi, ratio_lo) int64 [L, 1] columns -> the int64 [L, 3]
+    modulus table kernel B reads at run time (the counterpart of
+    pallas_scan.limb_consts' u32 [L, 6] word table)."""
+    return torch.cat([q, ratio_hi, ratio_lo], dim=1).contiguous()
+
+
+def contract_dim_raw_dyn(sv, db_hi, db_lo, consts, max_bits: int, j_begin: int = 0):
+    """contract_dim_raw with the moduli as the runtime table ``consts``
+    (:func:`limb_consts`): kernel B for CUDA tensors, counted as the
+    variants ``pir_scan.hi.dyn`` / ``pir_scan.u32.dyn``; the plain version
+    for CPU tensors.
+
+    max_bits: the whole chain's modulus width (not this rank's), which
+    fixes the plane form and the exactness bound as in pallas_scan.py —
+    a rank holding a 26-bit limb of a 34-bit chain still reads a hi plane.
+    """
+    if max_bits > PLANES_MAX_BITS:
+        raise ValueError("the raw contraction takes moduli below 2^48")
+    if sv.shape[0] > max_raw_chunk(bits=max_bits):
+        raise ValueError(
+            f"{sv.shape[0]} rows exceed the exact bound {max_raw_chunk(bits=max_bits)}"
+        )
+    if sv.is_cuda:
+        return _scan_b(sv.contiguous(), db_hi, db_lo, consts, max_bits, j_begin, dyn=True)
+    return contract_plain(sv, db_hi, db_lo, consts, j_begin)
+
+
+def contract_dim_auto_dyn(sv, db_hi, db_lo, consts, q_col, max_bits: int) -> torch.Tensor:
+    """contract_dim_raw_dyn chunked by the exactness bound of the whole
+    chain's width; q_col int64 [L, 1] combines the chunks' reduced sums."""
+    return _chunked(
+        lambda x, j: contract_dim_raw_dyn(x, db_hi, db_lo, consts, max_bits, j),
+        sv, db_lo, q_col, max_bits,
+    )
+
+
+# ---------------------------------------------------------------------------
+# K7: the contraction of the Shoup-table database
+# ---------------------------------------------------------------------------
+
+
+def shoup_chunk(limbs) -> int:
+    """Reduced products a u64 sum holds before a reduction: 2^(63 - bits)
+    for the limbs' widest modulus (< 2^bits), the bound of pir_tpu's
+    scan._max_chunk."""
+    return max(1, 1 << (63 - _limbs_bits(limbs)))
+
+
+def contract_shoup_plain(sv, db, db_shoup, limbs) -> torch.Tensor:
+    """The plain PyTorch version of kernel D, pir_tpu's scan.contract_dim
+    with Shoup companions: each product reduced by Shoup's method, u64
+    sums of shoup_chunk(limbs) rows reduced by Barrett and combined with
+    modular adds.  sv int64 [D, 2, L, N]; db, db_shoup int64 [P, D, L, N]
+    -> reduced int64 [P, 2, L, N].  Prefixes go a few at a time to bound
+    the temporaries."""
+    P, D = db.shape[0], db.shape[1]
+    chunk = min(shoup_chunk(limbs), max(D, 1))
+    out = torch.empty((P, 2, *db.shape[2:]), dtype=torch.int64, device=sv.device)
+    for p0 in range(0, P, _PLAIN_P_CHUNK):
+        p1 = min(P, p0 + _PLAIN_P_CHUNK)
+
+        def part(start, end):
+            prod = modular.mul_mod_shoup(
+                sv[None, start:end],  # [1, c, 2, L, N]
+                db[p0:p1, start:end, None],  # [Pc, c, 1, L, N]
+                db_shoup[p0:p1, start:end, None],
+                limbs.q,
+            )
+            return modular.barrett_reduce_64(prod.sum(dim=1), limbs.q, limbs.ratio_hi)
+
+        out[p0:p1] = sum_row_chunks(part, D, chunk, limbs.q)
+    return out
+
+
+def contract_shoup_cuda(sv, db, db_shoup, limbs) -> torch.Tensor:
+    """Kernel D: the same contraction on the card, each database word and
+    its companion read once."""
+    D, S, L, N = sv.shape
+    P = db.shape[0]
+    for name, t in (("sv", sv), ("db", db), ("db_shoup", db_shoup), ("moduli", limbs.table)):
+        if not t.is_cuda or t.device != sv.device:
+            raise ValueError(f"{name} must be on {sv.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != torch.int64:
+            raise ValueError(f"{name} must be int64, got {t.dtype}")
+    if S != 2 or db.shape != (P, D, L, N) or db_shoup.shape != db.shape:
+        raise ValueError(
+            f"kernel D takes sv [D, 2, L, N] and db [P, D, L, N], got "
+            f"{tuple(sv.shape)}, {tuple(db.shape)}, {tuple(db_shoup.shape)}"
+        )
+    if len(limbs) != L:
+        raise ValueError(f"modulus table has {len(limbs)} limbs, operands {L}")
+    if _limbs_bits(limbs) > 61:
+        raise ValueError("kernel D takes moduli below 2^61")
+    out = torch.empty((P, 2, L, N), dtype=torch.int64, device=sv.device)
+    if out.numel() == 0:
+        return out
+    if D == 0:
+        return out.zero_()
+    kernels.SCAN_SHOUP.launch(
+        "pir_scan_shoup",
+        sv.data_ptr(), db.data_ptr(), db_shoup.data_ptr(), limbs.table.data_ptr(),
+        out.data_ptr(), P, D, L, N, shoup_chunk(limbs), kernels.stream_handle(sv),
+    )
+    return out
+
+
+def contract_dim_shoup(sv, db, db_shoup, limbs) -> torch.Tensor:
+    """acc[p] = Σ_j sv[j] ⊙ db[p, j] mod q over the Shoup-table database —
+    the counterpart of pallas_scan.contract_dim_pallas (K7): kernel D for
+    CUDA tensors, the plain version for CPU tensors."""
+    if sv.is_cuda:
+        return contract_shoup_cuda(sv.contiguous(), db.contiguous(), db_shoup.contiguous(), limbs)
+    return contract_shoup_plain(sv, db, db_shoup, limbs)

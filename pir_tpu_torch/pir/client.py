@@ -4,7 +4,8 @@ Port of the decomposition-mode client of ``pir_tpu/pir/client.py``.  It owns
 the secret/public/Galois/relinearization keys, serializes the evaluation
 keys once, packs per-dimension one-hot indices into ⌈dim_sum/N⌉ plaintexts
 with each hot coefficient set to m⁻¹ mod t, and decodes replies by repeated
-decrypt → digit-recompose rounds.  It computes on the CPU.  Keys
+decrypt → digit-recompose rounds.  It computes on its context's device
+(the card by default; ``device="cpu"`` keeps it on the host).  Keys
 and queries are drawn from the seeded numpy Generator in ``pir_tpu``'s
 order, so the same seed gives the same request bytes.
 """
@@ -33,9 +34,13 @@ class PirClient:
         params: PirParams,
         seed: Optional[int] = None,
         compress_queries: bool = False,
+        device=None,
     ):
         """compress_queries: serialize query ciphertexts in seeded symmetric
-        form (c0 + 16-byte PRG seed, PTS1 codec) — half the upload bytes."""
+        form (c0 + 16-byte PRG seed, PTS1 codec) — half the upload bytes.
+
+        device: where the client's encryption and decryption run (the card
+        by default)."""
         if params.use_ciphertext_multiplication:
             raise ValueError(
                 "ciphertext-multiplication mode is not ported yet "
@@ -43,7 +48,7 @@ class PirClient:
             )
         self.compress_queries = compress_queries
         self.params = params
-        self.ctx = PirContext(params)
+        self.ctx = PirContext(params, device)
         self._rng = np.random.default_rng(seed)
         self.sk = keys_mod.gen_secret_key(self.ctx, self._rng)
         self.pk = keys_mod.gen_public_key(self.ctx, self.sk, self._rng)
@@ -152,7 +157,7 @@ class PirClient:
         for _ in range(num_dims):
             pts = np.stack(
                 [
-                    enc_mod.decrypt(self.ctx, self.sk, tensor_u64(cts[i]))
+                    enc_mod.decrypt(self.ctx, self.sk, tensor_u64(cts[i], self.ctx.device))
                     for i in range(cts.shape[0])
                 ]
             )

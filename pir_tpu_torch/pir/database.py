@@ -1,10 +1,18 @@
-"""PirDatabase: encode the items and hold the scan's database planes.
+"""PirDatabase: encode the items and hold the scan's database operands.
 
-Port of the planes path of ``pir_tpu/pir/database.py``: populate from
-byte-strings (``StringEncoder`` packing, items_per_plaintext per plaintext),
-zero-pad to the hypercube, transform every plaintext to NTT form and keep it
-on the device as inner-dimension-grouped [prefix, L, inner, N] (hi, lo)
-planes — the only database form the scan reads.
+Port of ``pir_tpu/pir/database.py``: populate from byte-strings
+(``StringEncoder`` packing, items_per_plaintext per plaintext), zero-pad to
+the hypercube, transform every plaintext to NTT form and keep it on the
+device in one of ``pir_tpu``'s two layouts:
+
+* ``scan_impl="pallas"`` — inner-dimension-grouped [prefix, L, inner, N]
+  (hi, lo) planes, 5 bytes a coefficient at SEAL's chain, read by kernels B
+  and C (moduli below 2^48);
+* ``scan_impl="xla"`` — ``db_ntt`` and its Shoup companions
+  ``db_ntt_shoup``, int64 [padded, L, N] each, 16 bytes a coefficient,
+  read by kernel D (any modulus below 2^61);
+* ``"auto"`` — planes while every ciphertext modulus is at most 48 bits,
+  else the Shoup table.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import torch
 from pir_tpu_torch.bfv import evaluator
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.core.params import PirParams
-from pir_tpu_torch.ops import scan_kernel
+from pir_tpu_torch.ops import modular, scan_kernel
 from pir_tpu_torch.ops.modular import tensor_u64
 from pir_tpu_torch.pir.encoders import StringEncoder
 
@@ -63,8 +71,17 @@ def pack_items(
     return out
 
 
+def default_scan_impl(moduli) -> str:
+    """'pallas' (planes) while every modulus is below 2^48, else 'xla'
+    (the Shoup table) — pir_tpu's rule without its TPU condition: the card
+    runs the planes kernels."""
+    if max(int(q).bit_length() for q in moduli) > scan_kernel.PLANES_MAX_BITS:
+        return "xla"
+    return "pallas"
+
+
 class PirDatabase:
-    def __init__(self, params: PirParams, device=None):
+    def __init__(self, params: PirParams, scan_impl: str = "auto", device=None):
         if params.use_ciphertext_multiplication:
             raise ValueError(
                 "ciphertext-multiplication mode is not ported yet "
@@ -74,14 +91,31 @@ class PirDatabase:
         self.ctx = PirContext(params, device)
         self.device = self.ctx.device
         self.db_pts: Optional[np.ndarray] = None  # u64[num_pt, N] mod t (host)
-        # (hi, lo) planes of the NTT-form hypercube, [prefix, L, inner, N]
+        # scan_impl "pallas": (hi, lo) planes of the NTT-form hypercube,
+        # [prefix, L, inner, N]
         self.db_planes = None
+        # scan_impl "xla": int64 [padded, L, N] NTT form + Shoup companions
+        self.db_ntt: Optional[torch.Tensor] = None
+        self.db_ntt_shoup: Optional[torch.Tensor] = None
+        if scan_impl == "auto":
+            scan_impl = default_scan_impl(self.ctx.ct_moduli)
+        if scan_impl not in ("pallas", "xla"):
+            raise ValueError(f"unknown scan_impl {scan_impl!r}")
+        if scan_impl == "pallas":
+            scan_kernel.hi_plane_dtype(self.ctx.ct_moduli)  # raises above 48 bits
+        self.scan_impl = scan_impl
 
     @classmethod
-    def create(cls, rawdb, params: PirParams, device=None) -> "PirDatabase":
-        db = cls(params, device)
+    def create(
+        cls, rawdb, params: PirParams, scan_impl: str = "auto", device=None
+    ) -> "PirDatabase":
+        db = cls(params, scan_impl=scan_impl, device=device)
         db.populate_strings(rawdb)
         return db
+
+    @property
+    def _use_planes(self) -> bool:
+        return self.scan_impl == "pallas"
 
     @property
     def size(self) -> int:
@@ -121,28 +155,47 @@ class PirDatabase:
                 pts[i] = enc.encode_many(chunk)
         self._finalize(pts)
 
+    def _ntt_rows(self, pts: np.ndarray):
+        """(row0, int64 NTT form [rows, L, N]) for the zero-padded hypercube,
+        _NTT_PREFIXES prefix rows at a time (the whole NTT-form database is
+        never a temporary)."""
+        ctx = self.ctx
+        step = _NTT_PREFIXES * self.params.dimensions[-1]
+        for r0 in range(0, self.padded_size, step):
+            r1 = min(self.padded_size, r0 + step)
+            rows = np.zeros((r1 - r0, ctx.n), dtype=np.uint64)
+            have = pts[r0:r1]
+            rows[: have.shape[0]] = have
+            yield r0, evaluator.plaintext_to_ntt(ctx, tensor_u64(rows, self.device))
+
     def _finalize(self, pts: np.ndarray) -> None:
-        """Plaintexts u64[num_pt, N] -> NTT-form planes on the device,
-        a few prefix rows at a time (the full NTT-form database is never
-        held at once)."""
+        """Plaintexts u64[num_pt, N] -> the layout's NTT-form operands on
+        the device."""
         ctx = self.ctx
         self.db_pts = pts
+        shape = (self.padded_size, ctx.L, ctx.n)
+        if not self._use_planes:
+            lq = ctx.limbs_q
+            self.db_ntt = torch.empty(shape, dtype=torch.int64, device=self.device)
+            self.db_ntt_shoup = torch.empty_like(self.db_ntt)
+            for r0, ntt in self._ntt_rows(pts):
+                r1 = r0 + ntt.shape[0]
+                self.db_ntt[r0:r1] = ntt
+                self.db_ntt_shoup[r0:r1] = modular.shoup_precompute_device(
+                    ntt, lq.q, lq.ratio_hi, lq.ratio_lo
+                )
+            return
         inner = self.params.dimensions[-1]
-        prefix = self.padded_size // inner
         bits = max(int(q).bit_length() for q in ctx.ct_moduli)
-        shape = (prefix, ctx.L, inner, ctx.n)
+        shape = (self.padded_size // inner, ctx.L, inner, ctx.n)
         hi = None
         if bits > 32:
             hi = torch.empty(
                 shape, dtype=scan_kernel.hi_plane_dtype(bits=bits), device=self.device
             )
         lo = torch.empty(shape, dtype=torch.int32, device=self.device)
-        for p0 in range(0, prefix, _NTT_PREFIXES):
-            p1 = min(prefix, p0 + _NTT_PREFIXES)
-            rows = np.zeros(((p1 - p0) * inner, ctx.n), dtype=np.uint64)
-            have = pts[p0 * inner : p1 * inner]
-            rows[: have.shape[0]] = have
-            ntt = evaluator.plaintext_to_ntt(ctx, tensor_u64(rows, self.device))
+        for r0, ntt in self._ntt_rows(pts):
+            p0, p1 = r0 // inner, (r0 + ntt.shape[0]) // inner
             grouped = ntt.reshape(p1 - p0, inner, ctx.L, ctx.n).transpose(1, 2)
             h, l = scan_kernel.split_planes(grouped, bits=bits)
             lo[p0:p1] = l

@@ -1,15 +1,20 @@
 """PirServer: request processing — oblivious expansion + database scan.
 
 Port of the serving path of ``pir_tpu/pir/server.py`` (decomposition mode,
-planes scan).  The array-level cores are :meth:`PirServer.process_query`
-(one query) and :meth:`PirServer.process_batch` (B queries sharing one
-pass over the database): query ciphertexts and Galois keys on the device
-in, reply ciphertexts on the device out.  ``process_request_async``,
-``finalize_response``, ``process_request`` and ``process_request_batched``
-wrap them with the wire format; replies are byte-identical to
-``pir_tpu``'s for the same request.  A multi-query request whose query
-stacks share one shape goes through the batched path, in chunks of
-:meth:`PirServer.batch_lanes` queries.
+either database layout).  The array-level cores are
+:meth:`PirServer.process_query` (one query) and :meth:`PirServer.process_batch`
+(B queries sharing one pass over the database planes): query ciphertexts
+and Galois keys on the device in, reply ciphertexts on the device out.
+``process_request_async``, ``finalize_response``, ``process_request`` and
+``process_request_batched`` wrap them with the wire format; replies are
+byte-identical to ``pir_tpu``'s for the same request.  On the planes layout
+a multi-query request whose query stacks share one shape goes through the
+batched path, in chunks of :meth:`PirServer.batch_lanes` queries; on the
+Shoup-table layout it goes query by query, as in ``pir_tpu``.
+
+With ``mesh=`` every request is served by the multi-rank pipeline
+(parallel/sharded.py): every rank of the mesh calls ``process_request``
+with the same request and gets the same Response.
 """
 
 from __future__ import annotations
@@ -57,6 +62,15 @@ class BatchedReplies(NamedTuple):
     chunks: list
 
 
+class MeshReplies(NamedTuple):
+    """A mesh request's pending replies: int64[Qp, R, 2, L', N] on the
+    device, of which the first `count` are real queries (the rest pad the
+    batch axis)."""
+
+    replies: torch.Tensor
+    count: int
+
+
 class PirServer:
     def __init__(
         self,
@@ -64,13 +78,22 @@ class PirServer:
         params: PirParams,
         reply_limbs: Optional[int] = None,
         device=None,
+        mesh=None,
     ):
         """reply_limbs: if set, mod-switch reply ciphertexts down to this
         many RNS limbs before serialization (ops/modswitch.py).  The caller
         must leave enough noise budget (see :func:`reply_limbs_for`).
 
         device: where the server computes; the database's device by
-        default, and it must hold the database."""
+        default, and it must hold the database.
+
+        mesh: a parallel.sharded.Mesh — serve every request through the
+        multi-rank pipeline: database rows over "db", the request's queries
+        over "batch", RNS limbs over "limb".  Every rank builds its server
+        from the same database and calls it with the same requests; the
+        replies equal single-device serving's bit for bit.  The server
+        keeps only this rank's shard (``self.db`` is None): the whole
+        database is freed when the caller drops its own reference."""
         if params.num_pt != db.size:
             raise ValueError("database size mismatch")
         if reply_limbs is not None and not (
@@ -79,8 +102,17 @@ class PirServer:
             raise ValueError("reply_limbs out of range for the modulus chain")
         if device is not None and resolve_device(device) != db.device:
             raise ValueError(f"database lives on {db.device}, server asked for {device}")
+        if (
+            mesh is not None
+            and params.use_ciphertext_multiplication
+            and "limb" in mesh.axis_names
+        ):
+            raise ValueError(
+                "ciphertext-multiplication mode cannot shard the limb "
+                "axis (BEHZ base extension crosses limbs); use db/batch"
+            )
         self.params = params
-        self.db = db
+        self.db = db if mesh is None else None
         self.ctx = db.ctx
         self.device = db.device
         self.reply_limbs = reply_limbs
@@ -88,18 +120,39 @@ class PirServer:
         # Device-resident Galois keys, keyed by a digest of the whole key
         # blobs (clients resend identical keys with every request).
         self._key_cache: dict = {}
+        self.mesh = mesh
+        self._mesh_pipeline = None
+        if mesh is not None:
+            from pir_tpu_torch.parallel import sharded
+
+            self._mesh_pipeline = sharded.make_sharded_pipeline(
+                self.ctx, params.dimensions, db.db_ntt, mesh,
+                db_shoup=db.db_ntt_shoup, reply_limbs=reply_limbs,
+                db_planes=db.db_planes if db._use_planes else None,
+            )
+
+    def _db_operands(self) -> dict:
+        """The database in its layout, as database_scan_decomp takes it."""
+        if self.db._use_planes:
+            return {"db_planes": self.db.db_planes}
+        return {"db_ntt": self.db.db_ntt, "db_shoup": self.db.db_ntt_shoup}
 
     # ------------------------------------------------------------------
+    def _single_device(self) -> None:
+        if self.mesh is not None:
+            raise ValueError("a mesh server serves requests through process_request")
+
     def process_query(self, query_cts: torch.Tensor, galois_keys) -> torch.Tensor:
         """One query: int64[k, 2, L, N] ciphertexts (on the server's device)
         and {galois_elt: int64[L, 2, Lp, N]} -> reply int64[R, 2, L', N]."""
+        self._single_device()
         ctx = self.ctx
         sv = expand.expand_query(
             ctx, galois_keys, query_cts, self.params.dimensions_sum
         )
         sv_ntt = ctx.ntt_q.forward(sv)
         reply = scan.database_scan_decomp(
-            ctx, self.params.dimensions, sv_ntt, self.db.db_planes
+            ctx, self.params.dimensions, sv_ntt, **self._db_operands()
         )
         if self.reply_limbs is not None:
             reply = modswitch.mod_switch_to(ctx, reply, self.reply_limbs)
@@ -109,7 +162,10 @@ class PirServer:
         """B queries at once: int64[B, k, 2, L, N] ciphertexts ->
         replies int64[B, R, 2, L', N], each equal to process_query's.  The
         expansion trees run side by side (levels double axis 1) and the
-        inner scan reads the database once for the whole batch."""
+        inner scan reads the database planes once for the whole batch."""
+        self._single_device()
+        if not self.db._use_planes:
+            raise ValueError("the batched scan reads the planes layout (scan_impl='pallas')")
         ctx = self.ctx
         n = ctx.n
         outs = []
@@ -188,15 +244,36 @@ class PirServer:
     def _query_stacks(self, request: pb.Request) -> list:
         return [wire.load_ciphertexts(query, self.ctx) for query in request.query]
 
+    def _process_request_async_mesh(self, galois_keys, stacks):
+        from pir_tpu_torch.parallel import sharded
+
+        if not stacks:
+            return MeshReplies(None, 0)
+        if len({s.shape for s in stacks}) != 1:
+            raise ValueError(
+                "mesh serving requires equal query shapes per request "
+                "(always true for same-params clients)"
+            )
+        queries = sharded.pad_axis(np.stack(stacks), 0, self.mesh.size("batch"))
+        replies = self._mesh_pipeline(tensor_u64(queries, self.device), galois_keys)
+        return MeshReplies(replies, len(stacks))
+
     def process_request_async(self, request: pb.Request):
         """Enqueue a request's device work and return a pending handle
         (the replies, still on the device) for :meth:`finalize_response`.
-        A multi-query request whose query stacks share one shape takes the
-        batched path (pir_tpu's reroute); its replies are byte-identical to
-        the per-query path's."""
+        On the planes layout a multi-query request whose query stacks share
+        one shape takes the batched path (pir_tpu's reroute); its replies
+        are byte-identical to the per-query path's.  With a mesh, the
+        request goes through the mesh pipeline."""
         galois_keys = self._device_keys(request)
         stacks = self._query_stacks(request)
-        if len(stacks) > 1 and len({s.shape for s in stacks}) == 1:
+        if self.mesh is not None:
+            return self._process_request_async_mesh(galois_keys, stacks)
+        if (
+            self.db._use_planes
+            and len(stacks) > 1
+            and len({s.shape for s in stacks}) == 1
+        ):
             return self._batched_wide_async(np.stack(stacks), galois_keys)
         return [
             self.process_query(tensor_u64(stack, self.device), galois_keys)
@@ -206,8 +283,14 @@ class PirServer:
     def finalize_response(self, pending) -> pb.Response:
         """Copy a process_request_async handle's replies to the host and
         serialize them into a Response.  The handle is a list of per-query
-        replies or a :class:`BatchedReplies`."""
+        replies, a :class:`BatchedReplies` or a :class:`MeshReplies`."""
         response = pb.Response()
+        if isinstance(pending, MeshReplies):
+            if pending.count:
+                host = numpy_u64(pending.replies[: pending.count])
+                for qi in range(pending.count):
+                    wire.save_ciphertexts(host[qi], response.reply.add())
+            return response
         if isinstance(pending, BatchedReplies):
             for replies, count in pending.chunks:
                 host = numpy_u64(replies)
@@ -224,8 +307,11 @@ class PirServer:
     def process_request_batched(self, request: pb.Request) -> pb.Response:
         """Like process_request, with every query (one included) on the
         batched path: chunks of batch_lanes() queries, one pass over the
-        database each.  Query stacks of unequal shapes fall back to
-        process_request."""
+        database planes each.  Query stacks of unequal shapes, the
+        Shoup-table layout (query by query, as in pir_tpu) and a mesh (whose
+        pipeline is batched over its "batch" axis) go to process_request."""
+        if self.mesh is not None or not self.db._use_planes:
+            return self.process_request(request)
         galois_keys = self._device_keys(request)
         stacks = self._query_stacks(request)
         if len({s.shape for s in stacks}) != 1:

@@ -92,7 +92,7 @@ def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
     sv_ntt = ctx.ntt_q.forward(sv)
     clock.lap("selection-vector NTT")
     reply = scan.database_scan_decomp(
-        ctx, server.params.dimensions, sv_ntt, server.db.db_planes
+        ctx, server.params.dimensions, sv_ntt, **server._db_operands()
     )
     clock.lap("database scan (all dimensions)")
     if server.reply_limbs is not None:
@@ -173,12 +173,12 @@ def main(argv=None) -> int:
             for _ in range(min(db_size, 4096))]
     t0 = time.perf_counter()
     db = pt.PirDatabase.create(
-        [pool[i % len(pool)] for i in range(db_size)], params, device
+        [pool[i % len(pool)] for i in range(db_size)], params, device=device
     )
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     server = pt.PirServer(db, params, reply_limbs=pt.reply_limbs_for(params))
-    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True)
+    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device="cpu")
     n_req = max(args.reps, args.spread, 3) + 1
     requests = [client.create_request([(k * 7919) % db_size]) for k in range(n_req)]
     server.process_request(requests[0])  # fills the key cache; builds kernels

@@ -30,7 +30,7 @@ CHAINS = [(26, 27, 28), (26, 34, 36)]  # no hi plane (K4-u32); u8 hi plane (K4)
 
 def contexts(q_bits, n=128):
     params = tiny_pir_params(n=n, q_bits=q_bits)
-    return JCtx(params), TCtx(params)
+    return JCtx(params), TCtx(params, "cpu")
 
 
 def residues(rng, moduli, shape_before, n):
@@ -128,7 +128,7 @@ def stack(request):
     params = tiny_pir_params(dbsize=40, bytes_per_item=8, dimensions=2, n=64,
                              q_bits=request.param)
     raw = generate_test_db(params.num_items, params.bytes_per_item, seed=9)
-    return params, raw, JDB.create(raw, params, scan_impl="pallas"), pt.PirDatabase.create(raw, params)
+    return params, raw, JDB.create(raw, params, scan_impl="pallas"), pt.PirDatabase.create(raw, params, device="cpu")
 
 
 @pytest.mark.parametrize("reply_limbs", [None, 1])
@@ -154,7 +154,7 @@ def test_multi_query_reroute_equals_single_query_replies(stack, monkeypatch):
     Request that holds only that query and the same keys."""
     monkeypatch.setenv("PIR_BATCH_LANES", "2")
     params, raw, _, tdb = stack
-    client = pt.PirClient(params, seed=23, compress_queries=True)
+    client = pt.PirClient(params, seed=23, compress_queries=True, device="cpu")
     server = pt.PirServer(tdb, params, reply_limbs=pt.reply_limbs_for(params))
     indexes = [0, 31, params.num_items - 1]
     req = client.create_request(indexes)
@@ -200,7 +200,7 @@ def test_tpu32_n4096_response_bytes_equal_pir_tpu():
     keep = pt.reply_limbs_for(params)
     assert keep == 2
     jserver = JServer(JDB.create(raw, params, scan_impl="pallas"), params, reply_limbs=keep)
-    server = pt.PirServer(pt.PirDatabase.create(raw, params), params, reply_limbs=keep)
+    server = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params, reply_limbs=keep)
     assert server.db.db_planes[0] is None
     for indexes in ([200], [3, 599]):
         req = client.create_request(indexes)

@@ -24,7 +24,7 @@ def params():
 
 @pytest.fixture(scope="module")
 def clients(params):
-    return JClient(params, seed=17), TClient(params, seed=17)
+    return JClient(params, seed=17), TClient(params, seed=17, device="cpu")
 
 
 def test_keys_bit_identical(clients):
@@ -47,7 +47,7 @@ def test_keys_bit_identical(clients):
 @pytest.mark.parametrize("indexes", [[0], [13, 199]])
 def test_request_bytes_identical(params, compress, indexes):
     jc = JClient(params, seed=23, compress_queries=compress)
-    tc = TClient(params, seed=23, compress_queries=compress)
+    tc = TClient(params, seed=23, compress_queries=compress, device="cpu")
     for _ in range(2):  # the rng keeps step after the first request
         want = jc.create_request(indexes).SerializeToString()
         assert tc.create_request(indexes).SerializeToString() == want

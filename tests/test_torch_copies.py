@@ -106,8 +106,13 @@ def test_string_encoder_equal(bits_per_coeff):
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, pir_tpu_torch, pir_tpu_torch.convert, pir_tpu_torch.kernels;"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
+        "import sys, pir_tpu_torch, pir_tpu_torch.convert, pir_tpu_torch.kernels,"
+        " pir_tpu_torch.profile_request, pir_tpu_torch.parallel.sharded,"
+        " pir_tpu_torch.parallel.distributed, pir_tpu_torch.parallel.mesh_worker,"
+        " chip_smoke;"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
+        "bad = [m for m in sys.modules if m == 'pir_tpu' or m.startswith('pir_tpu.')];"
+        "assert not bad, bad"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

@@ -1,7 +1,9 @@
-"""Kernels A (NTT), B (scan, with and without a hi plane) and C (the wide
-scan of batched serving, both variants) on the card against their plain
-PyTorch versions, bit for bit (tolerance 0), and the port's server on the
-card against the same server on the CPU.
+"""Kernels A (NTT), B (scan, with and without a hi plane, and its
+runtime-moduli entry K6), C (the wide scan of batched serving, both
+variants) and D (the Shoup-table scan, K7) on the card against their plain
+PyTorch versions, bit for bit (tolerance 0); the port's server on the card
+(both layouts) against the same server on the CPU; and a mesh of two gloo
+ranks sharing the card against the single-device server.
 
 These tests need an NVIDIA GPU and carry the ``cuda`` marker; without a card
 they skip.  This file imports no JAX, so it also runs on a machine that has
@@ -75,7 +77,7 @@ def test_scan_kernel_matches_plain(dev, bits, P, D):
     hi, lo = scan_kernel.split_planes(db, moduli)
     got = scan_kernel.contract_dim_auto(sv, hi, lo, limbs)  # 46-bit: 3 chunks
     torch.cuda.synchronize()
-    want = scan_kernel.contract_dim_auto(sv.cpu(), hi.cpu(), lo.cpu(), modular.LimbConstants(moduli))
+    want = scan_kernel.contract_dim_auto(sv.cpu(), hi.cpu(), lo.cpu(), modular.LimbConstants(moduli, "cpu"))
     assert torch.equal(got.cpu(), want)
 
 
@@ -90,7 +92,7 @@ def test_scan_kernel_without_hi_plane_matches_plain(dev):
     got = scan_kernel.contract_dim_auto(sv, hi, lo, limbs)
     torch.cuda.synchronize()
     assert kernels.SCAN.variant_launches["pir_scan.u32"] == before + 1
-    want = scan_kernel.contract_plain(sv.cpu(), None, lo.cpu(), modular.LimbConstants(moduli))
+    want = scan_kernel.contract_plain(sv.cpu(), None, lo.cpu(), modular.LimbConstants(moduli, "cpu").table)
     assert torch.equal(got.cpu(), want)
     with pytest.raises(ValueError, match="need a hi plane"):
         wide = modular.LimbConstants(primes.coeff_modulus_from_bits(1024, [34, 36]), dev)
@@ -118,7 +120,7 @@ def test_scan_wide_kernel_matches_plain(dev, bits, P, D, S):
     torch.cuda.synchronize()
     assert kernels.SCAN_WIDE.variant_launches[variant] > before
     want = scan_kernel.contract_dim_wide_auto(
-        sv.cpu(), None if hi is None else hi.cpu(), lo.cpu(), modular.LimbConstants(moduli)
+        sv.cpu(), None if hi is None else hi.cpu(), lo.cpu(), modular.LimbConstants(moduli, "cpu")
     )
     assert torch.equal(got.cpu(), want)
 
@@ -131,14 +133,14 @@ def test_launch_counts(dev):
     tables.inverse(x)
     assert kernels.NTT.launches == before + 2
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"ntt": 0, "scan": 0, "scan_wide": 0}
+    assert kernels.launch_counts() == {"ntt": 0, "scan": 0, "scan_wide": 0, "scan_shoup": 0}
     assert kernels.variant_launch_counts() == {}
     limbs = modular.LimbConstants(tables.moduli[:1], dev)
     sv = residues(tables.moduli[:1], (3, 4), 64, dev, seed=4)
     _, lo = scan_kernel.split_planes(residues(tables.moduli[:1], (2, 3), 64, dev, 5).transpose(1, 2).contiguous(), tables.moduli[:1])
     scan_kernel.contract_dim_raw(sv[:, :2], None, lo, limbs)
     scan_kernel.contract_dim_raw_wide(sv, None, lo, limbs)
-    assert kernels.launch_counts() == {"ntt": 0, "scan": 1, "scan_wide": 1}
+    assert kernels.launch_counts() == {"ntt": 0, "scan": 1, "scan_wide": 1, "scan_shoup": 0}
     assert kernels.variant_launch_counts() == {"pir_scan.u32": 1, "pir_scan_wide.u32": 1}
 
 
@@ -153,12 +155,12 @@ def test_server_on_card_matches_cpu(dev, dims):
     params = pt.create_pir_parameters(50, 8, dims, ep)
     rng = np.random.default_rng(dims)
     raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
-    client = pt.PirClient(params, seed=6, compress_queries=True)
+    client = pt.PirClient(params, seed=6, compress_queries=True, device="cpu")
     req = client.create_request([2, 49])
     kernels.reset_launch_counts()
-    on_card = pt.PirServer(pt.PirDatabase.create(raw, params, dev), params).process_request(req)
+    on_card = pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params).process_request(req)
     counts = kernels.launch_counts()
-    on_cpu = pt.PirServer(pt.PirDatabase.create(raw, params, "cpu"), params).process_request(req)
+    on_cpu = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params).process_request(req)
     # two queries take the batched path: kernel C, and kernel B above d=1
     assert counts["ntt"] > 0 and counts["scan_wide"] > 0
     assert (counts["scan"] > 0) == (dims > 1)
@@ -180,14 +182,127 @@ def test_multi_query_server_on_card_matches_cpu(dev, bits, monkeypatch):
     params = pt.create_pir_parameters(50, 8, 2, ep)
     rng = np.random.default_rng(7)
     raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
-    client = pt.PirClient(params, seed=8, compress_queries=True)
+    client = pt.PirClient(params, seed=8, compress_queries=True, device="cpu")
     indexes = [2, 49, 17]
     req = client.create_request(indexes)
     variant = "u32" if max(bits) <= 32 else "hi"
     kernels.reset_launch_counts()
-    on_card = pt.PirServer(pt.PirDatabase.create(raw, params, dev), params).process_request(req)
+    on_card = pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params).process_request(req)
     counts = kernels.variant_launch_counts()
-    on_cpu = pt.PirServer(pt.PirDatabase.create(raw, params, "cpu"), params).process_request(req)
+    on_cpu = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params).process_request(req)
     assert counts[f"pir_scan_wide.{variant}"] == 2 and counts[f"pir_scan.{variant}"] == 4
     assert on_card.SerializeToString() == on_cpu.SerializeToString()
     assert client.process_response(indexes, on_card) == [raw[i] for i in indexes]
+
+
+@pytest.mark.parametrize("bits,P,D", [((36, 36), 162, 162), ((50, 52), 5, 40), ((58, 60), 3, 20)])
+def test_scan_shoup_kernel_matches_plain(dev, bits, P, D):
+    """Kernel D (K7); at 60 bits its u64 sums fold every 8 rows."""
+    moduli = primes.coeff_modulus_from_bits(1024, list(bits))
+    limbs = modular.LimbConstants(moduli, dev)
+    n = 256
+    sv = residues(moduli, (D, 2), n, dev, seed=P)
+    db = residues(moduli, (P, D), n, dev, seed=D)
+    shoup = modular.shoup_precompute_device(db, limbs.q, limbs.ratio_hi, limbs.ratio_lo)
+    before = kernels.SCAN_SHOUP.launches
+    got = scan_kernel.contract_dim_shoup(sv, db, shoup, limbs)
+    torch.cuda.synchronize()
+    assert kernels.SCAN_SHOUP.launches == before + 1
+    want = scan_kernel.contract_shoup_plain(
+        sv.cpu(), db.cpu(), shoup.cpu(), modular.LimbConstants(moduli, "cpu")
+    )
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bits,limb", [((26, 34), 0), ((26, 34), 1), ((26, 27), 1)])
+def test_scan_dyn_entry_matches_plain(dev, bits, limb):
+    """K6: one rank's limb slice with its moduli as a runtime table, the
+    plane form set by the whole chain (a 26-bit limb of a 34-bit chain reads
+    a hi plane)."""
+    chain = primes.coeff_modulus_from_bits(1024, list(bits))
+    max_bits = max(q.bit_length() for q in chain)
+    limbs = modular.LimbConstants(chain, dev).limb_range(limb, limb + 1)
+    sv = residues(limbs.moduli, (162, 2), 256, dev, seed=limb)
+    db = residues(limbs.moduli, (9, 162), 256, dev, seed=5).transpose(1, 2).contiguous()
+    hi, lo = scan_kernel.split_planes(db, bits=max_bits)
+    consts = scan_kernel.limb_consts(limbs.q, limbs.ratio_hi, limbs.ratio_lo)
+    variant = "pir_scan." + ("u32" if hi is None else "hi") + ".dyn"
+    before = kernels.SCAN.variant_launches.get(variant, 0)
+    got = scan_kernel.contract_dim_auto_dyn(sv, hi, lo, consts, limbs.q, max_bits)
+    torch.cuda.synchronize()
+    assert kernels.SCAN.variant_launches[variant] == before + 1
+    cpu = modular.LimbConstants(limbs.moduli, "cpu")
+    want = scan_kernel.contract_plain(sv.cpu(), None if hi is None else hi.cpu(), lo.cpu(), cpu.table)
+    assert torch.equal(got.cpu(), want)
+
+
+def _small_params(bits, dims=2):
+    n = 128
+    ep = pt.EncryptionParams(
+        poly_modulus_degree=n,
+        plain_modulus=primes.get_prime(2 * n, 13),
+        coeff_modulus=tuple(primes.coeff_modulus_from_bits(n, list(bits))),
+    )
+    return pt.create_pir_parameters(50, 8, dims, ep)
+
+
+@pytest.mark.parametrize("bits", [(34, 36, 37), (50, 52, 54)], ids=["q36", "q52"])
+def test_shoup_layout_server_on_card_matches_cpu(dev, bits):
+    """scan_impl="xla" on the card (kernel D for the inner scan), query by
+    query for a 2-query request; at 50-52 bits it is the only layout."""
+    params = _small_params(bits)
+    rng = np.random.default_rng(4)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    client = pt.PirClient(params, seed=3, compress_queries=True, device="cpu")
+    req = client.create_request([1, 48])
+    kernels.reset_launch_counts()
+    db = pt.PirDatabase.create(raw, params, scan_impl="xla", device=dev)
+    on_card = pt.PirServer(db, params).process_request(req)
+    counts = kernels.variant_launch_counts()
+    on_cpu = pt.PirServer(
+        pt.PirDatabase.create(raw, params, scan_impl="xla", device="cpu"), params
+    ).process_request(req)
+    assert counts["pir_scan_shoup"] == 2
+    assert on_card.SerializeToString() == on_cpu.SerializeToString()
+    assert client.process_response([1, 48], on_card) == [raw[1], raw[48]]
+
+
+def _mesh_job(params, raw, request, backend, world=2, limb=2):
+    from pir_tpu_torch.pir import wire
+
+    case = {
+        "name": "mesh", "params": wire.pir_params_to_proto(params).SerializeToString(),
+        "items": b"".join(raw), "scan_impl": "pallas", "batch": 1, "limb": limb,
+        "requests": [request.SerializeToString()],
+    }
+    return {"world": world, "backend": backend, "devices": ["cuda:0"] * world,
+            "timeout_s": 120, "cases": [case]}
+
+
+def test_mesh_of_two_ranks_on_card(dev, tmp_path):
+    """A limb=2 mesh of two gloo ranks sharing the card: each rank's Response
+    equals the single-device server's, through K6 and kernel A."""
+    from pir_tpu_torch.parallel import mesh_worker
+
+    params = _small_params((34, 36, 37))
+    rng = np.random.default_rng(5)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    client = pt.PirClient(params, seed=6, compress_queries=True, device="cpu")
+    req = client.create_request([4, 40])
+    want = pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params).process_request(req)
+    results = mesh_worker.run_job(_mesh_job(params, raw, req, "gloo"), tmp_path, 600)
+    for r in results:
+        assert r["mesh"]["responses"] == [want.SerializeToString()]
+        assert r["mesh"]["counts"][0]["pir_scan.hi.dyn"] > 0
+        assert r["mesh"]["counts"][0]["pir_ntt"] > 0
+    assert client.process_response([4, 40], want) == [raw[4], raw[40]]
+
+
+def test_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
+    from pir_tpu_torch.parallel import mesh_worker
+
+    params = _small_params((34, 36, 37))
+    raw = [bytes(8)] * 50
+    req = pt.PirClient(params, seed=6, device="cpu").create_request([4])
+    with pytest.raises(RuntimeError, match="share the card"):
+        mesh_worker.run_job(_mesh_job(params, raw, req, "nccl"), tmp_path, 300)

@@ -30,7 +30,7 @@ def setup(request):
                              q_bits=request.param)
     tk = make_toolkit(params, seed=31)
     keys = {e: np.asarray(k.data) for e, k in tk.galois.keys.items()}
-    return tk, TCtx(params), keys, convert.galois_keys_from_numpy(keys)
+    return tk, TCtx(params, "cpu"), keys, convert.galois_keys_from_numpy(keys)
 
 
 def rand_ct(rng, ctx, batch):

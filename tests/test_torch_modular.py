@@ -104,7 +104,7 @@ def test_shoup(bits):
 def test_limb_constants():
     moduli = [prime(b) for b in (20, 36, 48, 61)]
     jl = jm.LimbConstants(moduli)
-    tl = tm.LimbConstants(moduli)
+    tl = tm.LimbConstants(moduli, "cpu")
     assert same(tl.q, jl.q) and same(tl.ratio_hi, jl.ratio_hi)
     assert same(tl.ratio_lo, jl.ratio_lo)
     assert tl.slice(2).moduli == jl.slice(2).moduli
@@ -155,3 +155,32 @@ def test_wide32_word_helpers():
     assert np.array_equal(tl.numpy(), np.asarray(jl).astype(np.int64))
     x = full64(rng, 512)
     assert same(tw.join_u64(*tw.split_u64(T(x))), x)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no device argument the port computes on the current CUDA card;
+    without one, construction raises instead of carrying on on the CPU.
+    tensor_u64 is a conversion helper and stays on the host."""
+    import torch
+
+    import pir_tpu_torch as pt
+    from pir_tpu.testing.params import tiny_pir_params
+    from pir_tpu_torch.ops.ntt import NttTables
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = tiny_pir_params(dbsize=10, bytes_per_item=8, n=64)
+    moduli = params.encryption_params.coeff_modulus
+    for build in (
+        lambda: tm.resolve_device(None),
+        lambda: tm.LimbConstants(moduli),
+        lambda: NttTables(moduli, 64),
+        lambda: pt.PirContext(params),
+        lambda: pt.PirDatabase(params),
+        lambda: pt.PirClient(params, seed=1),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            build()
+    assert tm.resolve_device("cpu") == torch.device("cpu")
+    assert tm.tensor_u64([1, 2]).device == torch.device("cpu")
+    db = pt.PirDatabase(params, device="cpu")
+    assert db.device == torch.device("cpu") and db.ctx.ntt_q.device == torch.device("cpu")

@@ -22,7 +22,7 @@ from pir_tpu_torch.ops.modular import numpy_u64, tensor_u64
 
 def tables(n, bits):
     moduli = primes.coeff_modulus_from_bits(n, list(bits))
-    return jntt.NttTables(moduli, n), tntt.NttTables(moduli, n)
+    return jntt.NttTables(moduli, n), tntt.NttTables(moduli, n, "cpu")
 
 
 def rand_poly(rng, moduli, n, batch=()):
@@ -90,7 +90,7 @@ def test_cpu_tensor_never_reaches_the_kernel():
 @pytest.fixture(scope="module")
 def contexts():
     params = tiny_pir_params(n=64, q_bits=(26, 27, 28))
-    return JCtx(params), TCtx(params)
+    return JCtx(params), TCtx(params, "cpu")
 
 
 def test_context_constants(contexts):

@@ -1,7 +1,9 @@
 """The port's scan path against pir_tpu: split planes, the contraction
 (kernel B's CPU counterpart) against K1 and K5 under the Pallas interpreter,
-the full planes scan, digit decomposition in both re-encode modes,
-mod-switching and the database's plaintexts and planes.  Tolerance 0."""
+its runtime-moduli entry against K6, kernel D's counterpart against K7, the
+full planes scan, the Shoup-table layout end to end, digit decomposition in
+both re-encode modes, mod-switching and the database's plaintexts and
+planes.  Tolerance 0."""
 
 import numpy as np
 import jax
@@ -11,6 +13,7 @@ import torch
 
 from pir_tpu.core.context import PirContext as JCtx
 from pir_tpu.ops import decompose as jdec
+from pir_tpu.ops import modular as jmod
 from pir_tpu.ops import modswitch as jms
 from pir_tpu.ops import pallas_scan
 from pir_tpu.ops import scan as jscan
@@ -29,7 +32,7 @@ from pir_tpu_torch.pir import database as tdb
 
 def contexts(q_bits, n=128, reencode="balanced", t_bits=13):
     params = tiny_pir_params(n=n, t_bits=t_bits, q_bits=q_bits, reencode_digits=reencode)
-    return JCtx(params), TCtx(params)
+    return JCtx(params), TCtx(params, "cpu")
 
 
 def residues(rng, moduli, shape_before, n):
@@ -152,7 +155,7 @@ def test_database_plaintexts_and_planes(dbsize, item, dims, q_bits):
                              n=64, q_bits=q_bits)
     raw = generate_test_db(dbsize, item, seed=dbsize)
     jdb = JDB.create(raw, params, scan_impl="pallas")
-    tdbase = tdb.PirDatabase.create(raw, params)
+    tdbase = tdb.PirDatabase.create(raw, params, device="cpu")
     assert np.array_equal(tdbase.db_pts, jdb.db_pts)
     jh, jl = jdb.db_planes
     th, tl = tdbase.db_planes
@@ -176,3 +179,108 @@ def test_pack_items_matches_string_encoder(bits_per_coeff, bytes_per_pt):
     for i in range(3):
         ref = enc.encode(buf[i * bytes_per_pt : (i + 1) * bytes_per_pt])
         assert np.array_equal(got[i], ref)
+
+
+@pytest.mark.parametrize("q_bits,D", [((26, 34, 36), 7), ((50, 52, 54), 40), ((58, 60, 61), 9)])
+def test_contract_shoup_matches_pallas_interpret(q_bits, D):
+    """Kernel D's CPU counterpart against K7 under the interpreter and
+    scan.contract_dim with companions; at 58-60 bits the u64 sums fold every
+    8 rows, so D=9 crosses a fold."""
+    jc, tc = contexts(q_bits)
+    P, N = 3, 128
+    rng = np.random.default_rng(6)
+    sv = residues(rng, jc.ct_moduli, (D, 2), N)
+    db = residues(rng, jc.ct_moduli, (P, D), N)
+    lq = jc.limbs_q
+    shoup = np.asarray(jmod.shoup_precompute(db, np.asarray(lq.q)))
+    want = np.asarray(jscan.contract_dim(jc, jnp.asarray(sv), jnp.asarray(db), jnp.asarray(shoup)))
+    got = scan_kernel.contract_shoup_plain(
+        tensor_u64(sv), tensor_u64(db), tensor_u64(shoup), tc.limbs_q
+    )
+    assert np.array_equal(numpy_u64(got), want)
+    assert np.array_equal(
+        numpy_u64(tscan.contract_dim(tc, tensor_u64(sv), tensor_u64(db), tensor_u64(shoup))), want
+    )
+    if D * max(jc.ct_moduli) < 2**64:  # K7 never folds: exact only below this
+        ref = pallas_scan.contract_dim_pallas(
+            jnp.asarray(sv), jnp.asarray(db), jnp.asarray(shoup), lq.moduli,
+            tuple(int(x) for x in lq.ratio_hi[:, 0]), block_n=128, interpret=True,
+        )
+        assert np.array_equal(numpy_u64(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize("q_bits", [(26, 27, 28), (50, 52, 54)])
+def test_contract_dim_without_companions(q_bits):
+    """The upper levels' contraction of the Shoup layout (no companions)."""
+    jc, tc = contexts(q_bits)
+    rng = np.random.default_rng(7)
+    sv = residues(rng, jc.ct_moduli, (5, 2), 128)
+    items = residues(rng, jc.ct_moduli, (4, 5), 128)
+    want = jscan.contract_dim(jc, jnp.asarray(sv), jnp.asarray(items))
+    got = tscan.contract_dim(tc, tensor_u64(sv), tensor_u64(items))
+    assert np.array_equal(numpy_u64(got), np.asarray(want))
+
+
+@pytest.mark.parametrize(
+    "q_bits,limb", [((26, 27, 28, 29, 30), 1), ((26, 34, 36), 0), ((26, 34, 36), 1)]
+)
+def test_contract_dim_auto_dyn_matches_pallas_interpret(q_bits, limb):
+    """K6 for one rank's limb slice: the runtime moduli are the slice's,
+    the plane form and exactness bound the whole chain's — at (26, 34) the
+    rank holding the 26-bit limb still reads a uint8 hi plane."""
+    jc, tc = contexts(q_bits)
+    L = 2 if len(jc.ct_moduli) == 4 else 1
+    sl = slice(limb * L, (limb + 1) * L)
+    moduli = jc.ct_moduli[sl]
+    bits = max(q.bit_length() for q in jc.ct_moduli)
+    P, D, N = 3, 7, 128
+    rng = np.random.default_rng(8)
+    sv = residues(rng, moduli, (D, 2), N)
+    db = residues(rng, moduli, (P, D), N).transpose(0, 2, 1, 3).copy()
+    jh, jl = pallas_scan.split_planes(jnp.asarray(db), bits=bits)
+    lq = jc.limbs_q
+    cols = [jnp.asarray(np.asarray(a)[sl]) for a in (lq.q, lq.ratio_hi, lq.ratio_lo)]
+    ref = pallas_scan.contract_dim_auto_dyn(
+        jnp.asarray(sv), jh, jl, pallas_scan.limb_consts(*cols), cols[0], bits,
+        interpret=True,
+    )
+    th, tl = scan_kernel.split_planes(tensor_u64(db), bits=bits)
+    assert (th is None) == (bits <= 32)
+    tlq = tc.limbs_q.limb_range(sl.start, sl.stop)
+    consts = scan_kernel.limb_consts(tlq.q, tlq.ratio_hi, tlq.ratio_lo)
+    got = scan_kernel.contract_dim_auto_dyn(tensor_u64(sv), th, tl, consts, tlq.q, bits)
+    assert np.array_equal(numpy_u64(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize(
+    "q_bits,dims", [((26, 34, 36), 2), ((50, 52, 54), 2), ((50, 52, 54), 1)]
+)
+def test_shoup_layout_serving_equals_pir_tpu(q_bits, dims):
+    """scan_impl="xla": the database's NTT form and companions, and the
+    Response bytes, equal pir_tpu's; at 50-52-bit moduli (above the planes'
+    48 bits) "auto" picks this layout in both packages."""
+    from pir_tpu.pir.client import PirClient as JClient
+    from pir_tpu.pir.server import PirServer as JServer
+    import pir_tpu_torch as pt
+
+    params = tiny_pir_params(dbsize=40, bytes_per_item=8, dimensions=dims, n=64,
+                             q_bits=q_bits)
+    raw = generate_test_db(40, 8, seed=3)
+    jdb = JDB.create(raw, params, scan_impl="xla")
+    tdbase = tdb.PirDatabase.create(raw, params, scan_impl="auto" if q_bits[0] > 48 else "xla",
+                                    device="cpu")
+    assert tdbase.scan_impl == "xla" and tdbase.db_planes is None
+    assert np.array_equal(numpy_u64(tdbase.db_ntt), np.asarray(jdb.db_ntt))
+    assert np.array_equal(numpy_u64(tdbase.db_ntt_shoup), np.asarray(jdb.db_ntt_shoup))
+    client = JClient(params, seed=4)
+    req = client.create_request([2, 39])
+    want = JServer(jdb, params).process_request(req)
+    server = pt.PirServer(tdbase, params)
+    for got in (server.process_request(req), server.process_request_batched(req)):
+        assert got.SerializeToString() == want.SerializeToString()
+    assert client.process_response([2, 39], want) == [raw[2], raw[39]]
+    if q_bits[0] > 48:  # the planes cannot hold these moduli
+        with pytest.raises(ValueError, match="48"):
+            tdb.PirDatabase(params, scan_impl="pallas", device="cpu")
+    with pytest.raises(ValueError, match="unknown scan_impl"):
+        tdb.PirDatabase(params, scan_impl="cpu", device="cpu")

@@ -27,7 +27,7 @@ def stack(request):
     params = _params(request.param)
     raw = generate_test_db(params.num_items, params.bytes_per_item, seed=8)
     jdb = JDB.create(raw, params)
-    tdb = pt.PirDatabase.create(raw, params)
+    tdb = pt.PirDatabase.create(raw, params, device="cpu")
     return params, raw, jdb, tdb
 
 
@@ -49,7 +49,7 @@ def test_response_bytes_equal_pir_tpu(stack, reply_limbs, compress):
 @pytest.mark.parametrize("compress", [False, True], ids=["full", "seeded"])
 def test_port_client_against_port_server(stack, compress):
     params, raw, _, tdb = stack
-    client = pt.PirClient(params, seed=3, compress_queries=compress)
+    client = pt.PirClient(params, seed=3, compress_queries=compress, device="cpu")
     server = pt.PirServer(tdb, params, reply_limbs=pt.reply_limbs_for(params))
     indexes = [0, 17, params.num_items - 1]
     resp = server.process_request(client.create_request(indexes))
@@ -60,7 +60,7 @@ def test_port_client_against_port_server(stack, compress):
 def test_process_query_core_and_async(stack):
     """The array-level core returns what process_request serializes."""
     params, raw, _, tdb = stack
-    client = pt.PirClient(params, seed=9)
+    client = pt.PirClient(params, seed=9, device="cpu")
     server = pt.PirServer(tdb, params)
     req = client.create_request([11])
     pending = server.process_request_async(req)
@@ -76,7 +76,7 @@ def test_process_query_core_and_async(stack):
 
 def test_database_from_pir_tpu_plaintexts(stack):
     params, raw, jdb, tdb = stack
-    db = convert.database_from_plaintexts(params, jdb.db_pts)
+    db = convert.database_from_plaintexts(params, jdb.db_pts, device="cpu")
     for a, b in zip(db.db_planes, tdb.db_planes):
         assert (a is None and b is None) or bool((a == b).all())
 
@@ -84,7 +84,7 @@ def test_database_from_pir_tpu_plaintexts(stack):
 def test_key_cache_hashes_whole_blobs(stack):
     params, raw, _, tdb = stack
     server = pt.PirServer(tdb, params)
-    client = pt.PirClient(params, seed=12)
+    client = pt.PirClient(params, seed=12, device="cpu")
     req = client.create_request([4])
     server.process_request(req)
     server.process_request(req)
@@ -96,7 +96,7 @@ def test_key_cache_hashes_whole_blobs(stack):
     other[300_000] = 1
     assert d(bytes(big), b"") != d(bytes(other), b"")
     assert d(b"ab", b"") != d(b"a", b"b")
-    client2 = pt.PirClient(params, seed=13)
+    client2 = pt.PirClient(params, seed=13, device="cpu")
     assert client2.process_response([4], server.process_request(
         client2.create_request([4]))) == [raw[4]]
     assert len(server._key_cache) == 2
@@ -105,7 +105,7 @@ def test_key_cache_hashes_whole_blobs(stack):
 def test_request_errors(stack):
     params, raw, _, tdb = stack
     server = pt.PirServer(tdb, params)
-    client = pt.PirClient(params, seed=14)
+    client = pt.PirClient(params, seed=14, device="cpu")
     req = client.create_request([1])
     req.galois_keys = b""
     with pytest.raises(ValueError, match="no galois keys"):
@@ -125,7 +125,7 @@ def test_staged_profile_request_equals_process_request(stack, reply_limbs):
     from pir_tpu_torch.utils.math import ceil_log2
 
     params, _, _, tdb = stack
-    client = pt.PirClient(params, seed=13, compress_queries=True)
+    client = pt.PirClient(params, seed=13, compress_queries=True, device="cpu")
     server = pt.PirServer(tdb, params, reply_limbs=reply_limbs)
     req = client.create_request([5])
     n = params.encryption_params.poly_modulus_degree
@@ -158,7 +158,7 @@ def test_n4096_response_bytes_equal_pir_tpu():
     client = JClient(params, seed=7, compress_queries=True)
     req = client.create_request([200])
     want = JServer(JDB.create(raw, params), params, reply_limbs=1).process_request(req)
-    server = pt.PirServer(pt.PirDatabase.create(raw, params), params, reply_limbs=1)
+    server = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params, reply_limbs=1)
     got = server.process_request(req)
     assert got.SerializeToString() == want.SerializeToString()
     assert client.process_response([200], got) == [raw[200]]
