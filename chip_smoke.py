@@ -12,15 +12,18 @@ Phases, each of which raises on failure:
 2. build kernels A (NTT), B (scan), C (wide scan) and D (Shoup-table scan)
    from pir_tpu_torch/csrc with nvcc, all at once;
 3. each kernel against its plain version on the card, bit for bit, at the
-   shapes the main paths give it, with both times and the bound: A; B with
+   shapes the main paths give it, with both times and the bound: A at each
+   of the 22 launches of a single-query request (the per-request sums of
+   time and bound on a line of their own) and at N=256 (K3's ring); B with
    a hi plane (K1) and without (K5, tpu32); C at S = 32 columns with a hi
    plane (K4) and without (K4-u32), beside 16 calls of kernel B on the same
    columns, with GB/s of database planes; B's runtime-moduli entry (K6) at
    the shapes of one rank of the limb-sharded meshes below; D (K7) at the
    inner scan of the Shoup-table database, on SEAL's chain and on a chain of
    60-bit moduli (above the planes' 48 bits, where its sums fold);
-4. a small database served on the card and on the CPU (plain versions):
-   the Response bytes must be equal;
+4. a small database (N=256) served on the card and on the CPU (plain
+   versions): the Response bytes must be equal, and the card's request must
+   have launched kernel A (the K3 row's launches);
 5. the benchmark configuration (288-byte items, d=2, N=4096, 24-bit plain
    modulus, SEAL's BFVDefault chain, database from seed 42, client seed 7,
    seeded queries, replies mod-switched by reply_limbs_for): three requests
@@ -54,14 +57,17 @@ Phases, each of which raises on failure:
    one card, not a multi-GPU figure.  Each rank's device memory once its
    server holds only its shard, and its peak over the build and requests.
 
-Bounds: the least time for a kernel's work on an H100 SXM — the larger of
-its bytes (each input read once, each output written once) at 3.35 TB/s and
-its 32-bit integer multiply instructions at 16.75 T/s (the on-chip
-guide's 67 TFLOP/s float32 rate is 128 lanes per SM; Hopper has 64 INT32
-lanes per SM).  No single PyTorch call computes a modular contraction or a
-negacyclic NTT, so library_ms is null for every kernel.
+Bounds (pir_tpu_torch/kt.py): the least time for a kernel's work
+on an H100 SXM — the larger of its bytes (each input read once, each output
+written once) at 3.35 TB/s and its 32-bit integer multiply instructions at
+16.75 T/s (the on-chip guide's 67 TFLOP/s float32 rate is 128 lanes per SM;
+Hopper has 64 INT32 lanes per SM).  Kernel times are device times of
+back-to-back launches queued behind a device-side sleep.  No single PyTorch
+call computes a modular contraction or a negacyclic NTT, so library_ms is
+null for every kernel.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, one row per KERNEL_ROWS
+entry (every TPU kernel body of pir_tpu/ops/pallas_*.py); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero before printing any result.
 """
@@ -73,9 +79,13 @@ import math
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from pir_tpu_torch import kernel_times as kt
+from pir_tpu_torch.kernel_times import chains, random_residues
 
 ITEM_SIZE = 288
 DIMENSIONS = 2
@@ -86,49 +96,42 @@ DB_SEED = 42
 CLIENT_SEED = 7
 POOL_ITEMS = 4096  # distinct random items the benchmark data repeats
 BATCH_QUERIES = 18  # one chunk of 16 lanes and a ragged tail of 2
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 67e12 / 4  # 132 SMs x 64 INT32 lanes x 1.98 GHz
-# 32-bit multiply instructions per product (a 32x32 -> 64 product is two)
-MULS_48BIT = 8  # kernels B and C with a hi plane: four partial products
-MULS_32BIT = 3  # without: one product and its carry
-MULS_SHOUP = 16  # kernels A and D: x*w, the companion's high word, est*q
 MESH_TIMEOUT_S = 420
+
+
+class KernelRow(NamedTuple):
+    name: str
+    source: str  # under pir_tpu_torch/csrc/
+    replaces: "tuple[str, ...]"  # the TPU kernel bodies (file:line of their def)
+    launches: "tuple[tuple[str, str], ...]"  # (served path, counted variant)
+    check: str  # which kernel check gives its numbers
+
+
+# One row per TPU kernel body that pl.pallas_call reaches in pir_tpu/ops/
+# (tests/test_torch_kernel_table.py holds the table to the source).
+KERNEL_ROWS = (
+    KernelRow("scan (K1)", "scan.cu", ("pir_tpu/ops/pallas_scan.py:103",),
+              (("single", "pir_scan.hi"),), "K1"),
+    KernelRow("ntt (K2)", "ntt.cu", ("pir_tpu/ops/pallas_mxu_ntt.py:252",),
+              (("single", "pir_ntt"),), "K2"),
+    KernelRow("ntt N=256 (K3)", "ntt.cu", ("pir_tpu/ops/pallas_ntt.py:147",),
+              (("small", "pir_ntt"),), "K3"),
+    KernelRow("scan_wide (K4)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:397",),
+              (("batched", "pir_scan_wide.hi"),), "K4"),
+    KernelRow("scan_wide u32 (K4-u32)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:422",),
+              (("tpu32", "pir_scan_wide.u32"),), "K4-u32"),
+    KernelRow("scan u32 (K5)", "scan.cu", ("pir_tpu/ops/pallas_scan.py:167",),
+              (("tpu32", "pir_scan.u32"),), "K5"),
+    KernelRow("scan dyn (K6)", "scan.cu",
+              ("pir_tpu/ops/pallas_scan.py:204", "pir_tpu/ops/pallas_scan.py:187"),
+              (("mesh", "pir_scan.hi.dyn"), ("mesh32", "pir_scan.u32.dyn")), "K6"),
+    KernelRow("scan_shoup (K7)", "scan_shoup.cu", ("pir_tpu/ops/pallas_scan.py:32",),
+              (("shoup", "pir_scan_shoup"),), "K7"),
+)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(nbytes: float, muls: float) -> dict:
-    """The least time for the work on the card, and which limit sets it."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = muls / IMAD_PER_S * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None}
-
-
-def scan_bound(sv, hi, lo, out_cols: int) -> dict:
-    """Bound of a planes contraction: sv and planes read once, [P, S, L, N]
-    written once; one product per (prefix, row, column, limb, coefficient)."""
-    P, L, D, N = lo.shape
-    nbytes = sv.numel() * 8 + planes_gb(hi, lo) * 1e9 + P * out_cols * L * N * 8
-    muls = P * D * L * N * out_cols * (MULS_32BIT if hi is None else MULS_48BIT)
-    return bound(nbytes, muls)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -137,56 +140,52 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a - b).abs().max().item()) if a.numel() else 0
 
 
-def random_residues(moduli, shape_before, n, device, gen) -> torch.Tensor:
-    """int64[*shape_before, L, n] uniform below each limb's modulus."""
-    cols = [
-        torch.randint(0, int(q), (*shape_before, 1, n), generator=gen,
-                      dtype=torch.int64, device=device)
-        for q in moduli
-    ]
-    return torch.cat(cols, dim=-2)
-
-
 def check_ntt(device, gen) -> dict:
-    """Kernel A vs its plain version at the main path's shapes (tolerance 0)."""
+    """Kernel A vs its plain version (tolerance 0) at every shape one
+    single-query request launches it with (kernel_times.ntt_request_shapes:
+    the key switch's NTT and INTT at each of the 9 expansion levels, the
+    selection vector, both scans' INTTs and the digit plaintexts), timed on
+    the card, and at N=256 (K3's ring, the small database served below).
+    Returns the K2 headline ([648, 2, 4096] forward, the selection vector)
+    and the K3 one ([64, 3, 256] forward)."""
     from pir_tpu_torch.core import primes
-    from pir_tpu_torch.core.params import generate_encryption_params
-    from pir_tpu_torch.ops.ntt import NttTables, ntt_cuda, ntt_plain
+    from pir_tpu_torch.ops.ntt import NttTables, ntt_cuda, ntt_plan, ntt_plain
 
-    chain = generate_encryption_params(POLY_DEGREE, PLAIN_BITS).coeff_modulus
-    qp = NttTables(chain, POLY_DEGREE, device)
-    small = NttTables(primes.coeff_modulus_from_bits(256, [36, 36, 37]), 256, device)
-    cases = [
-        # the selection vector [324, 2, L, N] flattened (q chain)
-        ("q chain [648, 2, 4096]", qp.slice(2), (648,)),
-        # the last expansion level's key-switch digits: 256 cts x L (QP chain)
-        ("QP chain [512, 3, 4096]", qp, (512,)),
-        ("N=256 [64, 3, 256]", small, (64,)),
-    ]
-    headline = None
-    for label, tables, batch in cases:
-        x = random_residues(tables.moduli, batch, tables.n, device, gen)
-        for inverse in (False, True):
-            got = ntt_cuda(tables, x, inverse)
-            want = ntt_plain(tables, x, inverse)
-            err = max_abs_err(got, want)
-            if err != 0 or not torch.equal(got, want):
-                raise AssertionError(f"kernel A differs from plain at {label}")
-            ms = cuda_ms(lambda: ntt_cuda(tables, x, inverse), 20)
-            plain_ms = cuda_ms(lambda: ntt_plain(tables, x, inverse), 3)
-            name = "inverse" if inverse else "forward"
-            polys = x.numel() // tables.n
-            butterflies = polys * tables.n // 2 * (tables.n.bit_length() - 1)
-            nbytes = 2 * x.numel() * 8 + 2 * tables.psi_rev.numel() * 8
-            numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       **bound(nbytes, butterflies * MULS_SHOUP)}
-            log(f"kernel A {name} {label}: bit-equal to plain (max_abs_err 0); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
-            headline = headline or numbers
-        back = ntt_cuda(tables, ntt_cuda(tables, x, False), True)
-        if not torch.equal(back, x):
+    qp = NttTables(chains()["seal"].coeff_modulus, POLY_DEGREE, device)
+    tables = {"qp": qp, "q": qp.slice(2),
+              "small": NttTables(primes.coeff_modulus_from_bits(256, [34, 36, 37]), 256, device)}
+    shapes = kt.ntt_request_shapes() + [("N=256", "small", 64, False),
+                                        ("N=256", "small", 64, True)]
+    headline = {}
+    sums = {"ms": 0.0, "bound_ms": 0.0}
+    for label, chain, batch, inverse in shapes:
+        t = tables[chain]
+        x = random_residues(t.moduli, (batch,), t.n, device, gen)
+        got = ntt_cuda(t, x, inverse)
+        want = ntt_plain(t, x, inverse)
+        err = max_abs_err(got, want)
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"kernel A differs from plain at {label} {tuple(x.shape)}")
+        if not torch.equal(ntt_cuda(t, got, not inverse), x):
             raise AssertionError(f"kernel A round trip fails at {label}")
+        ms = kt.device_ms(lambda: ntt_cuda(t, x, inverse), 50)
+        numbers = {"max_abs_err": err, "ms": ms, **kt.ntt_bound(x, t.n, len(t.moduli))}
+        key = {(648, False): "K2", (64, False): "K3"}.get((batch, inverse))
+        if key:
+            numbers["plain_ms"] = kt.device_ms(lambda: ntt_plain(t, x, inverse), 3)
+            headline[key] = numbers
+        if chain != "small":
+            sums["ms"] += ms
+            sums["bound_ms"] += numbers["bound_ms"]
+        plan = ntt_plan(t.n, x.numel() // t.n)
+        log(f"kernel A {'inverse' if inverse else 'forward'} {label} {list(x.shape)} "
+            f"({1 << plan.radix_bits} words x {plan.threads_per_block} threads a block): "
+            f"bit-equal to plain (max_abs_err 0), round trip exact; kernel {ms:.4f} ms"
+            + (f", plain {numbers['plain_ms']:.4f} ms" if key else "")
+            + f", bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
+    log(f"kernel A over the 22 launches of one single-query request: sum of times "
+        f"{sums['ms']:.4f} ms, sum of bounds {sums['bound_ms']:.4f} ms "
+        f"({sums['bound_ms'] / sums['ms']:.1%} of bound)")
     return headline
 
 
@@ -200,15 +199,6 @@ def random_planes(chain, P, D, device, gen):
 
     db = random_residues(chain, (P, D), POLY_DEGREE, device, gen)  # [P, D, L, N]
     return scan_kernel.split_planes(db.transpose(1, 2).contiguous(), chain)
-
-
-def chains():
-    from pir_tpu_torch.core.params import generate_encryption_params
-
-    return {
-        "seal": generate_encryption_params(POLY_DEGREE, PLAIN_BITS),
-        "tpu32": generate_encryption_params(POLY_DEGREE, PLAIN_BITS, profile="tpu32"),
-    }
 
 
 def check_scan(device, gen) -> dict:
@@ -235,11 +225,11 @@ def check_scan(device, gen) -> dict:
             err = max_abs_err(got, want)
             if err != 0 or not torch.equal(got, want):
                 raise AssertionError(f"kernel B differs from plain at {profile} {label}")
-            ms = cuda_ms(lambda: scan_kernel.contract_cuda(sv, hi, lo, limbs), 10)
-            plain_ms = cuda_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
+            ms = kt.device_ms(lambda: scan_kernel.contract_cuda(sv, hi, lo, limbs), 10)
+            plain_ms = kt.device_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
             variant = "K1" if hi is not None else "K5"
             numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       **scan_bound(sv, hi, lo, 2)}
+                       **kt.scan_bound(sv, hi, lo)}
             log(f"kernel B ({variant}) {profile} {label}: bit-equal to plain (max_abs_err 0); "
                 f"kernel {ms:.4f} ms ({planes_gb(hi, lo) / ms * 1e3:.1f} GB/s of planes), "
                 f"plain {plain_ms:.4f} ms, bound {numbers['bound_ms']:.4f} ms "
@@ -271,13 +261,13 @@ def check_scan_wide(device, gen) -> dict:
         for k, x in enumerate(pairs[:2]):
             if not torch.equal(scan_kernel.contract_cuda(x, hi, lo, limbs), got[:, 2 * k : 2 * k + 2]):
                 raise AssertionError(f"kernel C columns differ from kernel B at {profile}")
-        ms = cuda_ms(lambda: scan_kernel.contract_wide_cuda(sv, hi, lo, limbs), 5)
-        b16_ms = cuda_ms(lambda: [scan_kernel.contract_cuda(x, hi, lo, limbs) for x in pairs], 3)
-        plain_ms = cuda_ms(lambda: scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table), 1)
+        ms = kt.device_ms(lambda: scan_kernel.contract_wide_cuda(sv, hi, lo, limbs), 5)
+        b16_ms = kt.device_ms(lambda: [scan_kernel.contract_cuda(x, hi, lo, limbs) for x in pairs], 3)
+        plain_ms = kt.device_ms(lambda: scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table), 1)
         gb = planes_gb(hi, lo)
         variant = "K4" if hi is not None else "K4-u32"
         headline[variant] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             **scan_bound(sv, hi, lo, S)}
+                             **kt.scan_bound(sv, hi, lo)}
         log(f"kernel C ({variant}) {profile} sv [162,{S},{L},4096] planes [162,{L},162,4096]: "
             f"bit-equal to plain (max_abs_err 0); kernel {ms:.4f} ms "
             f"({gb / ms * 1e3:.1f} GB/s of planes); 16 x kernel B on the same columns "
@@ -307,9 +297,9 @@ def check_scan_dyn(device, gen) -> dict:
         err = max_abs_err(got, want)
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"K6 differs from plain at {profile} limb {limb}")
-        ms = cuda_ms(lambda: scan_kernel.contract_dim_raw_dyn(sv, hi, lo, consts, bits), 10)
-        plain_ms = cuda_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
-        numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **scan_bound(sv, hi, lo, 2)}
+        ms = kt.device_ms(lambda: scan_kernel.contract_dim_raw_dyn(sv, hi, lo, consts, bits), 10)
+        plain_ms = kt.device_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
+        numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **kt.scan_bound(sv, hi, lo)}
         log(f"kernel B runtime moduli (K6) {profile} limb {limb} sv [162,2,1,4096] planes "
             f"[{P},1,162,4096] ({'hi plane' if hi is not None else 'no hi plane'}): bit-equal "
             f"to plain (max_abs_err 0); kernel {ms:.4f} ms "
@@ -340,11 +330,11 @@ def check_scan_shoup(device, gen) -> dict:
         err = max_abs_err(got, want)
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"kernel D differs from plain at the inner scan, {label}")
-        ms = cuda_ms(lambda: scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs), 10)
-        plain_ms = cuda_ms(lambda: scan_kernel.contract_shoup_plain(sv, db, shoup, limbs), 2)
+        ms = kt.device_ms(lambda: scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs), 10)
+        plain_ms = kt.device_ms(lambda: scan_kernel.contract_shoup_plain(sv, db, shoup, limbs), 2)
         nbytes = (sv.numel() + 2 * db.numel() + got.numel()) * 8
         numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   **bound(nbytes, db.numel() * 2 * MULS_SHOUP)}
+                   **kt.bound(nbytes, db.numel() * 2 * kt.MULS_SHOUP)}
         log(f"kernel D (K7) {label} sv [162,2,2,4096] db+shoup [162,162,2,4096]: bit-equal "
             f"to plain (max_abs_err 0); kernel {ms:.4f} ms ({nbytes / 1e9 / ms * 1e3:.1f} GB/s "
             f"of {nbytes / 1e9:.2f} GB), plain {plain_ms:.4f} ms, bound "
@@ -354,10 +344,12 @@ def check_scan_shoup(device, gen) -> dict:
     return headline
 
 
-def check_small_against_cpu(device) -> None:
-    """A small database served on the card and on the CPU (plain versions of
-    both kernels) must give byte-identical Responses."""
+def check_small_against_cpu(device) -> dict:
+    """A small database (N=256, K3's ring) served on the card and on the CPU
+    (plain versions of the kernels) must give byte-identical Responses.
+    Returns the card server's launch counts."""
     import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels
     from pir_tpu_torch.core import primes
 
     n = 256
@@ -371,16 +363,20 @@ def check_small_against_cpu(device) -> None:
     raw = [rng.integers(0, 256, 64, dtype=np.uint8).tobytes() for _ in range(60)]
     client = pt.PirClient(params, seed=5, compress_queries=True, device="cpu")
     req = client.create_request([0, 37])
-    responses = [
-        pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params).process_request(req)
-        for dev in (device, "cpu")
-    ]
+    server = pt.PirServer(pt.PirDatabase.create(raw, params, device=device), params)
+    kernels.reset_launch_counts()
+    responses = [server.process_request(req)]
+    counts = kernels.variant_launch_counts()
+    responses.append(pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params)
+                     .process_request(req))
     if responses[0].SerializeToString() != responses[1].SerializeToString():
         raise AssertionError("card and CPU Responses differ on the small database")
     if client.process_response([0, 37], responses[0]) != [raw[0], raw[37]]:
         raise AssertionError("small database retrieval failed on the card")
-    log("small database (N=256, d=2): card Response bytes == CPU Response bytes; "
-        "items retrieved")
+    log(f"small database (N=256, d=2): card Response bytes == CPU Response bytes; "
+        f"items retrieved; card launches {counts}")
+    require(counts, ("pir_ntt",), "N=256")
+    return counts
 
 
 def serve_bench_config(device, log2_items: int):
@@ -687,7 +683,7 @@ def main() -> int:
     wide = check_scan_wide(device, gen)
     dyn = check_scan_dyn(device, gen)
     shoup = check_scan_shoup(device, gen)
-    check_small_against_cpu(device)
+    small = check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
     server, stamped = check_full_size_indexing(device, params, client, raw)
     del raw
@@ -706,25 +702,15 @@ def main() -> int:
                         [17, len(items32) - 5], n_db=1, batch=1, limb=3)
     require(mesh32, ("pir_ntt", "pir_scan.u32.dyn"), "tpu32 mesh")
 
-    src = "pir_tpu_torch/csrc/"
-    rows = [
-        ("scan (K1)", "scan.cu", "pir_tpu/ops/pallas_scan.py:103", single["pir_scan.hi"], scan["K1"]),
-        ("ntt (K2)", "ntt.cu", "pir_tpu/ops/pallas_mxu_ntt.py:252", single["pir_ntt"], ntt),
-        ("scan_wide (K4)", "scan_wide.cu", "pir_tpu/ops/pallas_scan.py:397",
-         batched["pir_scan_wide.hi"], wide["K4"]),
-        ("scan_wide u32 (K4-u32)", "scan_wide.cu", "pir_tpu/ops/pallas_scan.py:422",
-         tpu32["pir_scan_wide.u32"], wide["K4-u32"]),
-        ("scan u32 (K5)", "scan.cu", "pir_tpu/ops/pallas_scan.py:167",
-         tpu32["pir_scan.u32"], scan["K5"]),
-        ("scan dyn (K6)", "scan.cu", "pir_tpu/ops/pallas_scan.py:204 and :187",
-         mesh["pir_scan.hi.dyn"] + mesh32["pir_scan.u32.dyn"], dyn),
-        ("scan_shoup (K7)", "scan_shoup.cu", "pir_tpu/ops/pallas_scan.py:32",
-         shoup_counts["pir_scan_shoup"], shoup),
-    ]
+    paths = {"single": single, "small": small, "batched": batched, "tpu32": tpu32,
+             "mesh": mesh, "mesh32": mesh32, "shoup": shoup_counts}
+    checks = {**scan, **ntt, **wide, "K6": dyn, "K7": shoup}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src + file, "replaces": replaces,
-         "launches": launches, **numbers}
-        for name, file, replaces, launches, numbers in rows
+        {"name": row.name, "route": "cuda", "source": "pir_tpu_torch/csrc/" + row.source,
+         "replaces": ", ".join(row.replaces),
+         "launches": sum(paths[path][variant] for path, variant in row.launches),
+         **checks[row.check], "library_ms": None}
+        for row in KERNEL_ROWS
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

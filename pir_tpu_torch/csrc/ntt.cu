@@ -1,4 +1,4 @@
-// Kernel A: negacyclic NTT / inverse NTT over RNS limbs, in shared memory.
+// Kernel A: negacyclic NTT / inverse NTT over RNS limbs, register radix.
 //
 // Replaces pir_tpu/ops/pallas_mxu_ntt.py::_make_kernel (K2, the four-step
 // MXU transform that carries every NTT and INTT of the TPU's main path) and
@@ -8,20 +8,37 @@
 // n^-1).  Every output is fully reduced, so it equals the reference's
 // residues bit for bit.
 //
-// Design: one thread block per (polynomial, limb).  The limb's N words
-// (32 KB at N = 4096) are loaded once into shared memory, go through the
-// log2 N merged-twiddle radix-2 stages there (Cooley-Tukey forward,
-// Gentleman-Sande inverse, a __syncthreads between stages) and are written
-// back once.  A butterfly multiplies by a twiddle with Shoup's method:
-// one __umul64hi against the precomputed companion word and two low
-// products, then one conditional subtract.
+// Design.  A polynomial limb of N = 2^log_n words is held by N / R threads,
+// each with R = 2^B words in registers (B = 2, 3 or 4; ops/ntt.py::ntt_plan
+// takes 8 words a thread, 4 where a polynomial would get fewer than two
+// warps).  The log_n merged-twiddle radix-2 stages (Cooley-Tukey forward,
+// Gentleman-Sande inverse) are cut into passes of B stages (one pass of the
+// remaining log_n mod B): in a pass a thread's R words differ only in the
+// pass's B index bits, so all of its butterflies run in registers with no
+// barrier.  Shared memory only carries the exchange between passes (one
+// store, one load per word, padded by a word every 16 so that neither the
+// strided nor the contiguous access pattern conflicts in banks):
+// ceil(log_n / B) - 1 exchanges (3 at N=4096) where PR 3's design made
+// log_n round trips.  The first pass reads the input straight from device
+// memory and the last one writes the output, each with consecutive threads
+// on consecutive words, or with 16-byte accesses where a thread's words are
+// contiguous.
 //
-// What bounds it on the H100: device memory sees only 16 bytes per
-// coefficient (one read, one write; twiddles come from L2).  The limit is
-// the 64-bit integer multiplies, which the CUDA cores build from 32-bit
-// IMADs (about 3 64-bit products per butterfly, N/2 log2 N butterflies), and
-// the stage barriers.  The design keeps every stage on chip; moving the
-// products onto tensor cores (K2's four-step form) is a later change.
+// A pass's twiddles for one thread are runs of consecutive words of the
+// [L, N] table (R - 1 of them and their companions), loaded through the
+// read-only path, 16 B at a time, once per pass and before the exchange's
+// barrier, so that their latency hides under it.  Butterflies are Harvey's
+// lazy ones: the forward keeps words in [0, 4q), the inverse in [0, 2q)
+// (q < 2^61 leaves room), and each Shoup product skips its final subtract;
+// the last pass reduces each word once, so the output is fully reduced.
+//
+// What bounds it on the H100: the 64-bit Shoup products (one high and two
+// low 64-bit multiplies, about 16 32-bit IMADs, per butterfly; N/2 log_n
+// butterflies) against 16 bytes of device memory per coefficient.  Built
+// from 32-bit IMADs, a butterfly takes ~17 multiply-pipe instructions
+// besides its adds and selects, and the request's large shapes run at
+// 44-49% of that bound.  Small launches (one polynomial per few SMs) take
+// one block's chain of passes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,68 +47,328 @@
 
 namespace {
 
-__device__ __forceinline__ uint64_t sub_mod(uint64_t a, uint64_t b,
-                                            uint64_t q) {
-  return a >= b ? a - b : a + q - b;
+// x * w mod q by Shoup's method without the final subtract: in [0, 2q) for
+// any x < 2^64, w < q, w_shoup = floor(w * 2^64 / q).
+__device__ __forceinline__ uint64_t mul_shoup_lazy(uint64_t x, uint64_t w,
+                                                   uint64_t w_shoup,
+                                                   uint64_t q) {
+  return x * w - __umul64hi(x, w_shoup) * q;
 }
 
-// in/out: [batch * limbs, n]; tw/tw_shoup: [limbs, n] bit-reversed powers of
-// psi (forward) or psi^-1 (inverse); moduli, n_inv, n_inv_shoup: [limbs].
-template <bool kInverse>
-__global__ void ntt_kernel(const uint64_t* __restrict__ in,
-                           uint64_t* __restrict__ out, int limbs, int log_n,
-                           const uint64_t* __restrict__ tw,
-                           const uint64_t* __restrict__ tw_shoup,
-                           const uint64_t* __restrict__ moduli,
-                           const uint64_t* __restrict__ n_inv,
-                           const uint64_t* __restrict__ n_inv_shoup) {
-  extern __shared__ uint64_t a[];
-  const int n = 1 << log_n;
-  const int half = n >> 1;
-  const int64_t poly = blockIdx.x;
-  const int limb = static_cast<int>(poly % limbs);
-  const uint64_t q = moduli[limb];
-  const uint64_t* w_row = tw + static_cast<int64_t>(limb) * n;
-  const uint64_t* ws_row = tw_shoup + static_cast<int64_t>(limb) * n;
-  const uint64_t* src = in + poly * n;
-  uint64_t* dst = out + poly * n;
+// The same product for the growing butterflies, with the quotient estimated
+// from three of the four 32-bit partial products of x * w_shoup: the
+// dropped low x low product and the carries of the two middle ones make
+// the estimate at most 2 low, so the result lies in [0, 4q).
+__device__ __forceinline__ uint64_t mul_shoup_grow(uint64_t x, uint64_t w,
+                                                   uint64_t w_shoup, uint64_t q) {
+  const uint32_t xl = static_cast<uint32_t>(x), xh = static_cast<uint32_t>(x >> 32);
+  const uint32_t sl = static_cast<uint32_t>(w_shoup), sh = static_cast<uint32_t>(w_shoup >> 32);
+  const uint64_t est = static_cast<uint64_t>(xh) * sh + __umulhi(xh, sl) + __umulhi(xl, sh);
+  return x * w - est * q;
+}
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = src[i];
-  __syncthreads();
+template <int kLogN, int kB>
+struct Shape {
+  static constexpr int kN = 1 << kLogN;
+  static constexpr int kR = 1 << kB;         // words per thread
+  static constexpr int kT = kN >> kB;        // threads per polynomial
+  static constexpr int kPasses = (kLogN + kB - 1) / kB;
+  static constexpr int kRem = kLogN - kB * (kPasses - 1);  // bits of the last
+  static constexpr int kWords = kN + (kN >> 4);  // padded shared words
+  static constexpr int kMaxThreads = kT > 256 ? kT : 256;
+  // at most 64 registers a thread, so that 1,024 threads share an SM
+  static constexpr int kMinBlocks = 1024 / kMaxThreads;
+};
 
-  for (int s = 0; s < log_n; ++s) {
-    // forward stage s: m = 2^s groups of span 2t, t = n / 2m;
-    // inverse stage s: t = 2^s, h = n / 2t groups
-    const int log_t = kInverse ? s : log_n - 1 - s;
-    const int t = 1 << log_t;
-    const int base = kInverse ? (half >> s) : (1 << s);
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int i = k >> log_t;
-      const int u_idx = (i << (log_t + 1)) | (k & (t - 1));
-      const int v_idx = u_idx + t;
-      const uint64_t w = w_row[base + i];
-      const uint64_t ws = ws_row[base + i];
-      const uint64_t u = a[u_idx];
-      const uint64_t v = a[v_idx];
-      if (kInverse) {
-        a[u_idx] = add_mod(u, v, q);
-        a[v_idx] = mul_shoup(sub_mod(u, v, q), w, ws, q);
-      } else {
-        const uint64_t vs = mul_shoup(v, w, ws, q);
-        a[u_idx] = add_mod(u, vs, q);
-        a[v_idx] = sub_mod(u, vs, q);
+// The index bits [lo, lo + r) a pass works on.  Forward passes run from the
+// top bits down and the short pass (kRem bits) is the last, at bit 0; the
+// inverse runs the same windows in the opposite order.
+template <bool kInv, int kLogN, int kB>
+__host__ __device__ constexpr int window_lo(int pass) {
+  using S = Shape<kLogN, kB>;
+  const int fwd = kInv ? S::kPasses - 1 - pass : pass;
+  return fwd == S::kPasses - 1 ? 0 : kLogN - kB * (fwd + 1);
+}
+
+template <bool kInv, int kLogN, int kB>
+__host__ __device__ constexpr int window_bits(int pass) {
+  using S = Shape<kLogN, kB>;
+  const int fwd = kInv ? S::kPasses - 1 - pass : pass;
+  return fwd == S::kPasses - 1 ? S::kRem : kB;
+}
+
+// Coefficient index of thread t's register k in window [lo, lo + r): the
+// low r bits of k are the window's bits; the other index bits are
+// (t << (B - r)) | (k >> r) with the window inserted at bit lo.  The thread
+// and register parts never share a bit, so x(t, k) = x(t, 0) + x(0, k).
+template <int kB, int kLo, int kBits>
+__device__ __forceinline__ uint32_t win_index(uint32_t t, uint32_t k) {
+  const uint32_t rest = (t << (kB - kBits)) | (k >> kBits);
+  const uint32_t win = k & ((1u << kBits) - 1);
+  return ((rest >> kLo) << (kLo + kBits)) | (win << kLo) |
+         (rest & ((1u << kLo) - 1));
+}
+
+__device__ __forceinline__ uint32_t padded(uint32_t x) { return x + (x >> 4); }
+
+// Where stage kBl's twiddles sit in a pass's twiddle registers: stage kBl
+// has R >> (kBl + 1) groups, so offsets R - (R >> kBl) pack the stages of
+// a pass into fewer than R words.
+template <int kB, int kBl>
+__host__ __device__ constexpr int tw_offset() { return (1 << kB) - ((1 << kB) >> kBl); }
+
+// Load every twiddle (and companion) the pass with window [kLo, kLo + kBits)
+// needs: for stage bit b, the R >> (bl + 1) consecutive words from
+// (N >> (b + 1)) + (x0 >> (b + 1)) (forward: psi_rev[m + group]; inverse:
+// psi_inv_rev[h + group]), 16 bytes at a time where there are two or more.
+template <int kLogN, int kB, int kLo, int kBits, int kBl>
+__device__ __forceinline__ void load_twiddles(uint64_t (&w)[1 << kB], uint64_t (&ws)[1 << kB],
+                                              uint32_t x0,
+                                              const uint64_t* __restrict__ w_row,
+                                              const uint64_t* __restrict__ ws_row) {
+  if constexpr (kBl < kBits) {
+    constexpr int kBit = kLo + kBl;
+    constexpr int kGroups = (1 << kB) >> (kBl + 1);
+    constexpr int kOff = tw_offset<kB, kBl>();
+    const uint32_t base = ((1u << kLogN) >> (kBit + 1)) + (x0 >> (kBit + 1));
+    if constexpr (kGroups == 1) {
+      w[kOff] = __ldg(w_row + base);
+      ws[kOff] = __ldg(ws_row + base);
+    } else {
+#pragma unroll
+      for (int g = 0; g < kGroups; g += 2) {
+        const ulonglong2 wv = __ldg(reinterpret_cast<const ulonglong2*>(w_row + base + g));
+        const ulonglong2 sv = __ldg(reinterpret_cast<const ulonglong2*>(ws_row + base + g));
+        w[kOff + g] = wv.x;
+        w[kOff + g + 1] = wv.y;
+        ws[kOff + g] = sv.x;
+        ws[kOff + g + 1] = sv.y;
       }
     }
-    __syncthreads();
+    load_twiddles<kLogN, kB, kLo, kBits, kBl + 1>(w, ws, x0, w_row, ws_row);
+  }
+}
+
+// One radix-2 stage on index bit kBit = kLo + kBl of the pass's window.
+// Reducing butterflies (any q < 2^61) keep forward words in [0, 4q) and
+// inverse words in [0, 2q).  Growing ones (kGrow, q < 2^50) skip those
+// conditional subtracts and take mul_shoup_grow's products (below 4q): a
+// forward stage adds under 4q to the words' bound (under 49q after 12
+// stages), an inverse stage doubles it (its inputs at bit b are below
+// 2^(b+1) q, so q << (b + 1) keeps x - y positive; below 2^13 q at the
+// end), and the last pass reduces once.
+template <bool kInv, bool kGrow, int kB, int kBit, int kBl>
+__device__ __forceinline__ void stage(uint64_t (&a)[1 << kB], const uint64_t (&w)[1 << kB],
+                                      const uint64_t (&ws)[1 << kB], uint64_t q, uint64_t q2) {
+  constexpr int kGroups = (1 << kB) >> (kBl + 1);
+  constexpr int kSpan = 1 << kBl;
+  constexpr int kOff = tw_offset<kB, kBl>();
+  [[maybe_unused]] const uint64_t bound = q << (kBit + 1);
+  [[maybe_unused]] const uint64_t q4 = q << 2;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+    for (int kk = 0; kk < kSpan; ++kk) {
+      const int k = (g << (kBl + 1)) | kk;
+      const uint64_t x = a[k];
+      const uint64_t y = a[k + kSpan];
+      if constexpr (kInv && kGrow) {
+        a[k] = x + y;
+        a[k + kSpan] = mul_shoup_grow(x + bound - y, w[kOff + g], ws[kOff + g], q);
+      } else if constexpr (kGrow) {
+        const uint64_t v = mul_shoup_grow(y, w[kOff + g], ws[kOff + g], q);
+        a[k] = x + v;
+        a[k + kSpan] = x + q4 - v;
+      } else if constexpr (kInv) {
+        // x, y in [0, 2q) -> [0, 2q)
+        const uint64_t s = x + y;
+        a[k] = s >= q2 ? s - q2 : s;
+        a[k + kSpan] = mul_shoup_lazy(x + q2 - y, w[kOff + g], ws[kOff + g], q);
+      } else {
+        // reducing: x, y in [0, 4q) -> [0, 4q)
+        const uint64_t u = x < q2 ? x : x - q2;
+        const uint64_t v = mul_shoup_lazy(y, w[kOff + g], ws[kOff + g], q);
+        a[k] = u + v;
+        a[k + kSpan] = u + q2 - v;
+      }
+    }
+  }
+}
+
+template <bool kInv, bool kGrow, int kB, int kLo, int kBits, int kStep>
+__device__ __forceinline__ void stages(uint64_t (&a)[1 << kB], const uint64_t (&w)[1 << kB],
+                                       const uint64_t (&ws)[1 << kB], uint64_t q, uint64_t q2) {
+  if constexpr (kStep < kBits) {
+    // forward: the window's top bit first; inverse: its bottom bit first
+    constexpr int kBl = kInv ? kStep : kBits - 1 - kStep;
+    stage<kInv, kGrow, kB, kLo + kBl, kBl>(a, w, ws, q, q2);
+    stages<kInv, kGrow, kB, kLo, kBits, kStep + 1>(a, w, ws, q, q2);
+  }
+}
+
+template <int kB, int kLo, int kBits>
+__device__ __forceinline__ void to_shared(uint64_t* s, const uint64_t (&a)[1 << kB],
+                                          uint32_t t) {
+  const uint32_t p0 = padded(win_index<kB, kLo, kBits>(t, 0));
+#pragma unroll
+  for (int k = 0; k < (1 << kB); ++k)
+    s[p0 + padded(win_index<kB, kLo, kBits>(0, k))] = a[k];
+}
+
+template <int kB, int kLo, int kBits>
+__device__ __forceinline__ void from_shared(const uint64_t* s, uint64_t (&a)[1 << kB],
+                                            uint32_t t) {
+  const uint32_t p0 = padded(win_index<kB, kLo, kBits>(t, 0));
+#pragma unroll
+  for (int k = 0; k < (1 << kB); ++k)
+    a[k] = s[p0 + padded(win_index<kB, kLo, kBits>(0, k))];
+}
+
+// Pass kPass and the ones after it; before each pass but the first, the
+// words move through shared memory from the last pass's window to this one's.
+template <bool kInv, bool kGrow, int kLogN, int kB, int kPass>
+__device__ __forceinline__ void passes(uint64_t (&a)[1 << kB], uint64_t* s,
+                                       uint32_t t,
+                                       const uint64_t* __restrict__ w_row,
+                                       const uint64_t* __restrict__ ws_row,
+                                       uint64_t q, uint64_t q2) {
+  if constexpr (kPass < Shape<kLogN, kB>::kPasses) {
+    constexpr int kLo = window_lo<kInv, kLogN, kB>(kPass);
+    constexpr int kBits = window_bits<kInv, kLogN, kB>(kPass);
+    // the pass's twiddles first: their loads overlap the exchange
+    uint64_t w[1 << kB], ws[1 << kB];
+    load_twiddles<kLogN, kB, kLo, kBits, 0>(w, ws, win_index<kB, kLo, kBits>(t, 0), w_row,
+                                            ws_row);
+    if constexpr (kPass > 0) {
+      constexpr int kPrevLo = window_lo<kInv, kLogN, kB>(kPass - 1);
+      constexpr int kPrevBits = window_bits<kInv, kLogN, kB>(kPass - 1);
+      if constexpr (kPass > 1) __syncthreads();  // the last exchange's reads
+      to_shared<kB, kPrevLo, kPrevBits>(s, a, t);
+      __syncthreads();
+      from_shared<kB, kLo, kBits>(s, a, t);
+    }
+    stages<kInv, kGrow, kB, kLo, kBits, 0>(a, w, ws, q, q2);
+    passes<kInv, kGrow, kLogN, kB, kPass + 1>(a, s, t, w_row, ws_row, q, q2);
+  }
+}
+
+// in/out: [polys, n] with polys = batch * limbs; tw/tw_shoup: [limbs, n]
+// bit-reversed powers of psi (forward) or psi^-1 (inverse); consts: [limbs, 3]
+// rows (q, floor(2^128 / q) hi word, lo word); n_inv, n_inv_shoup: [limbs].
+// Block: blockDim.x / T polynomials of T threads.
+template <bool kInv, bool kGrow, int kLogN, int kB>
+__global__ void __launch_bounds__(Shape<kLogN, kB>::kMaxThreads, Shape<kLogN, kB>::kMinBlocks)
+ntt_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+           int64_t polys, int limbs, const uint64_t* __restrict__ tw,
+           const uint64_t* __restrict__ tw_shoup,
+           const uint64_t* __restrict__ consts,
+           const uint64_t* __restrict__ n_inv,
+           const uint64_t* __restrict__ n_inv_shoup) {
+  using S = Shape<kLogN, kB>;
+  extern __shared__ uint64_t smem[];
+  const uint32_t t = threadIdx.x % S::kT;
+  const int slot = threadIdx.x / S::kT;
+  const int64_t poly = static_cast<int64_t>(blockIdx.x) * (blockDim.x / S::kT) + slot;
+  // a thread past the last polynomial computes on zeros in its own shared
+  // slot and touches no device memory; it still meets every barrier
+  const bool active = poly < polys;
+  const int limb = active ? static_cast<int>(poly % limbs) : 0;
+  const uint64_t q = consts[3 * limb];
+  const uint64_t q2 = q << 1;
+  const uint64_t* w_row = tw + static_cast<int64_t>(limb) * S::kN;
+  const uint64_t* ws_row = tw_shoup + static_cast<int64_t>(limb) * S::kN;
+  uint64_t* s = smem + slot * S::kWords;
+
+  uint64_t a[S::kR];
+  if constexpr (kInv) {
+    // first window [0, kRem): the thread's words are contiguous
+    const uint64_t* src = in + (active ? poly : 0) * S::kN + (t << kB);
+#pragma unroll
+    for (int k = 0; k < S::kR; k += 2) {
+      ulonglong2 v = make_ulonglong2(0, 0);
+      if (active) v = *reinterpret_cast<const ulonglong2*>(src + k);
+      a[k] = v.x;
+      a[k + 1] = v.y;
+    }
+  } else {
+    // first window: the top kB bits; register k sits k * T words on
+    const uint64_t* src = in + (active ? poly : 0) * S::kN + t;
+#pragma unroll
+    for (int k = 0; k < S::kR; ++k) a[k] = active ? src[k * S::kT] : 0;
   }
 
-  if (kInverse) {
+  passes<kInv, kGrow, kLogN, kB, 0>(a, s, t, w_row, ws_row, q, q2);
+  if (!active) return;
+
+  if constexpr (kInv) {
     const uint64_t ni = n_inv[limb];
     const uint64_t nis = n_inv_shoup[limb];
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      dst[i] = mul_shoup(a[i], ni, nis, q);
+    uint64_t* dst = out + poly * S::kN + t;
+#pragma unroll
+    for (int k = 0; k < S::kR; ++k) {
+      const uint64_t r = mul_shoup_lazy(a[k], ni, nis, q);
+      dst[k * S::kT] = r >= q ? r - q : r;
+    }
   } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = a[i];
+    uint64_t* dst = out + poly * S::kN + (t << kB);
+    [[maybe_unused]] const uint64_t ratio = consts[3 * limb + 1];
+#pragma unroll
+    for (int k = 0; k < S::kR; k += 2) {
+      uint64_t v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint64_t r = a[k + e];
+        if constexpr (kGrow) {
+          v[e] = barrett_reduce_64(r, q, ratio);  // r < 49q
+        } else {
+          r = r >= q2 ? r - q2 : r;
+          v[e] = r >= q ? r - q : r;
+        }
+      }
+      *reinterpret_cast<ulonglong2*>(dst + k) = make_ulonglong2(v[0], v[1]);
+    }
+  }
+}
+
+struct Args {
+  const uint64_t* in;
+  uint64_t* out;
+  int64_t polys;
+  int limbs;
+  int polys_per_block;
+  const uint64_t* tw;
+  const uint64_t* tw_shoup;
+  const uint64_t* consts;
+  const uint64_t* n_inv;
+  const uint64_t* n_inv_shoup;
+  cudaStream_t stream;
+};
+
+template <bool kInv, bool kGrow, int kLogN, int kB>
+void launch(const Args& a) {
+  using S = Shape<kLogN, kB>;
+  const int64_t blocks = (a.polys + a.polys_per_block - 1) / a.polys_per_block;
+  const size_t smem = static_cast<size_t>(a.polys_per_block) * S::kWords * sizeof(uint64_t);
+  ntt_kernel<kInv, kGrow, kLogN, kB>
+      <<<static_cast<unsigned>(blocks), a.polys_per_block * S::kT, smem, a.stream>>>(
+          a.in, a.out, a.polys, a.limbs, a.tw, a.tw_shoup, a.consts, a.n_inv,
+          a.n_inv_shoup);
+}
+
+template <int kLogN, int kB>
+void launch_variant(bool inverse, bool grow, const Args& a) {
+  if (inverse)
+    grow ? launch<true, true, kLogN, kB>(a) : launch<true, false, kLogN, kB>(a);
+  else
+    grow ? launch<false, true, kLogN, kB>(a) : launch<false, false, kLogN, kB>(a);
+}
+
+template <int kLogN>
+bool launch_radix(int radix_bits, bool inverse, bool grow, const Args& a) {
+  switch (radix_bits) {
+    case 2: launch_variant<kLogN, 2>(inverse, grow, a); return true;
+    case 3: launch_variant<kLogN, 3>(inverse, grow, a); return true;
+    default: return false;
   }
 }
 
@@ -99,31 +376,37 @@ __global__ void ntt_kernel(const uint64_t* __restrict__ in,
 
 extern "C" {
 
-// Transform `batch * limbs` polynomials of 2^log_n words (6 <= log_n <= 12).
+// Transform `batch * limbs` polynomials of 2^log_n words (6 <= log_n <= 12)
+// with 2^radix_bits words per thread (radix_bits 2 or 3) and
+// polys_per_block polynomials per block (ops/ntt.py::ntt_plan); `grow`
+// (every modulus below 2^50) selects the butterflies without conditional
+// subtracts.  consts: [limbs, 3] (q, floor(2^128/q) hi word, lo word).
 // Returns cudaGetLastError() after the launch.
 int pir_ntt(const void* in, void* out, int64_t batch, int limbs, int log_n,
-            int inverse, const void* tw, const void* tw_shoup,
-            const void* moduli, const void* n_inv, const void* n_inv_shoup,
-            void* stream) {
-  const int n = 1 << log_n;
-  const int threads = n / 2 < 256 ? n / 2 : 256;
-  const size_t smem = static_cast<size_t>(n) * sizeof(uint64_t);
-  const dim3 grid(static_cast<unsigned>(batch * limbs));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const uint64_t*>(in);
-  auto* y = static_cast<uint64_t*>(out);
-  const auto* w = static_cast<const uint64_t*>(tw);
-  const auto* ws = static_cast<const uint64_t*>(tw_shoup);
-  const auto* q = static_cast<const uint64_t*>(moduli);
-  const auto* ni = static_cast<const uint64_t*>(n_inv);
-  const auto* nis = static_cast<const uint64_t*>(n_inv_shoup);
-  if (inverse) {
-    ntt_kernel<true><<<grid, threads, smem, s>>>(x, y, limbs, log_n, w, ws, q,
-                                                 ni, nis);
-  } else {
-    ntt_kernel<false><<<grid, threads, smem, s>>>(x, y, limbs, log_n, w, ws,
-                                                  q, ni, nis);
+            int inverse, int radix_bits, int polys_per_block, int grow,
+            const void* tw, const void* tw_shoup, const void* consts,
+            const void* n_inv, const void* n_inv_shoup, void* stream) {
+  if (polys_per_block < 1 || (static_cast<int64_t>(polys_per_block) << log_n >> radix_bits) > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+               batch * limbs, limbs, polys_per_block,
+               static_cast<const uint64_t*>(tw), static_cast<const uint64_t*>(tw_shoup),
+               static_cast<const uint64_t*>(consts), static_cast<const uint64_t*>(n_inv),
+               static_cast<const uint64_t*>(n_inv_shoup), static_cast<cudaStream_t>(stream)};
+  const bool inv = inverse != 0;
+  const bool gr = grow != 0;
+  bool ok = false;
+  switch (log_n) {
+    case 6: ok = launch_radix<6>(radix_bits, inv, gr, a); break;
+    case 7: ok = launch_radix<7>(radix_bits, inv, gr, a); break;
+    case 8: ok = launch_radix<8>(radix_bits, inv, gr, a); break;
+    case 9: ok = launch_radix<9>(radix_bits, inv, gr, a); break;
+    case 10: ok = launch_radix<10>(radix_bits, inv, gr, a); break;
+    case 11: ok = launch_radix<11>(radix_bits, inv, gr, a); break;
+    case 12: ok = launch_radix<12>(radix_bits, inv, gr, a); break;
+    default: break;
   }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -200,8 +200,7 @@ class LimbConstants:
 
     ``q``/``ratio_hi``/``ratio_lo`` are int64 tensors of shape [L, 1];
     ``table`` packs the same words as [L, 3] rows (q, ratio_hi, ratio_lo),
-    the modulus argument of the scan kernel; ``q_vec`` is q as a contiguous
-    [L] vector for the NTT kernel.
+    the modulus argument of the CUDA kernels.
     """
 
     def __init__(self, moduli, device=None):
@@ -216,7 +215,6 @@ class LimbConstants:
         self.q = self.table[:, 0:1]
         self.ratio_hi = self.table[:, 1:2]
         self.ratio_lo = self.table[:, 2:3]
-        self.q_vec = self.table[:, 0].contiguous()
 
     def __len__(self) -> int:
         return len(self.moduli)

@@ -30,6 +30,8 @@ The Shoup-table database (``scan_impl="xla"``) is contracted by
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from pir_tpu_torch import kernels
@@ -159,9 +161,10 @@ def _kernel_operands(sv, db_hi, db_lo, table, bits: int, j_begin: int) -> int:
     return hi_bytes
 
 
-def _launch(kernel, fn_name, sv, db_hi, db_lo, table, bits, j_begin, dyn=False):
+def _launch(kernel, fn_name, sv, db_hi, db_lo, table, bits, j_begin, dyn=False, plan=None):
     """Kernel B or C over rows [j_begin, j_begin + D) -> reduced int64
-    [P, S, L, N]; ``dyn`` counts the launch as a runtime-moduli (K6) one."""
+    [P, S, L, N]; ``dyn`` counts the launch as a runtime-moduli (K6) one;
+    ``plan(P, L, N, D)`` gives launch arguments passed before the stream."""
     hi_bytes = _kernel_operands(sv, db_hi, db_lo, table, bits, j_begin)
     D, S = sv.shape[0], sv.shape[1]
     P, L, d_total, N = db_lo.shape
@@ -175,7 +178,7 @@ def _launch(kernel, fn_name, sv, db_hi, db_lo, table, bits, j_begin, dyn=False):
         fn_name,
         sv.data_ptr(), 0 if db_hi is None else db_hi.data_ptr(), db_lo.data_ptr(),
         table.data_ptr(), out.data_ptr(), hi_bytes, P, S, L, d_total,
-        j_begin, D, N, kernels.stream_handle(sv),
+        j_begin, D, N, *(plan(P, L, N, D) if plan else ()), kernels.stream_handle(sv),
         variant=variant + ".dyn" if dyn else variant,
     )
     return out
@@ -185,19 +188,80 @@ def _limbs_bits(limbs) -> int:
     return max(limbs.moduli).bit_length()
 
 
-def _scan_b(sv, db_hi, db_lo, table, bits: int, j_begin: int, dyn: bool) -> torch.Tensor:
-    """Kernel B with the modulus table `table` and the chain width `bits`."""
+# Kernel B's launch (csrc/scan.cu): a thread owns SCAN_VEC consecutive
+# coefficients and SCAN_PREFIXES prefixes; a block's SCAN_WARPS warps split
+# into prefix groups x row splits.
+SCAN_VEC = 4
+SCAN_PREFIXES = 2
+SCAN_WARPS = 8
+SCAN_FILL_WARPS = 132 * 64  # four rounds of two resident blocks on each SM of an H100
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """Kernel B's launch: block warps = prefix_groups x row_splits; row
+    split r sums rows r, r + row_splits, ... of the chunk; grid = (prefix
+    tiles, coefficient tiles, limbs)."""
+
+    prefix_groups: int
+    row_splits: int
+    grid: "tuple[int, int, int]"
+
+    def rows(self, split: int, D: int) -> range:
+        return range(split, D, self.row_splits)
+
+
+def scan_plan(P: int, L: int, N: int, D: int, row_splits: "int | None" = None) -> ScanPlan:
+    """Split the rows over a block's warps (1, 2, 4 or 8 ways, never more
+    than there are rows) until the grid holds SCAN_FILL_WARPS warps: the
+    inner scan (5,184 warps unsplit at the bench shape) splits 2 ways, a
+    small contraction (the upper scan, P = 8) 8 ways.  ``row_splits``
+    overrides the choice."""
+    if min(P, L, N, D) < 1:
+        raise ValueError(f"empty contraction P={P} L={L} N={N} D={D}")
+    pairs = -(-P // SCAN_PREFIXES)
+    n_tiles = -(-N // (32 * SCAN_VEC))
+    splits = 1
+    while splits * 2 <= min(SCAN_WARPS, D) and n_tiles * L * pairs * splits < SCAN_FILL_WARPS:
+        splits *= 2
+    if row_splits is not None:
+        if row_splits not in (1, 2, 4, 8):
+            raise ValueError(f"row_splits must be 1, 2, 4 or 8, got {row_splits}")
+        splits = row_splits
+    groups = SCAN_WARPS // splits
+    return ScanPlan(groups, splits, (-(-pairs // groups), n_tiles, L))
+
+
+def _scan_b(sv, db_hi, db_lo, table, bits: int, j_begin: int, dyn: bool,
+            row_splits: "int | None" = None) -> torch.Tensor:
+    """Kernel B with the modulus table `table` and the chain width `bits`,
+    laid out by :func:`scan_plan`."""
     if sv.dim() != 4 or sv.shape[1] != 2:
         raise ValueError(f"kernel B takes sv [D, 2, L, N], got {tuple(sv.shape)}")
-    return _launch(kernels.SCAN, "pir_scan", sv, db_hi, db_lo, table, bits, j_begin, dyn)
+    if sv.shape[0] > max_raw_chunk(bits=bits):
+        # kernel B's three-word sums are exact only up to this many rows
+        raise ValueError(f"{sv.shape[0]} rows exceed the exact bound {max_raw_chunk(bits=bits)}")
+
+    def plan(P, L, N, D):
+        if N % SCAN_VEC:
+            raise ValueError(f"kernel B takes N a multiple of {SCAN_VEC}, got {N}")
+        for name, t in (("sv", sv), ("db_hi", db_hi), ("db_lo", db_lo)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"kernel B needs 16-byte aligned operands; {name} is not")
+        p = scan_plan(P, L, N, D, row_splits)
+        return p.prefix_groups, p.row_splits
+
+    return _launch(kernels.SCAN, "pir_scan", sv, db_hi, db_lo, table, bits, j_begin, dyn, plan)
 
 
-def contract_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
+def contract_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0,
+                  row_splits: "int | None" = None) -> torch.Tensor:
     """Kernel B: sv int64 [D, 2, L, N] against planes [P, L, D_total, N]
     over rows [j_begin, j_begin + D) -> reduced int64 [P, 2, L, N].
     Without a hi plane (db_hi None, moduli below 2^32) it runs its
-    single-word variant, which replaces K5."""
-    return _scan_b(sv, db_hi, db_lo, limbs.table, _limbs_bits(limbs), j_begin, dyn=False)
+    single-word variant, which replaces K5.  ``row_splits`` overrides
+    :func:`scan_plan`'s choice."""
+    return _scan_b(sv, db_hi, db_lo, limbs.table, _limbs_bits(limbs), j_begin, False, row_splits)
 
 
 def contract_wide_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:

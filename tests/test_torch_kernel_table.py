@@ -1,0 +1,85 @@
+"""chip_smoke.py's kernel table names every TPU kernel of pir_tpu.
+
+Every kernel body that a ``pl.pallas_call`` in ``pir_tpu/ops/pallas_*.py``
+reaches is found by reading the sources as text (``ast``, no JAX import) and
+must be named, by file and line of its ``def``, in exactly one row of
+``chip_smoke.KERNEL_ROWS`` — the table whose rows ``chip_smoke.main`` prints
+as its ``kernels`` line.
+"""
+
+import ast
+import pathlib
+
+import chip_smoke
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _names(node) -> "set[str]":
+    return {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
+
+
+def _is_pallas_call(node) -> bool:
+    return (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "pallas_call")
+
+
+def pallas_kernels(path: pathlib.Path) -> "tuple[int, set[tuple[str, int]]]":
+    """(number of pallas_call sites, {(function name, def line)}) of the
+    module-level functions the sites' kernel argument names, following one
+    local assignment (``kernel = functools.partial(_raw_kernel, ...)``)."""
+    tree = ast.parse(path.read_text())
+    top = {f.name: f.lineno for f in tree.body if isinstance(f, ast.FunctionDef)}
+    sites, found = set(), set()
+    for fn in ast.walk(tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        assigned = {}
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Assign):
+                for target in node.targets:
+                    if isinstance(target, ast.Name):
+                        assigned.setdefault(target.id, []).append(node)
+        for call in ast.walk(fn):
+            if not _is_pallas_call(call) or not call.args:
+                continue
+            sites.add(call.lineno)  # a nested function's site is walked twice
+            names = _names(call.args[0])
+            for name in list(names):
+                for a in assigned.get(name, []):
+                    if a.lineno < call.lineno:
+                        names |= _names(a.value)
+            found |= {(n, top[n]) for n in names if n in top}
+    return len(sites), found
+
+
+def test_every_pallas_kernel_has_a_row():
+    files = sorted((REPO / "pir_tpu" / "ops").glob("pallas_*.py"))
+    assert [f.name for f in files] == ["pallas_mxu_ntt.py", "pallas_ntt.py", "pallas_scan.py"]
+    kernels = {}
+    sites = 0
+    for f in files:
+        n, found = pallas_kernels(f)
+        assert n >= 1 and found, f.name
+        sites += n
+        for name, line in found:
+            kernels[f"pir_tpu/ops/{f.name}:{line}"] = name
+    assert sites == 9
+    assert sorted(kernels.values()) == sorted([
+        "_make_kernel", "_ntt_kernel", "_raw_kernel", "_raw_kernel_dyn",
+        "_raw_kernel_u32", "_raw_kernel_u32_dyn", "_raw_kernel_wide",
+        "_raw_kernel_wide_u32", "_scan_kernel",
+    ])
+    named = [r for row in chip_smoke.KERNEL_ROWS for r in row.replaces]
+    assert len(named) == len(set(named))
+    assert set(named) == set(kernels)
+
+
+def test_kernel_rows_are_complete():
+    rows = chip_smoke.KERNEL_ROWS
+    assert len(rows) == 8
+    assert len({r.name for r in rows}) == 8
+    for row in rows:
+        assert (REPO / "pir_tpu_torch" / "csrc" / row.source).exists()
+        assert row.launches and all(path and variant for path, variant in row.launches)
+    assert {r.check for r in rows} == {"K1", "K2", "K3", "K4", "K4-u32", "K5", "K6", "K7"}
