@@ -57,12 +57,14 @@ Phases, each of which raises on failure:
    one card, not a multi-GPU figure.  Each rank's device memory once its
    server holds only its shard, and its peak over the build and requests.
 
-Bounds (pir_tpu_torch/kt.py): the least time for a kernel's work
+Bounds (pir_tpu_torch/kernel_times.py): the least time for a kernel's work
 on an H100 SXM — the larger of its bytes (each input read once, each output
 written once) at 3.35 TB/s and its 32-bit integer multiply instructions at
 16.75 T/s (the on-chip guide's 67 TFLOP/s float32 rate is 128 lanes per SM;
-Hopper has 64 INT32 lanes per SM).  Kernel times are device times of
-back-to-back launches queued behind a device-side sleep.  No single PyTorch
+Hopper has 64 INT32 lanes per SM), counted for the arithmetic the kernel
+runs (12 multiplies a butterfly of kernel A below 2^50, 16 above).  Kernel
+times are device times of back-to-back launches queued behind a
+device-side sleep.  No single PyTorch
 call computes a modular contraction or a negacyclic NTT, so library_ms is
 null for every kernel.
 
@@ -134,59 +136,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    if a.shape != b.shape:
-        raise AssertionError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
-    return int((a - b).abs().max().item()) if a.numel() else 0
+NUMBERS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")  # of a kernels-line row
 
 
 def check_ntt(device, gen) -> dict:
-    """Kernel A vs its plain version (tolerance 0) at every shape one
-    single-query request launches it with (kernel_times.ntt_request_shapes:
-    the key switch's NTT and INTT at each of the 9 expansion levels, the
-    selection vector, both scans' INTTs and the digit plaintexts), timed on
-    the card, and at N=256 (K3's ring, the small database served below).
-    Returns the K2 headline ([648, 2, 4096] forward, the selection vector)
-    and the K3 one ([64, 3, 256] forward)."""
-    from pir_tpu_torch.core import primes
-    from pir_tpu_torch.ops.ntt import NttTables, ntt_cuda, ntt_plan, ntt_plain
-
-    qp = NttTables(chains()["seal"].coeff_modulus, POLY_DEGREE, device)
-    tables = {"qp": qp, "q": qp.slice(2),
-              "small": NttTables(primes.coeff_modulus_from_bits(256, [34, 36, 37]), 256, device)}
-    shapes = kt.ntt_request_shapes() + [("N=256", "small", 64, False),
-                                        ("N=256", "small", 64, True)]
-    headline = {}
-    sums = {"ms": 0.0, "bound_ms": 0.0}
-    for label, chain, batch, inverse in shapes:
-        t = tables[chain]
-        x = random_residues(t.moduli, (batch,), t.n, device, gen)
-        got = ntt_cuda(t, x, inverse)
-        want = ntt_plain(t, x, inverse)
-        err = max_abs_err(got, want)
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"kernel A differs from plain at {label} {tuple(x.shape)}")
-        if not torch.equal(ntt_cuda(t, got, not inverse), x):
-            raise AssertionError(f"kernel A round trip fails at {label}")
-        ms = kt.device_ms(lambda: ntt_cuda(t, x, inverse), 50)
-        numbers = {"max_abs_err": err, "ms": ms, **kt.ntt_bound(x, t.n, len(t.moduli))}
-        key = {(648, False): "K2", (64, False): "K3"}.get((batch, inverse))
-        if key:
-            numbers["plain_ms"] = kt.device_ms(lambda: ntt_plain(t, x, inverse), 3)
-            headline[key] = numbers
-        if chain != "small":
-            sums["ms"] += ms
-            sums["bound_ms"] += numbers["bound_ms"]
-        plan = ntt_plan(t.n, x.numel() // t.n)
-        log(f"kernel A {'inverse' if inverse else 'forward'} {label} {list(x.shape)} "
-            f"({1 << plan.radix_bits} words x {plan.threads_per_block} threads a block): "
-            f"bit-equal to plain (max_abs_err 0), round trip exact; kernel {ms:.4f} ms"
-            + (f", plain {numbers['plain_ms']:.4f} ms" if key else "")
-            + f", bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
+    """Kernel A vs its plain version (tolerance 0), with its round trip, at
+    every shape one single-query request launches it with
+    (kernel_times.ntt_request_shapes: the key switch's NTT and INTT at each
+    of the 9 expansion levels, the selection vector, both scans' INTTs and
+    the digit plaintexts), timed on the card, and at N=256 (K3's ring, the
+    small database served below).  Returns the K2 headline ([648, 2, 4096]
+    forward, the selection vector) and the K3 one ([64, 3, 256] forward)."""
+    heads = {("selection vector", False): "K2", ("N=256", False): "K3"}
+    rows = kt.time_ntt(device, gen, plain=heads)
+    for r in rows:
+        log(kt.ntt_line(r))
+    request_ms, request_bound_ms = kt.request_sums(rows)
     log(f"kernel A over the 22 launches of one single-query request: sum of times "
-        f"{sums['ms']:.4f} ms, sum of bounds {sums['bound_ms']:.4f} ms "
-        f"({sums['bound_ms'] / sums['ms']:.1%} of bound)")
-    return headline
+        f"{request_ms:.4f} ms, sum of bounds {request_bound_ms:.4f} ms "
+        f"({request_bound_ms / request_ms:.1%} of bound)")
+    return {heads[r["label"], r["inverse"]]: {k: r[k] for k in NUMBERS}
+            for r in rows if (r["label"], r["inverse"]) in heads}
 
 
 def planes_gb(hi, lo) -> float:
@@ -202,40 +172,17 @@ def random_planes(chain, P, D, device, gen):
 
 
 def check_scan(device, gen) -> dict:
-    """Kernel B vs its plain version at the main paths' shapes (tolerance 0):
-    with a hi plane (K1, SEAL's chain) and without (K5, tpu32)."""
-    import pir_tpu_torch as pt
-    from pir_tpu_torch.ops import decompose, modular, scan_kernel
-
-    headline = {}
-    for profile, ep in chains().items():
-        chain = ep.ct_modulus
-        L = len(chain)
-        limbs = modular.LimbConstants(chain, device)
-        params = pt.create_pir_parameters(1 << LOG2_ITEMS, ITEM_SIZE, DIMENSIONS, ep)
-        upper = 2 * decompose.expansion_ratio(pt.PirContext(params, "cpu"))
-        for label, P, D in (
-            (f"inner scan sv [162,2,{L},4096] planes [162,{L},162,4096]", 162, 162),
-            (f"upper scan sv [162,2,{L},4096] planes [{upper},{L},162,4096]", upper, 162),
-        ):
-            sv = random_residues(chain, (D, 2), POLY_DEGREE, device, gen)
-            hi, lo = random_planes(chain, P, D, device, gen)
-            got = scan_kernel.contract_cuda(sv, hi, lo, limbs)
-            want = scan_kernel.contract_plain(sv, hi, lo, limbs.table)
-            err = max_abs_err(got, want)
-            if err != 0 or not torch.equal(got, want):
-                raise AssertionError(f"kernel B differs from plain at {profile} {label}")
-            ms = kt.device_ms(lambda: scan_kernel.contract_cuda(sv, hi, lo, limbs), 10)
-            plain_ms = kt.device_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
-            variant = "K1" if hi is not None else "K5"
-            numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       **kt.scan_bound(sv, hi, lo)}
-            log(f"kernel B ({variant}) {profile} {label}: bit-equal to plain (max_abs_err 0); "
-                f"kernel {ms:.4f} ms ({planes_gb(hi, lo) / ms * 1e3:.1f} GB/s of planes), "
-                f"plain {plain_ms:.4f} ms, bound {numbers['bound_ms']:.4f} ms "
-                f"({numbers['bound_by']})")
-            headline.setdefault(variant, numbers)
-    return headline
+    """Kernel B vs its plain version (tolerance 0) at the main paths' shapes
+    (kernel_times.scan_cases): the inner and upper scans with a hi plane
+    (K1, SEAL's chain) and without (K5, tpu32), and its runtime-moduli entry
+    (K6) at one rank's shapes — limb 1 of SEAL's chain on a db=2 x limb=2
+    mesh (planes [81, 1, 162, 4096], a hi plane) and one limb of tpu32 on a
+    limb=3 mesh (no hi plane).  Returns the K1, K5 and K6 headlines."""
+    heads = {"K1 inner": "K1", "K5 inner": "K5", "K6 seal rank": "K6"}
+    rows = kt.time_scan(device, gen, plain=True)
+    for r in rows:
+        log(kt.scan_line(r))
+    return {heads[r["label"]]: {k: r[k] for k in NUMBERS} for r in rows if r["label"] in heads}
 
 
 def check_scan_wide(device, gen) -> dict:
@@ -254,7 +201,7 @@ def check_scan_wide(device, gen) -> dict:
         hi, lo = random_planes(chain, 162, 162, device, gen)
         got = scan_kernel.contract_wide_cuda(sv, hi, lo, limbs)
         want = scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table)
-        err = max_abs_err(got, want)
+        err = kt.max_abs_err(got, want)
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"kernel C differs from plain at {profile}")
         pairs = [sv[:, 2 * k : 2 * k + 2].contiguous() for k in range(S // 2)]
@@ -276,39 +223,6 @@ def check_scan_wide(device, gen) -> dict:
     return headline
 
 
-def check_scan_dyn(device, gen) -> dict:
-    """Kernel B's runtime-moduli entry (K6) vs its plain version (tolerance
-    0) at one rank's shapes: limb 1 of SEAL's chain on a db=2 x limb=2 mesh
-    (planes [81, 1, 162, 4096], a hi plane), and one limb of tpu32 on a
-    limb=3 mesh (no hi plane)."""
-    from pir_tpu_torch.ops import modular, scan_kernel
-
-    headline = None
-    for profile, ep, limb, P in (("seal", chains()["seal"], 1, 81), ("tpu32", chains()["tpu32"], 2, 162)):
-        chain = ep.ct_modulus
-        bits = max(q.bit_length() for q in chain)
-        limbs = modular.LimbConstants(chain, device).limb_range(limb, limb + 1)
-        consts = scan_kernel.limb_consts(limbs.q, limbs.ratio_hi, limbs.ratio_lo)
-        sv = random_residues(limbs.moduli, (162, 2), POLY_DEGREE, device, gen)
-        db = random_residues(limbs.moduli, (P, 162), POLY_DEGREE, device, gen)
-        hi, lo = scan_kernel.split_planes(db.transpose(1, 2).contiguous(), bits=bits)
-        got = scan_kernel.contract_dim_raw_dyn(sv, hi, lo, consts, bits)
-        want = scan_kernel.contract_plain(sv, hi, lo, limbs.table)
-        err = max_abs_err(got, want)
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"K6 differs from plain at {profile} limb {limb}")
-        ms = kt.device_ms(lambda: scan_kernel.contract_dim_raw_dyn(sv, hi, lo, consts, bits), 10)
-        plain_ms = kt.device_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
-        numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **kt.scan_bound(sv, hi, lo)}
-        log(f"kernel B runtime moduli (K6) {profile} limb {limb} sv [162,2,1,4096] planes "
-            f"[{P},1,162,4096] ({'hi plane' if hi is not None else 'no hi plane'}): bit-equal "
-            f"to plain (max_abs_err 0); kernel {ms:.4f} ms "
-            f"({planes_gb(hi, lo) / ms * 1e3:.1f} GB/s of planes), plain {plain_ms:.4f} ms, "
-            f"bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
-        headline = headline or numbers
-    return headline
-
-
 def check_scan_shoup(device, gen) -> dict:
     """Kernel D (K7) vs its plain version (tolerance 0) at the inner scan of
     the Shoup-table database: sv [162, 2, 2, 4096], db and companions
@@ -327,7 +241,7 @@ def check_scan_shoup(device, gen) -> dict:
         shoup = modular.shoup_precompute_device(db, limbs.q, limbs.ratio_hi, limbs.ratio_lo)
         got = scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs)
         want = scan_kernel.contract_shoup_plain(sv, db, shoup, limbs)
-        err = max_abs_err(got, want)
+        err = kt.max_abs_err(got, want)
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"kernel D differs from plain at the inner scan, {label}")
         ms = kt.device_ms(lambda: scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs), 10)
@@ -681,7 +595,6 @@ def main() -> int:
     ntt = check_ntt(device, gen)
     scan = check_scan(device, gen)
     wide = check_scan_wide(device, gen)
-    dyn = check_scan_dyn(device, gen)
     shoup = check_scan_shoup(device, gen)
     small = check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
@@ -704,7 +617,7 @@ def main() -> int:
 
     paths = {"single": single, "small": small, "batched": batched, "tpu32": tpu32,
              "mesh": mesh, "mesh32": mesh32, "shoup": shoup_counts}
-    checks = {**scan, **ntt, **wide, "K6": dyn, "K7": shoup}
+    checks = {**scan, **ntt, **wide, "K7": shoup}
     print(json.dumps({"kernels": [
         {"name": row.name, "route": "cuda", "source": "pir_tpu_torch/csrc/" + row.source,
          "replaces": ", ".join(row.replaces),

@@ -9,20 +9,20 @@
 // residues bit for bit.
 //
 // Design.  A polynomial limb of N = 2^log_n words is held by N / R threads,
-// each with R = 2^B words in registers (B = 2, 3 or 4; ops/ntt.py::ntt_plan
+// each with R = 2^B words in registers (B = 2 or 3; ops/ntt.py::ntt_plan
 // takes 8 words a thread, 4 where a polynomial would get fewer than two
-// warps).  The log_n merged-twiddle radix-2 stages (Cooley-Tukey forward,
-// Gentleman-Sande inverse) are cut into passes of B stages (one pass of the
-// remaining log_n mod B): in a pass a thread's R words differ only in the
-// pass's B index bits, so all of its butterflies run in registers with no
-// barrier.  Shared memory only carries the exchange between passes (one
-// store, one load per word, padded by a word every 16 so that neither the
-// strided nor the contiguous access pattern conflicts in banks):
-// ceil(log_n / B) - 1 exchanges (3 at N=4096) where PR 3's design made
-// log_n round trips.  The first pass reads the input straight from device
-// memory and the last one writes the output, each with consecutive threads
-// on consecutive words, or with 16-byte accesses where a thread's words are
-// contiguous.
+// warps, and gives the grid).  The log_n merged-twiddle radix-2 stages
+// (Cooley-Tukey forward, Gentleman-Sande inverse) are cut into passes of B
+// stages (one pass of the remaining log_n mod B): in a pass a thread's R
+// words differ only in the pass's B index bits, so all of its butterflies
+// run in registers with no barrier.  Shared memory only carries the
+// exchange between passes (one store, one load per word, padded by a word
+// every 16 so that neither the strided nor the contiguous access pattern
+// conflicts in banks): ceil(log_n / B) - 1 exchanges (3 at N=4096) where
+// PR 3's design made log_n round trips.  The first pass reads the input
+// straight from device memory and the last one writes the output, each with
+// consecutive threads on consecutive words, or with 16-byte accesses where
+// a thread's words are contiguous.
 //
 // A pass's twiddles for one thread are runs of consecutive words of the
 // [L, N] table (R - 1 of them and their companions), loaded through the
@@ -30,15 +30,18 @@
 // barrier, so that their latency hides under it.  Butterflies are Harvey's
 // lazy ones: the forward keeps words in [0, 4q), the inverse in [0, 2q)
 // (q < 2^61 leaves room), and each Shoup product skips its final subtract;
-// the last pass reduces each word once, so the output is fully reduced.
+// below 2^50 the words grow instead and each product takes a cheaper
+// quotient (mul_shoup_grow).  The last pass reduces each word once, so the
+// output is fully reduced.
 //
-// What bounds it on the H100: the 64-bit Shoup products (one high and two
-// low 64-bit multiplies, about 16 32-bit IMADs, per butterfly; N/2 log_n
-// butterflies) against 16 bytes of device memory per coefficient.  Built
-// from 32-bit IMADs, a butterfly takes ~17 multiply-pipe instructions
-// besides its adds and selects, and the request's large shapes run at
-// 44-49% of that bound.  Small launches (one polynomial per few SMs) take
-// one block's chain of passes.
+// What bounds it on the H100: by count, the bytes (16 per coefficient of
+// device memory at the request's large shapes) ahead of the multiplies (12
+// 32-bit multiplies per growing butterfly, 16 per reducing one; N/2 log_n
+// butterflies).  The large shapes run at 37-40% of that bound; by the SASS
+// count, a butterfly also issues ~20 other instructions (adds, selects,
+// shared-memory moves) beside its multiplies, and the passes' barriers and
+// dependent products run at 32 warps an SM.  Small launches (one polynomial
+// per few SMs) take one block's chain of passes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -95,6 +98,25 @@ __host__ __device__ constexpr int window_bits(int pass) {
   using S = Shape<kLogN, kB>;
   const int fwd = kInv ? S::kPasses - 1 - pass : pass;
   return fwd == S::kPasses - 1 ? S::kRem : kB;
+}
+
+// The passes' windows, in the order they run, cover every index bit once:
+// the forward's from the top bit down (its stages run log_n - 1 .. 0), the
+// inverse's from bit 0 up; the top window holds B whole bits and the bottom
+// one starts at bit 0, the layouts ntt_kernel's loads and stores are written
+// for.  Checked at every instantiation.
+template <bool kInv, int kLogN, int kB>
+__host__ __device__ constexpr bool windows_cover_every_stage_once() {
+  using S = Shape<kLogN, kB>;
+  int edge = kInv ? 0 : kLogN;  // where the next window must start (inverse) or end
+  for (int pass = 0; pass < S::kPasses; ++pass) {
+    const int lo = window_lo<kInv, kLogN, kB>(pass);
+    const int bits = window_bits<kInv, kLogN, kB>(pass);
+    if (bits < 1 || bits > kB || (kInv ? lo : lo + bits) != edge) return false;
+    edge = kInv ? lo + bits : lo;
+  }
+  return edge == (kInv ? kLogN : 0) &&
+         window_bits<kInv, kLogN, kB>(kInv ? S::kPasses - 1 : 0) == kB;
 }
 
 // Coefficient index of thread t's register k in window [lo, lo + r): the
@@ -265,6 +287,8 @@ ntt_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
            const uint64_t* __restrict__ n_inv,
            const uint64_t* __restrict__ n_inv_shoup) {
   using S = Shape<kLogN, kB>;
+  static_assert(windows_cover_every_stage_once<kInv, kLogN, kB>(),
+                "kernel A's passes must cover each stage once, in order");
   extern __shared__ uint64_t smem[];
   const uint32_t t = threadIdx.x % S::kT;
   const int slot = threadIdx.x / S::kT;
@@ -336,6 +360,7 @@ struct Args {
   int64_t polys;
   int limbs;
   int polys_per_block;
+  int64_t blocks;
   const uint64_t* tw;
   const uint64_t* tw_shoup;
   const uint64_t* consts;
@@ -347,10 +372,9 @@ struct Args {
 template <bool kInv, bool kGrow, int kLogN, int kB>
 void launch(const Args& a) {
   using S = Shape<kLogN, kB>;
-  const int64_t blocks = (a.polys + a.polys_per_block - 1) / a.polys_per_block;
   const size_t smem = static_cast<size_t>(a.polys_per_block) * S::kWords * sizeof(uint64_t);
   ntt_kernel<kInv, kGrow, kLogN, kB>
-      <<<static_cast<unsigned>(blocks), a.polys_per_block * S::kT, smem, a.stream>>>(
+      <<<static_cast<unsigned>(a.blocks), a.polys_per_block * S::kT, smem, a.stream>>>(
           a.in, a.out, a.polys, a.limbs, a.tw, a.tw_shoup, a.consts, a.n_inv,
           a.n_inv_shoup);
 }
@@ -377,19 +401,21 @@ bool launch_radix(int radix_bits, bool inverse, bool grow, const Args& a) {
 extern "C" {
 
 // Transform `batch * limbs` polynomials of 2^log_n words (6 <= log_n <= 12)
-// with 2^radix_bits words per thread (radix_bits 2 or 3) and
-// polys_per_block polynomials per block (ops/ntt.py::ntt_plan); `grow`
+// with 2^radix_bits words per thread (radix_bits 2 or 3), polys_per_block
+// polynomials per block and `blocks` blocks (ops/ntt.py::ntt_plan); `grow`
 // (every modulus below 2^50) selects the butterflies without conditional
 // subtracts.  consts: [limbs, 3] (q, floor(2^128/q) hi word, lo word).
 // Returns cudaGetLastError() after the launch.
 int pir_ntt(const void* in, void* out, int64_t batch, int limbs, int log_n,
-            int inverse, int radix_bits, int polys_per_block, int grow,
+            int inverse, int radix_bits, int polys_per_block, int64_t blocks, int grow,
             const void* tw, const void* tw_shoup, const void* consts,
             const void* n_inv, const void* n_inv_shoup, void* stream) {
-  if (polys_per_block < 1 || (static_cast<int64_t>(polys_per_block) << log_n >> radix_bits) > 1024)
+  const int64_t polys = batch * limbs;
+  if (polys_per_block < 1 || (static_cast<int64_t>(polys_per_block) << log_n >> radix_bits) > 1024 ||
+      blocks < 1 || blocks > 0x7fffffff || blocks * polys_per_block < polys)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
-               batch * limbs, limbs, polys_per_block,
+               polys, limbs, polys_per_block, blocks,
                static_cast<const uint64_t*>(tw), static_cast<const uint64_t*>(tw_shoup),
                static_cast<const uint64_t*>(consts), static_cast<const uint64_t*>(n_inv),
                static_cast<const uint64_t*>(n_inv_shoup), static_cast<cudaStream_t>(stream)};

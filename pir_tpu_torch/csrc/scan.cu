@@ -28,15 +28,17 @@
 // flight; no barrier is needed, as each thread reads only what it copied.
 // The warps of a block split into `prefix_groups` (other prefixes, the same
 // coefficients and rows: their selection-vector copies meet in L1) times
-// `row_splits` (the same outputs over interleaved rows).  Each term is a
+// `row_splits` (the same outputs over interleaved rows); the caller gives
+// both and the grid.  Each term is a
 // product of 48-bit words, summed exactly in three 32-bit words with the
 // carry chain (mad.cc / madc; 96 bits hold D <= 2^(96 - 2 bits) rows,
 // pallas_scan.max_raw_chunk, which the wrapper enforces); without a hi plane
 // one 32x32 product and its carry.  Row splits add their partial sums
 // exactly in shared memory (over the ring, once every warp is done with it)
 // before the one Barrett reduction per output, so the result does not
-// depend on the split.  ops/scan_kernel.py::scan_plan splits the rows until
-// the grid holds 64 warps per SM: 2 ways at the inner scan, 8 at the upper.
+// depend on the split.  ops/scan_kernel.py::scan_plan lays out the launch:
+// it splits the rows until the grid holds 64 warps per SM (2 ways at the
+// inner scan, 8 at the upper).
 //
 // What bounds it on the H100: the database planes, 5 bytes per coefficient
 // at the 36-bit chain (26,244 x 2 x 4096 x 5 B ~ 1.07 GB per inner scan),
@@ -327,10 +329,7 @@ template <int kHiBytes>
 void launch(const void* sv, const void* db_hi, const void* db_lo,
             const void* consts, void* out, int64_t P, int L, int64_t d_total,
             int64_t j_begin, int64_t D, int64_t N, int prefix_groups,
-            int row_splits, cudaStream_t s) {
-  const dim3 grid(
-      static_cast<unsigned>((P + kPT * prefix_groups - 1) / (kPT * prefix_groups)),
-      static_cast<unsigned>((N + 32 * kV - 1) / (32 * kV)), static_cast<unsigned>(L));
+            int row_splits, dim3 grid, cudaStream_t s) {
   const size_t partial = static_cast<size_t>(kAcc) * (row_splits - 1) * prefix_groups * 32 *
                          sizeof(uint32_t);
   const size_t smem = partial > Ring<kHiBytes>::kBytes ? partial : Ring<kHiBytes>::kBytes;
@@ -354,25 +353,32 @@ extern "C" {
 // plane's element size: 1 or 2, or 0 for no hi plane (db_hi unused, moduli
 // below 2^32).  S must be 2, N a multiple of 4 and every pointer 16-byte
 // aligned (the hi plane's to 4 * hi_bytes); D <= 2^(96 - 2 * bits) keeps the
-// sums exact (the caller chunks).  prefix_groups * row_splits must be 8
-// (ops/scan_kernel.py::scan_plan).  Returns cudaGetLastError().
+// sums exact (the caller chunks).  The launch (ops/scan_kernel.py::
+// scan_plan): prefix_groups * row_splits = 8 warps a block, and a grid of
+// prefix_tiles x coeff_tiles x L blocks, a block covering 2 * prefix_groups
+// prefixes and 128 coefficients.  Returns cudaGetLastError().
 int pir_scan(const void* sv, const void* db_hi, const void* db_lo,
              const void* consts, void* out, int hi_bytes, int64_t P, int S,
              int L, int64_t d_total, int64_t j_begin, int64_t D, int64_t N,
-             int prefix_groups, int row_splits, void* stream) {
+             int prefix_groups, int row_splits, int prefix_tiles, int coeff_tiles,
+             void* stream) {
   if (S != 2 || N % kV != 0 || prefix_groups < 1 || row_splits < 1 ||
-      prefix_groups * row_splits * 32 != kThreads)
+      prefix_groups * row_splits * 32 != kThreads ||
+      static_cast<int64_t>(prefix_tiles) * kPT * prefix_groups < P ||
+      static_cast<int64_t>(coeff_tiles) * 32 * kV < N)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(prefix_tiles), static_cast<unsigned>(coeff_tiles),
+                  static_cast<unsigned>(L));
   if (hi_bytes == 0) {
     launch<0>(sv, nullptr, db_lo, consts, out, P, L, d_total, j_begin, D, N,
-              prefix_groups, row_splits, s);
+              prefix_groups, row_splits, grid, s);
   } else if (hi_bytes == 1) {
     launch<1>(sv, db_hi, db_lo, consts, out, P, L, d_total, j_begin, D, N,
-              prefix_groups, row_splits, s);
+              prefix_groups, row_splits, grid, s);
   } else if (hi_bytes == 2) {
     launch<2>(sv, db_hi, db_lo, consts, out, P, L, d_total, j_begin, D, N,
-              prefix_groups, row_splits, s);
+              prefix_groups, row_splits, grid, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

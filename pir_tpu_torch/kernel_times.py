@@ -2,18 +2,17 @@
 single-query request at the bench configuration gives them (2^20 items of
 288 B, d=2, N=4096, SEAL's chain; the tpu32 profile and one rank of the
 meshes for kernel B's other cases), each checked bit-equal to its plain
-version first.
+version first.  ``chip_smoke.py`` makes its checks of both kernels through
+:func:`time_ntt` and :func:`time_scan`.
 
     python3 pir_tpu_torch/kernel_times.py --out chiprun_out/times.json
     python3 pir_tpu_torch/kernel_times.py --root build/parent --label parent
 
 ``--root`` imports ``pir_tpu_torch`` from another checkout (an older tree
 unpacked with ``git archive``), so that two designs are timed by the same
-code on one card in one run; ``--radix-sweep`` also times kernel A at every
-``radix_bits`` its plan can choose, ``--split-sweep`` kernel B at every row
-split.  Times come from CUDA events around
-`reps` back-to-back launches queued behind ``torch.cuda._sleep``, so they are
-the card's time, not the host's time to launch.  The last line of output is
+code on one card in one run.  Times come from CUDA events around `reps`
+back-to-back launches queued behind ``torch.cuda._sleep``, so they are the
+card's time, not the host's time to launch.  The last line of output is
 the JSON result.
 """
 
@@ -27,7 +26,10 @@ import sys
 
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4  # 132 SMs x 64 INT32 lanes x 1.98 GHz
-MULS_SHOUP = 16  # 32-bit multiplies per Shoup product (kernel A's butterfly)
+# 32-bit multiplies per Shoup product x w mod q: 4 for each 64-bit low
+# product (x w, quotient q) and 8 for the quotient's 64-bit high product
+MULS_SHOUP = 16
+MULS_SHOUP_GROW = 12  # kernel A's growing butterflies: the quotient from 3 partial products
 MULS_48BIT = 8   # per product with a hi plane (kernel B's three-word sum)
 MULS_32BIT = 3   # without
 POLY_DEGREE = 4096
@@ -57,12 +59,14 @@ def bound(nbytes: float, muls: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def ntt_bound(x, n: int, limbs: int) -> dict:
+def ntt_bound(x, n: int, limbs: int, grow: bool) -> dict:
     """Input read and output written once, both twiddle rows once;
-    N/2 log2 N Shoup butterflies per polynomial limb."""
+    N/2 log2 N butterflies per polynomial limb, each one Shoup product —
+    the growing butterflies' where the kernel runs them."""
     polys = x.numel() // n
     butterflies = polys * n // 2 * (n.bit_length() - 1)
-    return bound((2 * x.numel() + 2 * limbs * n) * 8, butterflies * MULS_SHOUP)
+    muls = MULS_SHOUP_GROW if grow else MULS_SHOUP
+    return bound((2 * x.numel() + 2 * limbs * n) * 8, butterflies * muls)
 
 
 def scan_bound(sv, hi, lo) -> dict:
@@ -93,6 +97,13 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def max_abs_err(a, b) -> int:
+    """max |a - b| of two int64 tensors of one shape (0 exactly when equal)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    return int((a - b).abs().max().item()) if a.numel() else 0
+
+
 def random_residues(moduli, shape_before, n, device, gen):
     """int64[*shape_before, L, n] uniform below each limb's modulus."""
     import torch
@@ -109,13 +120,16 @@ def chains():
             "tpu32": generate_encryption_params(POLY_DEGREE, PLAIN_BITS, profile="tpu32")}
 
 
-def time_ntt(device, gen, radix_sweep: bool = False, reps: int = 50) -> "list[dict]":
-    """Kernel A at every request shape (and N=256), bit-equal to plain."""
-    import torch
-
+def time_ntt(device, gen, plain=(), reps: int = 50) -> "list[dict]":
+    """Kernel A at every request shape and at N=256 (K3's ring): bit-equal
+    to plain and undone exactly by the opposite transform, then timed; the
+    plain version is timed too at the (label, inverse) pairs in `plain`."""
     from pir_tpu_torch.core import primes
+    from pir_tpu_torch.ops import ntt as ntt_mod
     from pir_tpu_torch.ops.ntt import NttTables, ntt_cuda, ntt_plain
 
+    # a tree from before the growing butterflies reduces at every stage
+    grows = getattr(ntt_mod, "grows", lambda moduli: False)
     chain = chains()["seal"].coeff_modulus
     tables = {"qp": NttTables(chain, POLY_DEGREE, device)}
     tables["q"] = tables["qp"].slice(2)
@@ -126,19 +140,24 @@ def time_ntt(device, gen, radix_sweep: bool = False, reps: int = 50) -> "list[di
         t = tables[chain_name]
         x = random_residues(t.moduli, (batch,), t.n, device, gen)
         got = ntt_cuda(t, x, inverse)
-        want = ntt_plain(t, x, inverse)
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel A differs from plain at {label} {tuple(x.shape)}")
+        err = max_abs_err(got, ntt_plain(t, x, inverse))
+        if err:
+            raise AssertionError(f"kernel A differs from plain at {label} {tuple(x.shape)}: {err}")
+        if max_abs_err(ntt_cuda(t, got, not inverse), x):
+            raise AssertionError(f"kernel A's round trip fails at {label} {tuple(x.shape)}")
         row = {"label": label, "shape": list(x.shape), "inverse": inverse,
-               "max_abs_err": 0, "ms": device_ms(lambda: ntt_cuda(t, x, inverse), reps),
-               **ntt_bound(x, t.n, len(t.moduli))}
-        if radix_sweep:
-            from pir_tpu_torch.ops.ntt import RADIX_BITS
-
-            row["radix_ms"] = {str(b): device_ms(lambda: ntt_cuda(t, x, inverse, radix_bits=b), reps)
-                               for b in RADIX_BITS}
+               "max_abs_err": err, "ms": device_ms(lambda: ntt_cuda(t, x, inverse), reps),
+               **ntt_bound(x, t.n, len(t.moduli), grows(t.moduli))}
+        if (label, inverse) in plain:
+            row["plain_ms"] = device_ms(lambda: ntt_plain(t, x, inverse), 3)
         rows.append(row)
     return rows
+
+
+def request_sums(ntt_rows) -> "tuple[float, float]":
+    """Σ time and Σ bound of kernel A over one request's 22 launches."""
+    request = [r for r in ntt_rows if r["label"] != "N=256"]
+    return sum(r["ms"] for r in request), sum(r["bound_ms"] for r in request)
 
 
 def scan_cases():
@@ -148,12 +167,10 @@ def scan_cases():
             ("K6 seal rank", "seal", 1, 81, 162), ("K6 tpu32 rank", "tpu32", 2, 162, 162)]
 
 
-def time_scan(device, gen, split_sweep: bool = False, reps: int = 20) -> "list[dict]":
+def time_scan(device, gen, plain: bool = False, reps: int = 20) -> "list[dict]":
     """Kernel B at the single-query scans (K1 with a hi plane, K5 without)
     and at one rank's shapes of the limb-sharded meshes (K6), bit-equal to
-    plain."""
-    import torch
-
+    plain, then timed (the plain version too where `plain`)."""
     from pir_tpu_torch.ops import modular, scan_kernel
 
     rows = []
@@ -175,31 +192,40 @@ def time_scan(device, gen, split_sweep: bool = False, reps: int = 20) -> "list[d
 
             def run():
                 return scan_kernel.contract_dim_raw_dyn(sv, hi, lo, consts, bits)
-        got = run()
-        want = scan_kernel.contract_plain(sv, hi, lo, limbs.table)
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel B differs from plain at {label}")
+        err = max_abs_err(run(), scan_kernel.contract_plain(sv, hi, lo, limbs.table))
+        if err:
+            raise AssertionError(f"kernel B differs from plain at {label}: {err}")
         gb = ((0 if hi is None else hi.numel() * hi.element_size()) + lo.numel() * 4) / 1e9
         ms = device_ms(run, reps)
         row = {"label": label, "sv": list(sv.shape), "planes": list(lo.shape),
-               "hi_plane": None if hi is None else str(hi.dtype), "max_abs_err": 0,
+               "hi_plane": None if hi is None else str(hi.dtype), "max_abs_err": err,
                "ms": ms, "planes_gb_per_s": gb / ms * 1e3, **scan_bound(sv, hi, lo)}
-        if split_sweep and limb is None:
-            row["row_splits_ms"] = {
-                str(r): device_ms(lambda: scan_kernel.contract_cuda(sv, hi, lo, limbs, 0, r), reps)
-                for r in (1, 2, 4, 8)}
+        if plain:
+            row["plain_ms"] = device_ms(lambda: scan_kernel.contract_plain(sv, hi, lo, limbs.table), 2)
         rows.append(row)
-        del sv, hi, lo, got, want
+        del sv, hi, lo
     return rows
+
+
+def ntt_line(r) -> str:
+    return (f"kernel A {r['label']} {r['shape']} {'inverse' if r['inverse'] else 'forward'}: "
+            f"bit-equal to plain (max_abs_err {r['max_abs_err']}), round trip exact; "
+            f"{r['ms']:.4f} ms" + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def scan_line(r) -> str:
+    return (f"kernel B {r['label']} sv {r['sv']} planes {r['planes']} (hi plane {r['hi_plane']}): "
+            f"bit-equal to plain (max_abs_err {r['max_abs_err']}); {r['ms']:.4f} ms "
+            f"({r['planes_gb_per_s']:.1f} GB/s of planes)"
+            + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", help="import pir_tpu_torch from this checkout")
     ap.add_argument("--label", default="this tree")
-    ap.add_argument("--radix-sweep", action="store_true")
-    ap.add_argument("--split-sweep", action="store_true",
-                    help="also time kernel B at every row split (K1 and K5 shapes)")
     ap.add_argument("--out", help="also write the JSON result here")
     args = ap.parse_args(argv)
     if __spec__ is None:  # run as a file: its own directory must not shadow modules
@@ -225,23 +251,16 @@ def main(argv=None) -> int:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[{args.label}] {k.name} ptxas: {line.strip()}", flush=True)
-    ntt = time_ntt(device, gen, args.radix_sweep)
-    scan = time_scan(device, gen, args.split_sweep)
-    request = [r for r in ntt if r["label"] != "N=256"]
+    ntt = time_ntt(device, gen)
+    scan = time_scan(device, gen)
+    request_ms, request_bound_ms = request_sums(ntt)
     result = {"label": args.label, "package": pir_tpu_torch.__file__, "card": card,
               "ntt": ntt, "scan": scan,
-              "ntt_request_ms": sum(r["ms"] for r in request),
-              "ntt_request_bound_ms": sum(r["bound_ms"] for r in request)}
-    for r in ntt:
-        print(f"[{args.label}] kernel A {r['label']} {r['shape']} "
-              f"{'inv' if r['inverse'] else 'fwd'}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"
-              + (f" radix {r['radix_ms']}" if "radix_ms" in r else ""), flush=True)
-    for r in scan:
-        print(f"[{args.label}] kernel B {r['label']} planes {r['planes']}: {r['ms']:.4f} ms "
-              f"({r['planes_gb_per_s']:.1f} GB/s, bound {r['bound_ms']:.4f})"
-              + (f" row splits {r['row_splits_ms']}" if "row_splits_ms" in r else ""), flush=True)
+              "ntt_request_ms": request_ms, "ntt_request_bound_ms": request_bound_ms}
+    for line in [ntt_line(r) for r in ntt] + [scan_line(r) for r in scan]:
+        print(f"[{args.label}] {line}", flush=True)
     print(f"[{args.label}] kernel A over one request's 22 launches: "
-          f"{result['ntt_request_ms']:.4f} ms (bound {result['ntt_request_bound_ms']:.4f}); {card}")
+          f"{request_ms:.4f} ms (bound {request_bound_ms:.4f}); {card}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

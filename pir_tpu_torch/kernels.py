@@ -140,16 +140,17 @@ def stream_handle(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# in, out, batch, limbs, log_n, inverse, radix_bits, polys_per_block, grow,
-# tw, tw_shoup, consts, n_inv, n_inv_shoup, stream
+# in, out, batch, limbs, log_n, inverse, radix_bits, polys_per_block, blocks,
+# grow, tw, tw_shoup, consts, n_inv, n_inv_shoup, stream
 NTT = CudaKernel(
     "ntt", "ntt.cu",
-    {"pir_ntt": [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P]},
+    {"pir_ntt": [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I64, _I32, _P, _P, _P, _P, _P, _P]},
 )
 # sv, db_hi, db_lo, consts, out, hi_bytes, P, S, L, d_total, j_begin, D, N, stream
 _SCAN_ARGS = [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _P]
-# kernel B's: the same, then prefix_groups, row_splits before the stream
-SCAN = CudaKernel("scan", "scan.cu", {"pir_scan": _SCAN_ARGS[:-1] + [_I32, _I32, _P]})
+# kernel B's: the same, then prefix_groups, row_splits, prefix_tiles,
+# coeff_tiles before the stream
+SCAN = CudaKernel("scan", "scan.cu", {"pir_scan": _SCAN_ARGS[:-1] + [_I32] * 4 + [_P]})
 SCAN_WIDE = CudaKernel("scan_wide", "scan_wide.cu", {"pir_scan_wide": _SCAN_ARGS})
 # sv, db, db_shoup, consts, out, P, D, L, N, chunk, stream
 SCAN_SHOUP = CudaKernel(

@@ -30,7 +30,6 @@ from pir_tpu_torch.ops.modular import tensor_u64
 
 KERNEL_MIN_N = 64
 KERNEL_MAX_N = 4096  # one limb of 8-byte words (+1/16 padding) in 34 KB of shared memory
-RADIX_BITS = (2, 3)  # words per thread: 4 or 8
 BLOCK_THREADS = 256  # threads per block where one polynomial takes fewer
 MIN_POLY_THREADS = 64  # at least two warps a polynomial
 GROW_MAX_BITS = 50  # below 2^50 kernel A's words may grow: reduced once, at the end
@@ -38,9 +37,9 @@ GROW_MAX_BITS = 50  # below 2^50 kernel A's words may grow: reduced once, at the
 
 @dataclass(frozen=True)
 class NttPlan:
-    """How kernel A lays out one launch: each polynomial limb of n = 2^log_n
-    words is held by ``threads_per_poly`` threads with 2^radix_bits words in
-    registers each, ``polys_per_block`` limbs to a block."""
+    """Kernel A's launch: each polynomial limb of n = 2^log_n words is held
+    by ``threads_per_poly`` threads with 2^radix_bits words in registers
+    each, ``polys_per_block`` limbs to a block, in a grid of ``blocks``."""
 
     log_n: int
     radix_bits: int
@@ -55,44 +54,29 @@ class NttPlan:
     def threads_per_block(self) -> int:
         return self.polys_per_block * self.threads_per_poly
 
-    def windows(self, inverse: bool) -> "list[tuple[int, int]]":
-        """The index bits (lo, count) of each pass, in the order they run:
-        forward from the top bits down, the short pass last at bit 0; the
-        inverse the same windows reversed (csrc/ntt.cu::window_lo)."""
-        b, log_n = self.radix_bits, self.log_n
-        count = -(-log_n // b)
-        fwd = [(log_n - b * (p + 1), b) for p in range(count - 1)]
-        fwd.append((0, log_n - b * (count - 1)))
-        return fwd[::-1] if inverse else fwd
 
-    def stage_bits(self, inverse: bool) -> "list[int]":
-        """The butterfly bit of every stage in the order they run: forward
-        log_n - 1 down to 0, inverse 0 up to log_n - 1."""
-        out = []
-        for lo, bits in self.windows(inverse):
-            local = range(bits) if inverse else range(bits - 1, -1, -1)
-            out.extend(lo + bl for bl in local)
-        return out
-
-
-def ntt_plan(n: int, polys: int, radix_bits: "int | None" = None) -> NttPlan:
+def ntt_plan(n: int, polys: int) -> NttPlan:
     """Kernel A's launch for `polys` polynomial limbs of n words: 8 words a
     thread (at N=4096 four passes; 16 words a thread needed over 100
     registers and ran slower on the H100 at all but one request shape),
-    unless a polynomial would then get fewer than MIN_POLY_THREADS threads,
-    where 4 words a thread spread the work over twice the threads."""
+    unless a polynomial would then get fewer than MIN_POLY_THREADS threads
+    (N < 512), where 4 words a thread spread the work over twice the
+    threads."""
     log_n = n.bit_length() - 1
     if n != 1 << log_n or not (KERNEL_MIN_N <= n <= KERNEL_MAX_N):
         raise ValueError(f"kernel A handles powers of two {KERNEL_MIN_N} <= N <= {KERNEL_MAX_N}, got N={n}")
     if polys < 1:
         raise ValueError(f"no polynomials to transform ({polys})")
-    if radix_bits is None:
-        radix_bits = 3 if n >> 3 >= MIN_POLY_THREADS else 2
-    if radix_bits not in RADIX_BITS:
-        raise ValueError(f"radix_bits must be one of {RADIX_BITS}, got {radix_bits}")
+    radix_bits = 3 if n >> 3 >= MIN_POLY_THREADS else 2
     per_poly = n >> radix_bits
     per_block = min(max(1, BLOCK_THREADS // per_poly), polys)
     return NttPlan(log_n, radix_bits, per_block, -(-polys // per_block))
+
+
+def grows(moduli) -> bool:
+    """Whether kernel A runs its growing butterflies on these moduli (every
+    one below 2^GROW_MAX_BITS)."""
+    return max(int(q) for q in moduli).bit_length() <= GROW_MAX_BITS
 
 
 def _bit_reverse_indices(n: int) -> np.ndarray:
@@ -224,11 +208,9 @@ def ntt_plain(tables: NttTables, x: torch.Tensor, inverse: bool) -> torch.Tensor
     )
 
 
-def ntt_cuda(tables: NttTables, x: torch.Tensor, inverse: bool,
-             radix_bits: "int | None" = None) -> torch.Tensor:
+def ntt_cuda(tables: NttTables, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Kernel A on a contiguous int64 CUDA tensor ``[..., L, N]``, laid out
-    by :func:`ntt_plan` (``radix_bits`` overrides its choice of words per
-    thread)."""
+    by :func:`ntt_plan`."""
     n = tables.n
     L = len(tables.moduli)
     if not x.is_cuda or x.dtype != torch.int64:
@@ -247,8 +229,7 @@ def ntt_cuda(tables: NttTables, x: torch.Tensor, inverse: bool,
     batch = x.numel() // (L * n)
     if batch == 0:
         return out
-    plan = ntt_plan(n, batch * L, radix_bits)
-    grow = max(tables.moduli).bit_length() <= GROW_MAX_BITS
+    plan = ntt_plan(n, batch * L)
     if inverse:
         tw, tw_sh = tables.psi_inv_rev, tables.psi_inv_rev_shoup
     else:
@@ -256,7 +237,7 @@ def ntt_cuda(tables: NttTables, x: torch.Tensor, inverse: bool,
     kernels.NTT.launch(
         "pir_ntt",
         x.data_ptr(), out.data_ptr(), batch, L, plan.log_n, int(inverse),
-        plan.radix_bits, plan.polys_per_block, int(grow),
+        plan.radix_bits, plan.polys_per_block, plan.blocks, int(grows(tables.moduli)),
         tw.data_ptr(), tw_sh.data_ptr(), tables.limbs.table.data_ptr(),
         tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(),
         kernels.stream_handle(x),

@@ -199,24 +199,20 @@ SCAN_FILL_WARPS = 132 * 64  # four rounds of two resident blocks on each SM of a
 
 @dataclass(frozen=True)
 class ScanPlan:
-    """Kernel B's launch: block warps = prefix_groups x row_splits; row
-    split r sums rows r, r + row_splits, ... of the chunk; grid = (prefix
-    tiles, coefficient tiles, limbs)."""
+    """Kernel B's launch: block warps = prefix_groups x row_splits (row
+    split r sums rows r, r + row_splits, ... of the chunk); the grid of
+    (prefix tiles, coefficient tiles, limbs) blocks it launches."""
 
     prefix_groups: int
     row_splits: int
     grid: "tuple[int, int, int]"
 
-    def rows(self, split: int, D: int) -> range:
-        return range(split, D, self.row_splits)
 
-
-def scan_plan(P: int, L: int, N: int, D: int, row_splits: "int | None" = None) -> ScanPlan:
+def scan_plan(P: int, L: int, N: int, D: int) -> ScanPlan:
     """Split the rows over a block's warps (1, 2, 4 or 8 ways, never more
     than there are rows) until the grid holds SCAN_FILL_WARPS warps: the
     inner scan (5,184 warps unsplit at the bench shape) splits 2 ways, a
-    small contraction (the upper scan, P = 8) 8 ways.  ``row_splits``
-    overrides the choice."""
+    small contraction (the upper scan, P = 8) 8 ways."""
     if min(P, L, N, D) < 1:
         raise ValueError(f"empty contraction P={P} L={L} N={N} D={D}")
     pairs = -(-P // SCAN_PREFIXES)
@@ -224,16 +220,11 @@ def scan_plan(P: int, L: int, N: int, D: int, row_splits: "int | None" = None) -
     splits = 1
     while splits * 2 <= min(SCAN_WARPS, D) and n_tiles * L * pairs * splits < SCAN_FILL_WARPS:
         splits *= 2
-    if row_splits is not None:
-        if row_splits not in (1, 2, 4, 8):
-            raise ValueError(f"row_splits must be 1, 2, 4 or 8, got {row_splits}")
-        splits = row_splits
     groups = SCAN_WARPS // splits
     return ScanPlan(groups, splits, (-(-pairs // groups), n_tiles, L))
 
 
-def _scan_b(sv, db_hi, db_lo, table, bits: int, j_begin: int, dyn: bool,
-            row_splits: "int | None" = None) -> torch.Tensor:
+def _scan_b(sv, db_hi, db_lo, table, bits: int, j_begin: int, dyn: bool) -> torch.Tensor:
     """Kernel B with the modulus table `table` and the chain width `bits`,
     laid out by :func:`scan_plan`."""
     if sv.dim() != 4 or sv.shape[1] != 2:
@@ -248,20 +239,18 @@ def _scan_b(sv, db_hi, db_lo, table, bits: int, j_begin: int, dyn: bool,
         for name, t in (("sv", sv), ("db_hi", db_hi), ("db_lo", db_lo)):
             if t is not None and t.data_ptr() % 16:
                 raise ValueError(f"kernel B needs 16-byte aligned operands; {name} is not")
-        p = scan_plan(P, L, N, D, row_splits)
-        return p.prefix_groups, p.row_splits
+        p = scan_plan(P, L, N, D)
+        return p.prefix_groups, p.row_splits, p.grid[0], p.grid[1]
 
     return _launch(kernels.SCAN, "pir_scan", sv, db_hi, db_lo, table, bits, j_begin, dyn, plan)
 
 
-def contract_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0,
-                  row_splits: "int | None" = None) -> torch.Tensor:
+def contract_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
     """Kernel B: sv int64 [D, 2, L, N] against planes [P, L, D_total, N]
     over rows [j_begin, j_begin + D) -> reduced int64 [P, 2, L, N].
     Without a hi plane (db_hi None, moduli below 2^32) it runs its
-    single-word variant, which replaces K5.  ``row_splits`` overrides
-    :func:`scan_plan`'s choice."""
-    return _scan_b(sv, db_hi, db_lo, limbs.table, _limbs_bits(limbs), j_begin, False, row_splits)
+    single-word variant, which replaces K5."""
+    return _scan_b(sv, db_hi, db_lo, limbs.table, _limbs_bits(limbs), j_begin, False)
 
 
 def contract_wide_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:

@@ -61,21 +61,19 @@ def test_ntt_kernel_matches_plain(dev, n, bits, batch):
 @pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048, 4096])
 @pytest.mark.parametrize("bits", [(26, 27), (36, 37), (58, 60)], ids=["q26", "q37", "q60"])
 def test_ntt_kernel_every_radix_matches_plain(dev, n, bits):
-    """Every N and every words-per-thread choice of kernel A, at one
-    polynomial and at more than one wave of blocks, with moduli of 26, 37
-    and 60 bits (the lazy butterflies keep words below 4q)."""
-    from pir_tpu_torch.ops.ntt import RADIX_BITS, ntt_plan
+    """Every N, and so both of kernel A's layouts (4 words a thread below
+    N=512, 8 from there), at one polynomial and at more than one wave of
+    blocks, with moduli of 26, 37 and 60 bits (growing butterflies below
+    2^50, lazy reducing ones above)."""
+    from pir_tpu_torch.ops.ntt import ntt_plan
 
+    assert ntt_plan(n, 1).radix_bits == (2 if n < 512 else 3)
     tables = NttTables(primes.coeff_modulus_from_bits(n, list(bits)), n, dev)
     for batch in (1, 400):
         x = residues(tables.moduli, (batch,), n, dev, seed=batch + n)
         x[0, 0, :4] = torch.tensor([0, 1, tables.moduli[0] - 1, tables.moduli[0] - 2])
         for inverse in (False, True):
-            want = ntt_plain(tables, x, inverse)
-            assert torch.equal(ntt_cuda(tables, x, inverse), want)  # the plan's own choice
-            for b in RADIX_BITS:
-                if b != ntt_plan(n, x.numel() // n).radix_bits:
-                    assert torch.equal(ntt_cuda(tables, x, inverse, radix_bits=b), want), b
+            assert torch.equal(ntt_cuda(tables, x, inverse), ntt_plain(tables, x, inverse))
     torch.cuda.synchronize()
 
 
@@ -103,18 +101,21 @@ def test_scan_kernel_matches_plain(dev, bits, P, D):
 
 
 @pytest.mark.parametrize(
-    "bits,P,D,j_begin,n",
-    [((26, 26), 5, 7, 0, 256), ((26, 26), 8, 162, 0, 4096), ((34, 36), 17, 7, 3, 256),
-     ((34, 36), 8, 162, 0, 4096), ((34, 36), 3, 13, 1, 64), ((44, 46), 9, 16, 4, 256),
-     ((44, 46), 1, 5, 11, 128)],
+    "bits,P,D,j_begin,n,splits",
+    [((26, 26), 5, 7, 0, 256, 4), ((26, 26), 8, 162, 0, 4096, 8), ((34, 36), 17, 7, 3, 256, 4),
+     ((34, 36), 8, 162, 0, 4096, 8), ((34, 36), 3, 13, 1, 64, 8), ((44, 46), 9, 16, 4, 256, 8),
+     ((44, 46), 1, 5, 11, 128, 4), ((34, 36), 4, 1, 2, 256, 1), ((44, 46), 6, 3, 0, 128, 2),
+     ((34, 36), 162, 162, 0, 4096, 2)],
 )
-def test_scan_kernel_plan_edges(dev, bits, P, D, j_begin, n):
+def test_scan_kernel_plan_edges(dev, bits, P, D, j_begin, n, splits):
     """Kernel B where P is no multiple of its prefix tile, D no multiple of
     its row split (the upper scan's 8-way split at P = 8, and a ragged
     tail at D = 7, 13), rows from j_begin > 0, N below one warp's 128
-    coefficients, hi planes of 0, 1 and 2 bytes, and every row split."""
+    coefficients, hi planes of 0, 1 and 2 bytes, and shapes at which its
+    plan splits the rows 1, 2, 4 and 8 ways (2 at the inner scan's)."""
     moduli = primes.coeff_modulus_from_bits(1024, list(bits))
     limbs = modular.LimbConstants(moduli, dev)
+    assert scan_kernel.scan_plan(P, len(moduli), n, D).row_splits == splits
     d_total = j_begin + D + 2
     sv = residues(moduli, (D, 2), n, dev, seed=P + D)
     db = residues(moduli, (P, d_total), n, dev, seed=j_begin).transpose(1, 2).contiguous()
@@ -125,10 +126,6 @@ def test_scan_kernel_plan_edges(dev, bits, P, D, j_begin, n):
     want = scan_kernel.contract_plain(sv.cpu(), None if hi is None else hi.cpu(), lo.cpu(),
                                       cpu.table, j_begin)
     assert torch.equal(scan_kernel.contract_dim_raw(sv, hi, lo, limbs, j_begin).cpu(), want)
-    for splits in (1, 2, 4, 8):  # every row split, the plan's own choice above
-        if splits <= D:
-            got = scan_kernel.contract_cuda(sv, hi, lo, limbs, j_begin, splits)
-            assert torch.equal(got.cpu(), want), splits
 
 
 def test_scan_kernel_without_hi_plane_matches_plain(dev):

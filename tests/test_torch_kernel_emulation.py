@@ -9,7 +9,9 @@ choose.
 What this shows is the kernels' index arithmetic, twiddle choice,
 exchange layout, lazy-reduction bounds and row-split sums; it says nothing
 of speed, and the card's own compiler and the PTX pieces are checked only
-by tests/test_torch_cuda.py on the card.
+by tests/test_torch_cuda.py on the card.  The compile itself checks kernel
+A's passes: a static_assert in csrc/ntt.cu holds every instantiation's
+windows to cover each stage once, in order.
 """
 
 import ctypes
@@ -162,9 +164,9 @@ def libs(tmp_path_factory):
                        check=True, capture_output=True, text=True)
         out[name] = ctypes.CDLL(str(so))
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    out["ntt"].pir_ntt.argtypes = [P, P, I64, I32, I32, I32, I32, I32, I32, P, P, P, P, P, P]
+    out["ntt"].pir_ntt.argtypes = [P, P, I64, I32, I32, I32, I32, I32, I64, I32, P, P, P, P, P, P]
     out["scan"].pir_scan.argtypes = [P, P, P, P, P, I32, I64, I32, I32, I64, I64, I64, I64,
-                                     I32, I32, P]
+                                     I32, I32, I32, I32, P]
     return out
 
 
@@ -174,28 +176,59 @@ def _residues(rng, moduli, shape, axis):
     ).view(np.int64)).contiguous()
 
 
+# Kernel A's window of index bits per pass (csrc/ntt.cu::window_lo), and two
+# wrong ones: the short pass on top (coverage holds, the top window's
+# layout does not), and windows one bit too low (a bit covered twice).
+WINDOW_LO = "return fwd == S::kPasses - 1 ? 0 : kLogN - kB * (fwd + 1);"
+WRONG_WINDOWS = {
+    "short pass on top": ("return fwd == 0 ? kLogN - S::kRem : kLogN - S::kRem - kB * fwd;",
+                          "return fwd == 0 ? S::kRem : kB;"),
+    "overlapping windows": ("return fwd == S::kPasses - 1 ? 0 : kLogN - kB * (fwd + 1) - 1;", None),
+}
+WINDOW_BITS = "return fwd == S::kPasses - 1 ? S::kRem : kB;"
+
+
+@pytest.mark.parametrize("wrong", WRONG_WINDOWS)
+def test_kernel_a_windows_cover_every_stage_once(libs, tmp_path, wrong):
+    """The real windows compiled (the libs fixture builds every
+    instantiation); wrong ones are refused at compile time."""
+    src = emulation_source("ntt")
+    assert src.count(WINDOW_LO) == 1 and src.count(WINDOW_BITS) == 1
+    lo, bits = WRONG_WINDOWS[wrong]
+    src = src.replace(WINDOW_LO, lo).replace(WINDOW_BITS, bits or WINDOW_BITS)
+    (tmp_path / "cuda_runtime.h").write_text(RUNTIME_H)
+    (tmp_path / "ntt.cpp").write_text(src)
+    res = subprocess.run([shutil.which("g++"), "-std=c++20", "-fsyntax-only", "-w",
+                          f"-I{tmp_path}", str(tmp_path / "ntt.cpp")],
+                         capture_output=True, text=True)
+    assert res.returncode != 0
+    assert "must cover each stage once" in res.stderr
+
+
 @pytest.mark.parametrize(
     "n,bits",
     [(64, (26, 60)), (128, (36, 37)), (256, (30, 45)), (512, (36, 37)), (1024, (58, 61)),
      (2048, (26, 27)), (4096, (36, 37))],
 )
-@pytest.mark.parametrize("radix_bits", tntt.RADIX_BITS)
+@pytest.mark.parametrize("radix_bits", (2, 3))  # the words a thread pir_ntt takes: 4 or 8
 def test_kernel_a_emulated_equals_plain(libs, n, bits, radix_bits):
-    """Forward and inverse, three polynomials a limb: growing butterflies
-    below 2^50, reducing ones for the 58-61-bit chains."""
+    """Forward and inverse, three polynomials a limb, at both radices (the
+    plan's own choice is 4 words a thread below N=512, 8 from there):
+    growing butterflies below 2^50, reducing ones for the 58-61-bit
+    chains."""
     tables = tntt.NttTables(primes.coeff_modulus_from_bits(n, list(bits)), n, "cpu")
     L = len(bits)
     batch = 1 if n == 4096 and radix_bits == 2 else 3
     x = _residues(np.random.default_rng(n + radix_bits), tables.moduli, (batch, n), 1)
-    plan = tntt.ntt_plan(n, batch * L, radix_bits)
-    grow = int(max(tables.moduli).bit_length() <= tntt.GROW_MAX_BITS)
+    per_block = min(max(1, 256 // (n >> radix_bits)), batch * L)
+    blocks = -(-batch * L // per_block)
     for inverse in (False, True):
         tw, tws = ((tables.psi_inv_rev, tables.psi_inv_rev_shoup) if inverse
                    else (tables.psi_rev, tables.psi_rev_shoup))
         out = torch.empty_like(x)
         rc = libs["ntt"].pir_ntt(
-            x.data_ptr(), out.data_ptr(), batch, L, plan.log_n, int(inverse), radix_bits,
-            plan.polys_per_block, grow, tw.data_ptr(), tws.data_ptr(),
+            x.data_ptr(), out.data_ptr(), batch, L, n.bit_length() - 1, int(inverse), radix_bits,
+            per_block, blocks, int(tntt.grows(tables.moduli)), tw.data_ptr(), tws.data_ptr(),
             tables.limbs.table.data_ptr(), tables.n_inv.data_ptr(),
             tables.n_inv_shoup.data_ptr(), None)
         assert rc == 0
@@ -222,13 +255,14 @@ def test_kernel_b_emulated_equals_plain(libs, bits, P, D, j_begin, n):
     hi, lo = scan_kernel.split_planes(db, moduli)
     want = scan_kernel.contract_plain(sv, hi, lo, limbs.table, j_begin)
     hi_bytes = 0 if hi is None else hi.element_size()
-    for splits in (1, 2, 4, 8):
+    for splits in (1, 2, 4, 8):  # scan_plan's choices
         if splits > D:
             continue
+        groups = scan_kernel.SCAN_WARPS // splits
         out = torch.zeros((P, 2, L, n), dtype=torch.int64)
         rc = libs["scan"].pir_scan(
             sv.data_ptr(), 0 if hi is None else hi.data_ptr(), lo.data_ptr(),
             limbs.table.data_ptr(), out.data_ptr(), hi_bytes, P, 2, L, d_total, j_begin, D, n,
-            scan_kernel.SCAN_WARPS // splits, splits, None)
+            groups, splits, -(-P // (2 * groups)), -(-n // 128), None)
         assert rc == 0
         assert torch.equal(out, want), splits

@@ -1,52 +1,31 @@
 """The launch plans of kernels A (register-radix NTT) and B (the scan) on the
-CPU: ops/ntt.py::ntt_plan and ops/scan_kernel.py::scan_plan.
+CPU: ops/ntt.py::ntt_plan and ops/scan_kernel.py::scan_plan, whose grids
+the kernels launch as given.
 
-Every stage of a transform is covered exactly once by the passes, the
-threads and blocks cover every polynomial, and the tiles cover every prefix
-and coefficient with every row summed by exactly one row split.  A Python
-replay of kernel A's schedule (csrc/ntt.cu: the register/thread index map,
-the padded shared-memory exchange, the per-stage twiddle runs and the lazy
-butterflies) must give the plain transform's words bit for bit, and a
-replay of kernel B's row splits the plain contraction's."""
+The blocks of kernel A's plan hold every polynomial, and its words per
+thread follow N; the tiles of kernel B's grid cover every prefix and
+coefficient, with a row split of 1, 2, 4 or 8 that never exceeds the rows
+(a ragged tail where it does not divide them).  That kernel A's passes
+cover every stage once, in order, is checked where the passes are defined,
+at compile time (csrc/ntt.cu::windows_cover_every_stage_once, see
+tests/test_torch_kernel_emulation.py); that the kernels compute the plain
+versions' words under every layout, by the emulation and CUDA tests."""
 
-import numpy as np
 import pytest
-import torch
 
-from pir_tpu_torch.core import primes
-from pir_tpu_torch.ops import modular, scan_kernel
+from pir_tpu_torch.ops import scan_kernel
 from pir_tpu_torch.ops import ntt as tntt
-from pir_tpu_torch.ops.modular import numpy_u64, tensor_u64
 
-M64 = (1 << 64) - 1
 NS = [64, 128, 256, 512, 1024, 2048, 4096]
-
-
-@pytest.mark.parametrize("n", NS)
-@pytest.mark.parametrize("radix_bits", tntt.RADIX_BITS)
-def test_ntt_passes_cover_every_stage_once(n, radix_bits):
-    plan = tntt.ntt_plan(n, 3, radix_bits)
-    log_n = n.bit_length() - 1
-    assert plan.stage_bits(False) == list(range(log_n - 1, -1, -1))
-    assert plan.stage_bits(True) == list(range(log_n))
-    for inverse in (False, True):
-        windows = plan.windows(inverse)
-        assert len(windows) == -(-log_n // radix_bits)
-        assert all(1 <= bits <= radix_bits for _, bits in windows)
-        bits_used = sorted(b for lo, c in windows for b in range(lo, lo + c))
-        assert bits_used == list(range(log_n))
-    # the first forward pass holds the top bits whole (its loads coalesce);
-    # the short pass sits at bit 0, where a thread's words are contiguous
-    assert plan.windows(False)[0] == (log_n - radix_bits, radix_bits)
-    assert plan.windows(False)[-1][0] == 0
 
 
 @pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("polys", [1, 5, 6, 32, 384, 648, 1296, 3000])
 def test_ntt_plan_threads_cover_every_polynomial(n, polys):
     plan = tntt.ntt_plan(n, polys)
-    assert plan.radix_bits in tntt.RADIX_BITS
-    assert plan.threads_per_poly == n >> plan.radix_bits
+    # 8 words a thread, unless a polynomial would get fewer than two warps
+    assert plan.radix_bits == (2 if n < 512 else 3)
+    assert plan.threads_per_poly == n >> plan.radix_bits >= min(n // 4, tntt.MIN_POLY_THREADS)
     assert 1 <= plan.polys_per_block <= polys
     assert plan.threads_per_block <= max(tntt.BLOCK_THREADS, plan.threads_per_poly) <= 1024
     assert (plan.blocks - 1) * plan.polys_per_block < polys <= plan.blocks * plan.polys_per_block
@@ -64,155 +43,18 @@ def test_ntt_plan_at_the_request_shapes():
         assert (p.radix_bits, p.threads_per_block, p.blocks) == (3, 512, polys)
     small = plan(256, 64 * 3)  # the N=256 database
     assert (small.radix_bits, small.threads_per_poly, small.polys_per_block) == (2, 64, 4)
+    assert small.blocks == 48
     assert plan(64, 1).threads_per_block == 16
     with pytest.raises(ValueError, match="N=8192"):
         plan(8192, 4)
-    with pytest.raises(ValueError, match="radix_bits"):
-        plan(4096, 4, radix_bits=5)
+    with pytest.raises(ValueError, match="no polynomials"):
+        plan(4096, 0)
 
 
-# -- a replay of kernel A's schedule ------------------------------------------
-
-
-def _win_index(b, lo, bits, t, k):
-    rest = (t << (b - bits)) | (k >> bits)
-    win = k & ((1 << bits) - 1)
-    return ((rest >> lo) << (lo + bits)) | (win << lo) | (rest & ((1 << lo) - 1))
-
-
-def _padded(x):
-    return x + (x >> 4)
-
-
-def _lazy_shoup(x, w, ws, q):
-    return (x * w - ((x * ws) >> 64) * q) & M64
-
-
-def _grow_shoup(x, w, ws, q):
-    """csrc/ntt.cu::mul_shoup_grow: the quotient from three 32-bit partial
-    products of x * ws."""
-    xl, xh, sl, sh = x & 0xFFFFFFFF, x >> 32, ws & 0xFFFFFFFF, ws >> 32
-    est = xh * sh + ((xh * sl) >> 32) + ((xl * sh) >> 32)
-    r = (x * w - est * q) & M64
-    assert r < 4 * q
-    return r
-
-
-def replay_kernel_a(plan, words, q, tw, tws, n_inv, n_inv_shoup, inverse, grow):
-    """One polynomial limb through csrc/ntt.cu's schedule, in Python ints,
-    checking each index and bound the kernel relies on; `grow` replays the
-    butterflies without conditional subtracts (moduli below 2^50)."""
-    n = 1 << plan.log_n
-    b = plan.radix_bits
-    R, T = 1 << b, plan.threads_per_poly
-    windows = plan.windows(inverse)
-    lo, bits = windows[0]
-    # the first pass's loads: contiguous (inverse) or k * T + t (forward)
-    for t in range(T):
-        for k in range(R):
-            want = (t << b) | k if inverse else k * T + t
-            assert _win_index(b, lo, bits, t, k) == want
-    regs = [[words[_win_index(b, lo, bits, t, k)] for k in range(R)] for t in range(T)]
-    limit = 2 * q if inverse else 4 * q
-    done = 0  # stages run so far
-    for p, (lo, bits) in enumerate(windows):
-        if p:
-            shared = [None] * (n + n // 16)
-            plo, pbits = windows[p - 1]
-            for t in range(T):
-                for k in range(R):
-                    x = _win_index(b, plo, pbits, t, k)
-                    split = _padded(_win_index(b, plo, pbits, t, 0)) + _padded(_win_index(b, plo, pbits, 0, k))
-                    assert split == _padded(x)
-                    shared[split] = regs[t][k]
-            assert None not in [shared[_padded(x)] for x in range(n)]
-            regs = [[shared[_padded(_win_index(b, lo, bits, t, k))] for k in range(R)] for t in range(T)]
-        for step in range(bits):
-            bl = step if inverse else bits - 1 - step
-            bit = lo + bl
-            span = 1 << bl
-            for t in range(T):
-                x0 = _win_index(b, lo, bits, t, 0)
-                base = (n >> (bit + 1)) + (x0 >> (bit + 1))
-                groups = R >> (bl + 1)
-                assert groups == 1 or base % 2 == 0  # 16-byte twiddle loads
-                for g in range(groups):
-                    w, ws = tw[base + g], tws[base + g]
-                    for kk in range(span):
-                        k = (g << (bl + 1)) | kk
-                        xa = _win_index(b, lo, bits, t, k)
-                        assert _win_index(b, lo, bits, t, k + span) == xa + (1 << bit)
-                        assert base + g == (n >> (bit + 1)) + (xa >> (bit + 1))
-                        x, y = regs[t][k], regs[t][k + span]
-                        if grow:  # inverse at bit b: below 2^(b+1) q; forward: below (1 + 4 done) q
-                            limit = q << bit + 1 if inverse else (1 + 4 * done) * q
-                        assert x < limit and y < limit
-                        if inverse and grow:
-                            regs[t][k] = x + y
-                            regs[t][k + span] = _grow_shoup(x + (q << bit + 1) - y, w, ws, q)
-                        elif grow:
-                            v = _grow_shoup(y, w, ws, q)
-                            regs[t][k], regs[t][k + span] = x + v, x + 4 * q - v
-                        elif inverse:
-                            s = x + y
-                            regs[t][k] = s - 2 * q if s >= 2 * q else s
-                            regs[t][k + span] = _lazy_shoup(x + 2 * q - y, w, ws, q)
-                        else:
-                            u = x - 2 * q if x >= 2 * q else x
-                            v = _lazy_shoup(y, w, ws, q)
-                            regs[t][k], regs[t][k + span] = u + v, u + 2 * q - v
-            done += 1
-    out = [0] * n
-    lo, bits = windows[-1]
-    for t in range(T):
-        for k in range(R):
-            x = _win_index(b, lo, bits, t, k)
-            assert x == (k * T + t if inverse else (t << b) | k)  # the stores' layout
-            r = regs[t][k]
-            if grow:
-                limit = q << n.bit_length() if inverse else (1 + 4 * done) * q
-            assert r < limit <= M64
-            if inverse:
-                r = _lazy_shoup(r, n_inv, n_inv_shoup, q)
-                r = r - q if r >= q else r
-            elif grow:  # csrc/modarith.cuh::barrett_reduce_64
-                r = (r - ((r * ((1 << 64) // q)) >> 64) * q) & M64
-                assert r < 2 * q
-                r = r - q if r >= q else r
-            else:
-                r = r - 2 * q if r >= 2 * q else r
-                r = r - q if r >= q else r
-            out[x] = r
-    return out
-
-
-@pytest.mark.parametrize(
-    "n,bits",
-    [(64, (26, 60)), (128, (36, 37)), (256, (36, 60)), (512, (30, 45)), (1024, (37, 61))],
-)
-@pytest.mark.parametrize("radix_bits", tntt.RADIX_BITS)
-def test_kernel_a_schedule_equals_plain(n, bits, radix_bits):
-    moduli = primes.coeff_modulus_from_bits(n, list(bits))
-    tables = tntt.NttTables(moduli, n, "cpu")
-    rng = np.random.default_rng(n + radix_bits)
-    x = np.stack([rng.integers(0, q, n, dtype=np.uint64) for q in moduli])[None]
-    plan = tntt.ntt_plan(n, len(moduli), radix_bits)
-    h = tables.host
-    for inverse in (False, True):
-        want = numpy_u64(tntt.ntt_plain(tables, tensor_u64(x), inverse))[0]
-        tw = h["psi_inv_rev" if inverse else "psi_rev"]
-        tws = h["psi_inv_rev_shoup" if inverse else "psi_rev_shoup"]
-        for li, q in enumerate(moduli):
-            got = replay_kernel_a(
-                plan, [int(v) for v in x[0, li]], q, [int(v) for v in tw[li]],
-                [int(v) for v in tws[li]], int(h["n_inv"][li, 0]),
-                int(h["n_inv_shoup"][li, 0]), inverse,
-                max(moduli).bit_length() <= tntt.GROW_MAX_BITS,
-            )
-            assert got == [int(v) for v in want[li]]
-
-
-# -- kernel B's plan ---------------------------------------------------------
+def test_ntt_grows_below_50_bits():
+    assert tntt.grows([0xffffee001, 0xffffc4001, 0x1ffffe0001])  # SEAL's 36/37-bit chain
+    assert tntt.grows([(1 << 50) - 27])
+    assert not tntt.grows([(1 << 36) - 1, (1 << 50) + 55])
 
 
 @pytest.mark.parametrize(
@@ -224,53 +66,32 @@ def test_kernel_a_schedule_equals_plain(n, bits, radix_bits):
 def test_scan_plan_covers_prefixes_coefficients_and_rows(P, L, N, D):
     plan = scan_kernel.scan_plan(P, L, N, D)
     g, r = plan.prefix_groups, plan.row_splits
-    assert g * r == scan_kernel.SCAN_WARPS and r >= 1 and r in (1, 2, 4, 8)
-    assert r <= D
+    assert g * r == scan_kernel.SCAN_WARPS and r in (1, 2, 4, 8)
+    assert r <= D  # every split has a row; a ragged tail where r does not divide D
     per_block = g * scan_kernel.SCAN_PREFIXES
     assert (plan.grid[0] - 1) * per_block < P <= plan.grid[0] * per_block
     tile = 32 * scan_kernel.SCAN_VEC
     assert (plan.grid[1] - 1) * tile < N <= plan.grid[1] * tile
     assert plan.grid[2] == L
-    rows = sorted(j for s in range(r) for j in plan.rows(s, D))
-    assert rows == list(range(D))  # every row once; a ragged tail where r does not divide D
 
 
-def test_scan_plan_at_the_request_shapes():
-    """The inner scan splits its rows 2 ways; the upper scan (P = 8)
-    spreads its rows over all 8 warps of a block."""
-    inner = scan_kernel.scan_plan(162, 2, 4096, 162)
-    assert (inner.row_splits, inner.grid) == (2, (21, 32, 2))
-    upper = scan_kernel.scan_plan(8, 2, 4096, 162)
-    assert (upper.prefix_groups, upper.row_splits, upper.grid) == (1, 8, (4, 32, 2))
-    # 2,048 warps: the 8-way split is the most rows a block can spread
-    assert np.prod(upper.grid) * scan_kernel.SCAN_WARPS == 2048
+@pytest.mark.parametrize(
+    "label,P,L,D,splits,grid",
+    [("K1 inner", 162, 2, 162, 2, (21, 32, 2)), ("K1 upper", 8, 2, 162, 8, (4, 32, 2)),
+     ("K5 inner", 162, 3, 162, 2, (21, 32, 3)), ("K5 upper", 12, 3, 162, 8, (6, 32, 3)),
+     ("K6 SEAL rank", 81, 1, 162, 8, (41, 32, 1)), ("K6 tpu32 rank", 162, 1, 162, 4, (41, 32, 1))],
+)
+def test_scan_plan_at_the_request_shapes(label, P, L, D, splits, grid):
+    """The inner scans split their rows 2 ways; a small contraction (the
+    upper scans, one SEAL rank of a db=2 x limb=2 mesh) over all 8 warps of
+    a block; one tpu32 limb 4 ways."""
+    plan = scan_kernel.scan_plan(P, L, 4096, D)
+    assert (plan.row_splits, plan.grid) == (splits, grid), label
+
+
+@pytest.mark.parametrize("D,splits", [(1, 1), (2, 2), (3, 2), (4, 4), (7, 4), (8, 8), (162, 8)])
+def test_scan_plan_splits_at_most_the_rows(D, splits):
+    """A small grid splits as far as its rows allow: 1, 2, 4 or 8 ways."""
+    assert scan_kernel.scan_plan(5, 2, 256, D).row_splits == splits
     with pytest.raises(ValueError, match="empty"):
-        scan_kernel.scan_plan(0, 2, 4096, 162)
-
-
-@pytest.mark.parametrize("P,D,bits", [(5, 7, (34, 36)), (3, 40, (26, 27)), (8, 21, (44, 46))])
-def test_kernel_b_row_splits_equal_plain(P, D, bits):
-    """Each row split's exact products (below 2^96, the kernel's three
-    words), over chunks of max_raw_chunk rows as contract_dim_auto cuts
-    them (16 at 46 bits), added and reduced once, equal the plain
-    contraction."""
-    moduli = primes.coeff_modulus_from_bits(256, list(bits))
-    limbs = modular.LimbConstants(moduli, "cpu")
-    n = 64
-    rng = np.random.default_rng(P * D)
-    sv = np.stack([rng.integers(0, q, (D, 2, n), dtype=np.uint64) for q in moduli], axis=2)
-    db = np.stack([rng.integers(0, q, (P, D, n), dtype=np.uint64) for q in moduli], axis=1)
-    hi, lo = scan_kernel.split_planes(tensor_u64(db), moduli)
-    want = numpy_u64(scan_kernel.contract_dim_auto(tensor_u64(sv), hi, lo, limbs))
-    chunk = scan_kernel.max_raw_chunk(moduli)
-    out = np.zeros((P, 2, len(moduli), n), dtype=object)
-    for j0 in range(0, D, chunk):
-        rows = min(chunk, D - j0)
-        plan = scan_kernel.scan_plan(P, len(moduli), n, rows)
-        for split in range(plan.row_splits):
-            for j in plan.rows(split, rows):
-                prod = sv[j0 + j][None].astype(object) * db[:, :, j0 + j][:, None].astype(object)
-                assert all(int(v) < 1 << 96 for v in prod.ravel())
-                out += prod
-    q = np.array(moduli, dtype=object)[None, None, :, None]
-    assert np.array_equal((out % q).astype(np.uint64), want)
+        scan_kernel.scan_plan(0, 2, 4096, D)
