@@ -2,7 +2,8 @@
 its plain PyTorch version, then serve SealPIR requests at the benchmark
 configuration — single and batched, on SEAL's chain and on the tpu32
 profile, on the planes and on the Shoup-table database, and on meshes of
-ranks that share the card — and check every retrieved item.
+ranks that share the card — then in ciphertext-multiplication mode and at
+the rings above N=4096, and check every retrieved item.
 
     python3 chip_smoke.py               # 2^20 items of 288 B, d=2, N=4096
 
@@ -14,13 +15,18 @@ Phases, each of which raises on failure:
 3. each kernel against its plain version on the card, bit for bit, at the
    shapes the main paths give it, with both times and the bound: A at each
    of the 22 launches of a single-query request (the per-request sums of
-   time and bound on a line of their own) and at N=256 (K3's ring); B with
-   a hi plane (K1) and without (K5, tpu32); C at S = 32 columns with a hi
-   plane (K4) and without (K4-u32), beside 16 calls of kernel B on the same
-   columns, with GB/s of database planes; B's runtime-moduli entry (K6) at
-   the shapes of one rank of the limb-sharded meshes below; D (K7) at the
-   inner scan of the Shoup-table database, on SEAL's chain and on a chain of
-   60-bit moduli (above the planes' 48 bits, where its sums fold);
+   time and bound on a line of their own) and at N=256 (K3's ring); B at a
+   2^20-item request's inner and upper scans with a hi plane (K1: SEAL's
+   chain, a u8 plane at N=4096 and a u16 plane at N=8192) and without (K5,
+   tpu32, N=4096 and 8192); C at S = 32 columns with a hi plane (K4) and
+   without (K4-u32), at N=4096 and 8192, beside 16 calls of kernel B on the
+   same columns, with GB/s of database planes; B's runtime-moduli entry
+   (K6) at the shapes of one rank of the limb-sharded meshes below; D (K7)
+   at the inner scan of the Shoup-table database at N=4096, on SEAL's chain
+   and on a chain of 60-bit moduli (above the planes' 48 bits, where its
+   sums fold), at phase 13's ct-mult inner scan (N=8192, db and companions
+   6.8 GB; the plain version a few prefixes at a time) and at N=16384
+   (a 2^20-item request's inner scan and phase 14's);
 4. a small database (N=256) served on the card and on the CPU (plain
    versions): the Response bytes must be equal, and the card's request must
    have launched kernel A (the K3 row's launches);
@@ -55,21 +61,49 @@ Phases, each of which raises on failure:
    kernel A.  Then 3 ranks (limb=3) on the tpu32 database, through K6's
    single-word variant.  The latency is of co-located ranks over gloo on
    one card, not a multi-GPU figure.  Each rank's device memory once its
-   server holds only its shard, and its peak over the build and requests.
+   server holds only its shard, and its peak over the build and requests;
+11. kernel A at the rings above N=4096 (run right after phase 3, while the
+   card holds nothing else), forward and inverse, bit-equal to its plain
+   version (tolerance 0; the plain version run a quarter GB of input at a
+   time) and timed with its bound, at the shapes a 2^20-item request gives
+   it (kernel_times.large_ring_shapes): the first and the last expansion
+   level's key-switch NTT at N=8192 (SEAL's chain), 16384 and 32768 (SEAL's
+   chains and tpu32), and one bfv_multiply's NTTs over the 60-bit BEHZ
+   base at N=8192;
+12. ciphertext-multiplication mode at the reference's own rows
+   (REFERENCE_MATRIX of tests/test_correctness.py: N=4096 d=1 and d=2,
+   N=8192 d=2): every item decoded, each reply's invariant noise budget
+   printed and > 0; the N=4096 d=2 row also served on the CPU (plain
+   versions), its Response bytes equal to the card's.  Launches of kernel
+   A's growing and reducing butterflies (the BEHZ base) and of kernel D;
+13. ciphertext-multiplication mode at real size: N=8192, SEAL's chain, the
+   bench's 24-bit t, 2^20 stamped items of 288 B, d=2 (dims 114 x 114,
+   12,946 plaintexts in NTT form + Shoup companions on the card), replies
+   mod-switched by reply_limbs_for: three requests, each decoded to its
+   stamped item, with each reply's noise budget, the warm latency and the
+   peak device memory;
+14. decomposition mode at the larger rings, every item decoded: the
+   TPU32_MATRIX N=8192 row (kernel B without a hi plane at N=8192), the same
+   database on SEAL's N=8192 chain (planes with a u16 hi plane) and on
+   SEAL's N=16384 chain (49-bit primes: the Shoup-table layout, kernel D).
 
 Bounds (pir_tpu_torch/kernel_times.py): the least time for a kernel's work
 on an H100 SXM — the larger of its bytes (each input read once, each output
 written once) at 3.35 TB/s and its 32-bit integer multiply instructions at
 16.75 T/s (the on-chip guide's 67 TFLOP/s float32 rate is 128 lanes per SM;
 Hopper has 64 INT32 lanes per SM), counted for the arithmetic the kernel
-runs (12 multiplies a butterfly of kernel A below 2^50, 16 above).  Kernel
+runs (12 multiplies a butterfly of kernel A where it grows, every modulus
+below 2^min(50, 63 - log2 N); 16 where it reduces).  Kernel
 times are device times of back-to-back launches queued behind a
 device-side sleep.  No single PyTorch
 call computes a modular contraction or a negacyclic NTT, so library_ms is
 null for every kernel.
 
 The line before the last is {"kernels": [...]}, one row per KERNEL_ROWS
-entry (every TPU kernel body of pir_tpu/ops/pallas_*.py); the last line is
+entry (every TPU kernel body of pir_tpu/ops/pallas_*.py): its launches
+summed over the served paths named in the row, its numbers from the named
+check (K3's from N=32768, the top of its range, while its launches are
+the N=256 path's: a check's launches are not counted); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero before printing any result.
 """
@@ -87,7 +121,7 @@ import numpy as np
 import torch
 
 from pir_tpu_torch import kernel_times as kt
-from pir_tpu_torch.kernel_times import chains, random_residues
+from pir_tpu_torch.kernel_times import random_residues
 
 ITEM_SIZE = 288
 DIMENSIONS = 2
@@ -113,27 +147,59 @@ class KernelRow(NamedTuple):
 # (tests/test_torch_kernel_table.py holds the table to the source).
 KERNEL_ROWS = (
     KernelRow("scan (K1)", "scan.cu", ("pir_tpu/ops/pallas_scan.py:103",),
-              (("single", "pir_scan.hi"),), "K1"),
+              (("single", "pir_scan.hi"), ("seal8192", "pir_scan.hi")), "K1"),
     KernelRow("ntt (K2)", "ntt.cu", ("pir_tpu/ops/pallas_mxu_ntt.py:252",),
-              (("single", "pir_ntt"),), "K2"),
-    KernelRow("ntt N=256 (K3)", "ntt.cu", ("pir_tpu/ops/pallas_ntt.py:147",),
-              (("small", "pir_ntt"),), "K3"),
+              (("single", "pir_ntt.grow"), ("ctmult_ref", "pir_ntt.grow"),
+               ("ctmult_ref", "pir_ntt.reduce"), ("ctmult", "pir_ntt.grow"),
+               ("ctmult", "pir_ntt.reduce"), ("tpu32_8192", "pir_ntt.grow"),
+               ("seal8192", "pir_ntt.grow"), ("seal16384", "pir_ntt.grow")), "K2"),
+    KernelRow("ntt (K3; launches of the N=256 path, numbers of the N=32768 check)", "ntt.cu",
+              ("pir_tpu/ops/pallas_ntt.py:147",),
+              (("small", "pir_ntt.grow"),), "K3"),
     KernelRow("scan_wide (K4)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:397",),
-              (("batched", "pir_scan_wide.hi"),), "K4"),
+              (("batched", "pir_scan_wide.hi"), ("seal8192", "pir_scan_wide.hi")), "K4"),
     KernelRow("scan_wide u32 (K4-u32)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:422",),
-              (("tpu32", "pir_scan_wide.u32"),), "K4-u32"),
+              (("tpu32", "pir_scan_wide.u32"), ("tpu32_8192", "pir_scan_wide.u32")), "K4-u32"),
     KernelRow("scan u32 (K5)", "scan.cu", ("pir_tpu/ops/pallas_scan.py:167",),
-              (("tpu32", "pir_scan.u32"),), "K5"),
+              (("tpu32", "pir_scan.u32"), ("tpu32_8192", "pir_scan.u32")), "K5"),
     KernelRow("scan dyn (K6)", "scan.cu",
               ("pir_tpu/ops/pallas_scan.py:204", "pir_tpu/ops/pallas_scan.py:187"),
               (("mesh", "pir_scan.hi.dyn"), ("mesh32", "pir_scan.u32.dyn")), "K6"),
     KernelRow("scan_shoup (K7)", "scan_shoup.cu", ("pir_tpu/ops/pallas_scan.py:32",),
-              (("shoup", "pir_scan_shoup"),), "K7"),
+              (("shoup", "pir_scan_shoup"), ("ctmult_ref", "pir_scan_shoup"),
+               ("ctmult", "pir_scan_shoup"), ("seal16384", "pir_scan_shoup")), "K7"),
+)
+
+# ciphertext-multiplication rows of REFERENCE_MATRIX (tests/test_correctness.py):
+# (N, plain-modulus bits, item bytes (0: a whole plaintext), bits per
+# coefficient (0: the most), items, d, indexes)
+CT_MULT_REFERENCE_ROWS = (
+    (4096, 16, 289, 10, 1200, 1, [0, 47, 777, 1199]),
+    (4096, 16, 0, 6, 500, 2, [9, 125]),
+    (8192, 42, 0, 0, 87, 2, [5, 33, 86]),
+)
+CT_MULT_CPU_ROW = 1  # the N=4096 d=2 row, served on the CPU as well
+CT_MULT_POLY_DEGREE = 8192  # phase 13: ciphertext-multiplication mode at real size
+# phase 14: TPU32_MATRIX's N=8192 row (tests/test_correctness.py) on three
+# chains and layouts: (path, N, profile, scan_impl, the variants it must launch)
+LARGE_RING_ROW = (0, 0, 87, 2, [5, 33, 86])  # item bytes, bits per coeff, items, d, indexes
+# (the 3-query requests' inner scans run kernel C, their upper scans kernel B)
+LARGE_RING_CASES = (
+    ("tpu32_8192", 8192, "tpu32", "auto", ("pir_ntt.grow", "pir_scan.u32", "pir_scan_wide.u32")),
+    ("seal8192", 8192, "seal", "pallas", ("pir_ntt.grow", "pir_scan.hi", "pir_scan_wide.hi")),
+    ("seal16384", 16384, "seal", "auto", ("pir_ntt.grow", "pir_scan_shoup")),
 )
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    """Add one run's launch counts into `total`."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
 
 
 NUMBERS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")  # of a kernels-line row
@@ -146,8 +212,8 @@ def check_ntt(device, gen) -> dict:
     of the 9 expansion levels, the selection vector, both scans' INTTs and
     the digit plaintexts), timed on the card, and at N=256 (K3's ring, the
     small database served below).  Returns the K2 headline ([648, 2, 4096]
-    forward, the selection vector) and the K3 one ([64, 3, 256] forward)."""
-    heads = {("selection vector", False): "K2", ("N=256", False): "K3"}
+    forward, the selection vector)."""
+    heads = {("selection vector", False): "K2"}
     rows = kt.time_ntt(device, gen, plain=heads)
     for r in rows:
         log(kt.ntt_line(r))
@@ -159,25 +225,39 @@ def check_ntt(device, gen) -> dict:
             for r in rows if (r["label"], r["inverse"]) in heads}
 
 
+def check_ntt_large(device, gen) -> dict:
+    """Kernel A above N=4096 (kernel_times.time_ntt_large): every shape
+    bit-equal to the plain version, forward and inverse, timed with its
+    bound.  Returns the K3 headline: N=32768's first expansion level,
+    [15, 16, 32768] forward on SEAL's chain."""
+    head = ("N=32768 seal expansion 0", False)
+    rows = kt.time_ntt_large(device, gen, plain={head})
+    for r in rows:
+        log(kt.ntt_line(r))
+    return {"K3": next({k: r[k] for k in NUMBERS} for r in rows
+                       if (r["label"], r["inverse"]) == head)}
+
+
 def planes_gb(hi, lo) -> float:
     return ((0 if hi is None else hi.numel() * hi.element_size()) + lo.numel() * 4) / 1e9
 
 
-def random_planes(chain, P, D, device, gen):
-    """(hi, lo) planes [P, L, D, N] of random residues."""
+def random_planes(chain, P, D, n, device, gen):
+    """(hi, lo) planes [P, L, D, n] of random residues."""
     from pir_tpu_torch.ops import scan_kernel
 
-    db = random_residues(chain, (P, D), POLY_DEGREE, device, gen)  # [P, D, L, N]
+    db = random_residues(chain, (P, D), n, device, gen)  # [P, D, L, n]
     return scan_kernel.split_planes(db.transpose(1, 2).contiguous(), chain)
 
 
 def check_scan(device, gen) -> dict:
     """Kernel B vs its plain version (tolerance 0) at the main paths' shapes
     (kernel_times.scan_cases): the inner and upper scans with a hi plane
-    (K1, SEAL's chain) and without (K5, tpu32), and its runtime-moduli entry
-    (K6) at one rank's shapes — limb 1 of SEAL's chain on a db=2 x limb=2
-    mesh (planes [81, 1, 162, 4096], a hi plane) and one limb of tpu32 on a
-    limb=3 mesh (no hi plane).  Returns the K1, K5 and K6 headlines."""
+    (K1, SEAL's chain) and without (K5, tpu32) at N=4096 and 8192, and its
+    runtime-moduli entry (K6) at one rank's shapes — limb 1 of SEAL's chain
+    on a db=2 x limb=2 mesh (planes [81, 1, 162, 4096], a hi plane) and one
+    limb of tpu32 on a limb=3 mesh (no hi plane).  Returns the K1, K5 and K6
+    headlines (N=4096's inner scans)."""
     heads = {"K1 inner": "K1", "K5 inner": "K5", "K6 seal rank": "K6"}
     rows = kt.time_scan(device, gen, plain=True)
     for r in rows:
@@ -186,76 +266,63 @@ def check_scan(device, gen) -> dict:
 
 
 def check_scan_wide(device, gen) -> dict:
-    """Kernel C vs its plain version at the batched inner scan's shape
-    (16 lanes: S = 32 columns; tolerance 0), with a hi plane (K4) and
-    without (K4-u32), beside 16 calls of kernel B on the same columns."""
+    """Kernel C vs its plain version at a 2^20-item batched request's inner
+    scan (16 lanes: S = 32 columns; tolerance 0), with a hi plane (K4) and
+    without (K4-u32), at N=4096 and 8192, beside 16 calls of kernel B on the
+    same columns.  Returns the N=4096 headlines."""
     from pir_tpu_torch.ops import modular, scan_kernel
 
     headline = {}
-    for profile, ep in chains().items():
+    for n, profile in ((POLY_DEGREE, "seal"), (POLY_DEGREE, "tpu32"), (8192, "seal"),
+                       (8192, "tpu32")):
+        ep = kt.encryption_params(profile, n)
         chain = ep.ct_modulus
         L = len(chain)
+        P, D = kt.request_dims(ep)
         limbs = modular.LimbConstants(chain, device)
         S = 32
-        sv = random_residues(chain, (162, S), POLY_DEGREE, device, gen)
-        hi, lo = random_planes(chain, 162, 162, device, gen)
+        sv = random_residues(chain, (D, S), n, device, gen)
+        hi, lo = random_planes(chain, P, D, n, device, gen)
         got = scan_kernel.contract_wide_cuda(sv, hi, lo, limbs)
         want = scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table)
         err = kt.max_abs_err(got, want)
         if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"kernel C differs from plain at {profile}")
+            raise AssertionError(f"kernel C differs from plain at {profile} N={n}")
         pairs = [sv[:, 2 * k : 2 * k + 2].contiguous() for k in range(S // 2)]
         for k, x in enumerate(pairs[:2]):
             if not torch.equal(scan_kernel.contract_cuda(x, hi, lo, limbs), got[:, 2 * k : 2 * k + 2]):
-                raise AssertionError(f"kernel C columns differ from kernel B at {profile}")
+                raise AssertionError(f"kernel C columns differ from kernel B at {profile} N={n}")
         ms = kt.device_ms(lambda: scan_kernel.contract_wide_cuda(sv, hi, lo, limbs), 5)
         b16_ms = kt.device_ms(lambda: [scan_kernel.contract_cuda(x, hi, lo, limbs) for x in pairs], 3)
         plain_ms = kt.device_ms(lambda: scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table), 1)
         gb = planes_gb(hi, lo)
         variant = "K4" if hi is not None else "K4-u32"
-        headline[variant] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             **kt.scan_bound(sv, hi, lo)}
-        log(f"kernel C ({variant}) {profile} sv [162,{S},{L},4096] planes [162,{L},162,4096]: "
+        numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **kt.scan_bound(sv, hi, lo)}
+        if n == POLY_DEGREE:
+            headline[variant] = numbers
+        log(f"kernel C ({variant}) {profile} sv [{D},{S},{L},{n}] planes [{P},{L},{D},{n}]: "
             f"bit-equal to plain (max_abs_err 0); kernel {ms:.4f} ms "
             f"({gb / ms * 1e3:.1f} GB/s of planes); 16 x kernel B on the same columns "
             f"{b16_ms:.4f} ms ({gb / (b16_ms / 16) * 1e3:.1f} GB/s each); plain {plain_ms:.4f} ms, "
-            f"bound {headline[variant]['bound_ms']:.4f} ms ({headline[variant]['bound_by']})")
+            f"bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
+        del sv, hi, lo, got, want, pairs
+        torch.cuda.empty_cache()
     return headline
 
 
 def check_scan_shoup(device, gen) -> dict:
-    """Kernel D (K7) vs its plain version (tolerance 0) at the inner scan of
-    the Shoup-table database: sv [162, 2, 2, 4096], db and companions
-    [162, 162, 2, 4096] — on SEAL's chain (the headline, served below), and
-    on a chain of two 60-bit moduli, which only this layout serves: its u64
-    sums fold every 8 rows, 21 times over the 162."""
-    from pir_tpu_torch.core import primes
-    from pir_tpu_torch.ops import modular, scan_kernel
-
-    headline = None
-    for label, chain in (("SEAL chain", chains()["seal"].ct_modulus),
-                         ("60-bit chain", primes.coeff_modulus_from_bits(POLY_DEGREE, [60, 60]))):
-        limbs = modular.LimbConstants(chain, device)
-        sv = random_residues(chain, (162, 2), POLY_DEGREE, device, gen)
-        db = random_residues(chain, (162, 162), POLY_DEGREE, device, gen)
-        shoup = modular.shoup_precompute_device(db, limbs.q, limbs.ratio_hi, limbs.ratio_lo)
-        got = scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs)
-        want = scan_kernel.contract_shoup_plain(sv, db, shoup, limbs)
-        err = kt.max_abs_err(got, want)
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"kernel D differs from plain at the inner scan, {label}")
-        ms = kt.device_ms(lambda: scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs), 10)
-        plain_ms = kt.device_ms(lambda: scan_kernel.contract_shoup_plain(sv, db, shoup, limbs), 2)
-        nbytes = (sv.numel() + 2 * db.numel() + got.numel()) * 8
-        numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   **kt.bound(nbytes, db.numel() * 2 * kt.MULS_SHOUP)}
-        log(f"kernel D (K7) {label} sv [162,2,2,4096] db+shoup [162,162,2,4096]: bit-equal "
-            f"to plain (max_abs_err 0); kernel {ms:.4f} ms ({nbytes / 1e9 / ms * 1e3:.1f} GB/s "
-            f"of {nbytes / 1e9:.2f} GB), plain {plain_ms:.4f} ms, bound "
-            f"{numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
-        headline = headline or numbers
-        del sv, db, shoup, got, want
-    return headline
+    """Kernel D (K7) vs its plain version (tolerance 0), timed with its
+    bound, at kernel_times.shoup_cases() — the Shoup-table inner scan at
+    N=4096 on SEAL's chain (the headline, served below) and on two 60-bit
+    moduli, phase 13's ct-mult inner scan (N=8192) and a 2^20-item inner
+    scan at N=16384 — and at phase 14's N=16384 inner scan."""
+    params = large_ring_params(16384, "seal")
+    served = ("K7 N=16384 inner, phase 14", params.encryption_params.ct_modulus,
+              *params.dimensions, 16384)
+    rows = kt.time_shoup(device, gen, cases=kt.shoup_cases() + [served], plain=True)
+    for r in rows:
+        log(kt.shoup_line(r))
+    return next({k: r[k] for k in NUMBERS} for r in rows if r["label"] == "K7 inner")
 
 
 def check_small_against_cpu(device) -> dict:
@@ -289,7 +356,7 @@ def check_small_against_cpu(device) -> dict:
         raise AssertionError("small database retrieval failed on the card")
     log(f"small database (N=256, d=2): card Response bytes == CPU Response bytes; "
         f"items retrieved; card launches {counts}")
-    require(counts, ("pir_ntt",), "N=256")
+    require(counts, ("pir_ntt.grow",), "N=256")
     return counts
 
 
@@ -338,7 +405,7 @@ def serve_bench_config(device, log2_items: int):
     log(f"request latency: first {latencies[0]:.2f} ms, then "
         f"{', '.join(f'{x:.2f}' for x in latencies[1:])} ms")
     log(f"kernel launches during the 3 requests: {counts}")
-    require(counts, ("pir_ntt", "pir_scan.hi"), "single-query")
+    require(counts, ("pir_ntt.grow", "pir_scan.hi"), "single-query")
     return counts, params, client, raw
 
 
@@ -497,7 +564,7 @@ def serve_shoup(device, params, client, items, planes_server) -> dict:
     log(f"Shoup-table layout: 3/3 requests at {indexes} byte-equal to the planes "
         f"database's and retrieved; latency {', '.join(f'{x:.2f}' for x in latencies)} ms; "
         f"launches {counts}")
-    require(counts, ("pir_ntt", "pir_scan_shoup"), "Shoup-table")
+    require(counts, ("pir_ntt.grow", "pir_scan_shoup"), "Shoup-table")
     del server, db
     torch.cuda.empty_cache()
     return counts
@@ -534,8 +601,7 @@ def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, l
         got = res[label]
         if not res["replicate_ok"] or any(r != want for r in got["responses"]):
             raise AssertionError(f"{label} mesh: rank {rank}'s Response differs from single-device")
-        for k, v in got["counts"][-1].items():
-            counts[k] = counts.get(k, 0) + v
+        add_counts(counts, got["counts"][-1])
     check_items(client, indexes, pb.Response.FromString(want), items, f"{label} mesh")
     first = [res[label]["ms"][0] for res in results]
     warm = [res[label]["ms"][1] for res in results]
@@ -550,6 +616,168 @@ def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, l
         f"the build and the requests [{peak}] MiB; job {total_s:.2f} s with the ranks' "
         f"database builds")
     return counts
+
+
+def seeded_items(count: int, size: int, seed: int = DB_SEED) -> list:
+    """`count` random items of `size` bytes (pir_tpu.testing.fixtures.
+    generate_test_db's, the reference test matrices' data)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=size, dtype=np.uint8).tobytes() for _ in range(count)]
+
+
+def reply_budgets(client, response) -> list:
+    """Each reply's invariant noise budget in bits (the least over its
+    ciphertexts), read with the client's secret key."""
+    from pir_tpu_torch.bfv.encrypt import invariant_noise_budget
+    from pir_tpu_torch.ops.modular import tensor_u64
+    from pir_tpu_torch.pir import wire
+
+    budgets = []
+    for reply in response.reply:
+        cts = wire.load_ciphertexts(reply, client.ctx)
+        budgets.append(min(invariant_noise_budget(client.ctx, client.sk,
+                                                  tensor_u64(ct, client.ctx.device))
+                           for ct in cts))
+    if min(budgets) <= 0:
+        raise AssertionError(f"a reply has no noise budget left: {budgets}")
+    return budgets
+
+
+def serve_ctmult_reference(device) -> dict:
+    """Ciphertext-multiplication mode at the reference's rows
+    (CT_MULT_REFERENCE_ROWS), each on the card with the reference tests'
+    data and client seed; the N=4096 d=2 row on the CPU too, byte-equal.
+    Returns the launch counts summed over the rows."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels
+
+    total = {}
+    for i, (n, t_bits, elem, bpc, dbsize, d, indexes) in enumerate(CT_MULT_REFERENCE_ROWS):
+        params = pt.create_pir_parameters(
+            dbsize, elem, d, pt.generate_encryption_params(n, t_bits),
+            use_ciphertext_multiplication=True, bits_per_coeff=bpc,
+        )
+        label = f"ct-mult N={n} t={t_bits} bits d={d} {dbsize} items"
+        raw = seeded_items(params.num_items, params.bytes_per_item)
+        client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device=device)
+        request = client.create_request(indexes)
+        server = pt.PirServer(pt.PirDatabase.create(raw, params, device=device), params)
+        kernels.reset_launch_counts()
+        response, ms = timed(lambda: server.process_request(request))
+        counts = kernels.variant_launch_counts()
+        check_items(client, indexes, response, raw, label)
+        budgets = reply_budgets(client, response)
+        same = ""
+        if i == CT_MULT_CPU_ROW:
+            cpu = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params)
+            if cpu.process_request(request).SerializeToString() != response.SerializeToString():
+                raise AssertionError(f"{label}: card and CPU Responses differ")
+            same = "; Response bytes equal to the CPU server's (plain versions)"
+        log(f"{label}, dims {params.dimensions}: {len(indexes)} queries in {ms:.2f} ms, every "
+            f"item retrieved; noise budgets {budgets} bits{same}; launches {counts}")
+        require(counts, ("pir_ntt.grow", "pir_scan_shoup") + (("pir_ntt.reduce",) if d > 1 else ()),
+                label)
+        add_counts(total, counts)
+    return total
+
+
+def serve_ctmult_full(device) -> dict:
+    """Ciphertext-multiplication mode at real size: 2^20 stamped items of
+    288 B, d=2, N=8192, SEAL's chain, the bench's t, replies mod-switched by
+    reply_limbs_for; three requests.  Returns their launch counts."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels
+
+    db_size = 1 << LOG2_ITEMS
+    params = pt.create_pir_parameters(
+        db_size, ITEM_SIZE, DIMENSIONS,
+        pt.generate_encryption_params(CT_MULT_POLY_DEGREE, PLAIN_BITS),
+        use_ciphertext_multiplication=True,
+    )
+    rng = np.random.default_rng(DB_SEED)
+    pool = [rng.integers(0, 256, ITEM_SIZE, dtype=np.uint8).tobytes() for _ in range(POOL_ITEMS)]
+    items = stamped_items([pool[i % POOL_ITEMS] for i in range(db_size)])
+    t0 = time.perf_counter()
+    db = pt.PirDatabase.create(items, params, device=device)
+    torch.cuda.synchronize()
+    gb = (db.db_ntt.numel() + db.db_ntt_shoup.numel()) * 8 / 1e9
+    log(f"ct-mult database: {db_size} stamped items of {ITEM_SIZE} B, N={CT_MULT_POLY_DEGREE}, "
+        f"ct moduli {[q.bit_length() for q in params.encryption_params.ct_modulus]} bits, dims "
+        f"{params.dimensions}, {params.num_pt} plaintexts; db_ntt + db_ntt_shoup {gb:.2f} GB on "
+        f"{device}, built in {time.perf_counter() - t0:.2f} s")
+    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device=device)
+    reply_limbs = pt.reply_limbs_for(params)
+    server = pt.PirServer(db, params, reply_limbs=reply_limbs)
+    indexes = [db_size // 3, 7, db_size - 1]
+    requests = [client.create_request([i]) for i in indexes]
+    torch.cuda.synchronize()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    responses, latencies = [], []
+    for req in requests:
+        resp, ms = timed(lambda: server.process_request(req))
+        responses.append(resp)
+        latencies.append(ms)
+    counts = kernels.variant_launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    budgets = []
+    for idx, resp in zip(indexes, responses):
+        check_items(client, [idx], resp, items, "ct-mult at 2^20 items")
+        budgets += reply_budgets(client, resp)
+    log(f"ct-mult at 2^20 items: 3/3 requests at {indexes} retrieved their stamped item; "
+        f"replies mod-switched to {reply_limbs} limb(s), noise budgets {budgets} bits; latency "
+        f"first {latencies[0]:.2f} ms, warm {', '.join(f'{x:.2f}' for x in latencies[1:])} ms; "
+        f"peak device memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the "
+        f"{base_mb:.1f} MiB held); launches {counts}")
+    require(counts, ("pir_ntt.grow", "pir_ntt.reduce", "pir_scan_shoup"), "ct-mult at 2^20 items")
+    del server, db
+    torch.cuda.empty_cache()
+    return counts
+
+
+def large_ring_params(n: int, profile: str):
+    """LARGE_RING_ROW's PirParams at ring n under `profile`."""
+    import pir_tpu_torch as pt
+
+    elem, bpc, dbsize, d, _ = LARGE_RING_ROW
+    return pt.create_pir_parameters(
+        dbsize, elem, d, pt.generate_encryption_params(n, PLAIN_BITS, profile=profile),
+        bits_per_coeff=bpc,
+    )
+
+
+def serve_large_rings(device) -> dict:
+    """Decomposition mode above N=4096 (LARGE_RING_CASES), every item
+    decoded.  Returns each case's launch counts by its path name."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels
+
+    *_, indexes = LARGE_RING_ROW
+    paths = {}
+    for path, n, profile, scan_impl, variants in LARGE_RING_CASES:
+        params = large_ring_params(n, profile)
+        raw = seeded_items(params.num_items, params.bytes_per_item)
+        db = pt.PirDatabase.create(raw, params, scan_impl=scan_impl, device=device)
+        layout = ("Shoup table" if not db._use_planes else "planes, hi plane "
+                  + ("none" if db.db_planes[0] is None else str(db.db_planes[0].dtype)))
+        client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device=device)
+        request = client.create_request(indexes)
+        server = pt.PirServer(db, params)
+        kernels.reset_launch_counts()
+        response, ms = timed(lambda: server.process_request(request))
+        counts = kernels.variant_launch_counts()
+        check_items(client, indexes, response, raw, path)
+        budgets = reply_budgets(client, response)
+        log(f"decomposition N={n} {profile} ({layout}), d={len(params.dimensions)}, "
+            f"{params.num_items} items, dims "
+            f"{params.dimensions}: {len(indexes)} queries in {ms:.2f} ms, every item retrieved; "
+            f"noise budgets {budgets} bits; launches {counts}")
+        require(counts, variants, path)
+        paths[path] = counts
+        del server, db
+    torch.cuda.empty_cache()
+    return paths
 
 
 def build_kernels() -> None:
@@ -596,28 +824,38 @@ def main() -> int:
     scan = check_scan(device, gen)
     wide = check_scan_wide(device, gen)
     shoup = check_scan_shoup(device, gen)
+    ntt_large = check_ntt_large(device, gen)
     small = check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
     server, stamped = check_full_size_indexing(device, params, client, raw)
     del raw
     indexes = [(k * 58271 + 5) % len(stamped) for k in range(BATCH_QUERIES - 1)] + [len(stamped) - 1]
     batched = serve_batched(server, client, stamped, indexes, "SEAL chain")
-    require(batched, ("pir_ntt", "pir_scan_wide.hi", "pir_scan.hi"), "batched")
+    require(batched, ("pir_ntt.grow", "pir_scan_wide.hi", "pir_scan.hi"), "batched")
     shoup_counts = serve_shoup(device, params, client, stamped, server)
     mesh = serve_mesh(device, "SEAL chain", params, client, stamped, server.db,
                       [len(stamped) // 5, len(stamped) - 3], n_db=2, batch=1, limb=2)
-    require(mesh, ("pir_ntt", "pir_scan.hi.dyn"), "SEAL-chain mesh")
+    require(mesh, ("pir_ntt.grow", "pir_scan.hi.dyn"), "SEAL-chain mesh")
     del server, stamped
     torch.cuda.empty_cache()
     tpu32, (params32, db32, client32, items32) = serve_tpu32(device)
-    require(tpu32, ("pir_ntt", "pir_scan_wide.u32", "pir_scan.u32"), "tpu32")
+    require(tpu32, ("pir_ntt.grow", "pir_scan_wide.u32", "pir_scan.u32"), "tpu32")
     mesh32 = serve_mesh(device, "tpu32", params32, client32, items32, db32,
                         [17, len(items32) - 5], n_db=1, batch=1, limb=3)
-    require(mesh32, ("pir_ntt", "pir_scan.u32.dyn"), "tpu32 mesh")
+    require(mesh32, ("pir_ntt.grow", "pir_scan.u32.dyn"), "tpu32 mesh")
+    del db32, items32
+    torch.cuda.empty_cache()
+    ctmult_ref = serve_ctmult_reference(device)
+    ctmult = serve_ctmult_full(device)
+    large = serve_large_rings(device)
 
     paths = {"single": single, "small": small, "batched": batched, "tpu32": tpu32,
-             "mesh": mesh, "mesh32": mesh32, "shoup": shoup_counts}
-    checks = {**scan, **ntt, **wide, "K7": shoup}
+             "mesh": mesh, "mesh32": mesh32, "shoup": shoup_counts,
+             "ctmult_ref": ctmult_ref, "ctmult": ctmult, **large}
+    checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup}
+    for row in KERNEL_ROWS:  # every (path, variant) a row counts was launched
+        for path, variant in row.launches:
+            require(paths[path], (variant,), path)
     print(json.dumps({"kernels": [
         {"name": row.name, "route": "cuda", "source": "pir_tpu_torch/csrc/" + row.source,
          "replaces": ", ".join(row.replaces),

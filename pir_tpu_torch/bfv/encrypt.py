@@ -108,3 +108,23 @@ def decrypt(ctx: PirContext, sk: SecretKey, ct: torch.Tensor) -> np.ndarray:
     q = ctx.q_prod(ct.shape[-2])
     t = ctx.t
     return np.asarray(((t * coeffs + (q >> 1)) // q) % t, dtype=np.uint64)
+
+
+def invariant_noise_budget(ctx: PirContext, sk: SecretKey, ct: torch.Tensor) -> int:
+    """Bits of noise budget left: floor(log2(q / (2·|t·phase mod q|_∞))).
+
+    Semantics of seal::Decryptor::invariant_noise_budget as used by the
+    reference's noise probe (pir/cpp/database.cpp:260-270), at the
+    ciphertext's own level (a mod-switched reply at its reduced q').  0
+    means the ciphertext no longer decrypts reliably.
+    """
+    phase = _phase(ctx, sk, ct)
+    q = ctx.q_prod(ct.shape[-2])
+    r = (ctx.t * np.array(ctx.crt_lift(phase), dtype=object)) % q
+    vmax = int(np.minimum(r, q - r).max())
+    if vmax == 0:
+        return q.bit_length()
+    ratio = q // (2 * vmax)
+    if ratio == 0:
+        return 0
+    return ratio.bit_length() - 1

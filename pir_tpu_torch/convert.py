@@ -27,12 +27,19 @@ def galois_keys_from_numpy(keys: dict, device=None) -> "dict[int, torch.Tensor]"
     return {int(e): tensor_u64(np.asarray(v), device) for e, v in keys.items()}
 
 
+def relin_key_from_numpy(key, device=None) -> torch.Tensor:
+    """u64[L, 2, Lp, N] (``pir_tpu``'s ``RelinKeys.key.data``) -> the int64
+    tensor ``ops.keyswitch.relinearize``, ``ops.scan.database_scan_ctmult``
+    and ``PirServer.process_query`` take."""
+    return tensor_u64(np.asarray(key), device)
+
+
 def database_from_plaintexts(
     params: PirParams, db_pts_u64: np.ndarray, device=None, scan_impl: str = "auto"
 ) -> PirDatabase:
     """A PirDatabase from already-encoded plaintexts u64[num_pt, N]
     (e.g. ``pir_tpu.PirDatabase.db_pts``), on `device` (the card by
-    default)."""
+    default), in either mode of `params`."""
     pts = np.asarray(db_pts_u64, dtype=np.uint64)
     if pts.shape != (params.num_pt, params.encryption_params.poly_modulus_degree):
         raise ValueError(f"plaintexts of shape {pts.shape} do not match params")

@@ -1,18 +1,21 @@
-"""Device times of kernels A (NTT) and B (scan) at the shapes one
-single-query request at the bench configuration gives them (2^20 items of
-288 B, d=2, N=4096, SEAL's chain; the tpu32 profile and one rank of the
-meshes for kernel B's other cases), each checked bit-equal to its plain
-version first.  ``chip_smoke.py`` makes its checks of both kernels through
-:func:`time_ntt` and :func:`time_scan`.
+"""Device times of kernels A (NTT), B (scan) and D (Shoup-table scan) at
+the shapes one single-query request at the bench configuration gives them
+(2^20 items of 288 B, d=2, N=4096, SEAL's chain; the tpu32 profile and one
+rank of the meshes for kernel B's other cases), and at the rings above
+N=4096 (:func:`large_ring_shapes`, :func:`scan_cases`,
+:func:`shoup_cases`), each checked bit-equal to its plain version first.
+``chip_smoke.py`` makes its checks of the three kernels through
+:func:`time_ntt`, :func:`time_ntt_large`, :func:`time_scan` and
+:func:`time_shoup`.
 
     python3 pir_tpu_torch/kernel_times.py --out chiprun_out/times.json
     python3 pir_tpu_torch/kernel_times.py --root build/parent --label parent
 
-``--root`` imports ``pir_tpu_torch`` from another checkout (an older tree
-unpacked with ``git archive``), so that two designs are timed by the same
-code on one card in one run.  Times come from CUDA events around `reps`
-back-to-back launches queued behind ``torch.cuda._sleep``, so they are the
-card's time, not the host's time to launch.  The last line of output is
+``--root`` imports ``pir_tpu_torch`` from another checkout with the same
+entry points (a tree unpacked with ``git archive``), so that two designs are
+timed by the same code on one card in one run.  Times come from CUDA events
+around `reps` back-to-back launches queued behind ``torch.cuda._sleep``, so
+they are the card's time, not the host's time to launch.  The last line of output is
 the JSON result.
 """
 
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -34,6 +38,8 @@ MULS_48BIT = 8   # per product with a hi plane (kernel B's three-word sum)
 MULS_32BIT = 3   # without
 POLY_DEGREE = 4096
 PLAIN_BITS = 24
+ITEMS, ITEM_BYTES, DIMS = 1 << 20, 288, 2  # the request the large rings' shapes come from
+PLAIN_CHUNK_BYTES = 256 << 20  # the plain version compares this much input at a time
 
 
 def ntt_request_shapes() -> "list[tuple[str, str, int, bool]]":
@@ -113,11 +119,25 @@ def random_residues(moduli, shape_before, n, device, gen):
     return torch.cat(cols, dim=-2)
 
 
-def chains():
+def encryption_params(profile: str = "seal", n: int = POLY_DEGREE):
+    """SEAL's BFVDefault chain or tpu32's at ring n, with the bench's t."""
     from pir_tpu_torch.core.params import generate_encryption_params
 
-    return {"seal": generate_encryption_params(POLY_DEGREE, PLAIN_BITS),
-            "tpu32": generate_encryption_params(POLY_DEGREE, PLAIN_BITS, profile="tpu32")}
+    return generate_encryption_params(n, PLAIN_BITS, profile=profile)
+
+
+def request_dims(ep, ct_mult: bool = False) -> "tuple[int, ...]":
+    """The hypercube of the 2^20-item request under these parameters."""
+    from pir_tpu_torch.core.params import create_pir_parameters
+
+    return create_pir_parameters(ITEMS, ITEM_BYTES, DIMS, ep,
+                                 use_ciphertext_multiplication=ct_mult).dimensions
+
+
+def expansion_ratio(ep) -> int:
+    """Digit plaintexts per ciphertext polynomial (ops.decompose's rule)."""
+    bits = ep.plain_modulus.bit_length() - 1
+    return sum(math.ceil(math.log2(q) / bits) for q in ep.ct_modulus)
 
 
 def time_ntt(device, gen, plain=(), reps: int = 50) -> "list[dict]":
@@ -125,12 +145,9 @@ def time_ntt(device, gen, plain=(), reps: int = 50) -> "list[dict]":
     to plain and undone exactly by the opposite transform, then timed; the
     plain version is timed too at the (label, inverse) pairs in `plain`."""
     from pir_tpu_torch.core import primes
-    from pir_tpu_torch.ops import ntt as ntt_mod
-    from pir_tpu_torch.ops.ntt import NttTables, ntt_cuda, ntt_plain
+    from pir_tpu_torch.ops.ntt import NttTables, grows, ntt_cuda, ntt_plain
 
-    # a tree from before the growing butterflies reduces at every stage
-    grows = getattr(ntt_mod, "grows", lambda moduli: False)
-    chain = chains()["seal"].coeff_modulus
+    chain = encryption_params().coeff_modulus
     tables = {"qp": NttTables(chain, POLY_DEGREE, device)}
     tables["q"] = tables["qp"].slice(2)
     tables["small"] = NttTables(primes.coeff_modulus_from_bits(256, [34, 36, 37]), 256, device)
@@ -147,10 +164,97 @@ def time_ntt(device, gen, plain=(), reps: int = 50) -> "list[dict]":
             raise AssertionError(f"kernel A's round trip fails at {label} {tuple(x.shape)}")
         row = {"label": label, "shape": list(x.shape), "inverse": inverse,
                "max_abs_err": err, "ms": device_ms(lambda: ntt_cuda(t, x, inverse), reps),
-               **ntt_bound(x, t.n, len(t.moduli), grows(t.moduli))}
+               **ntt_bound(x, t.n, len(t.moduli), grows(t.moduli, t.n))}
         if (label, inverse) in plain:
             row["plain_ms"] = device_ms(lambda: ntt_plain(t, x, inverse), 3)
         rows.append(row)
+    return rows
+
+
+def large_ring_shapes() -> "list[tuple[str, str, int, int]]":
+    """(label, tables key, batch, n) of kernel A's launches at the rings
+    above N=4096, from a request at each ring and chain serving 2^20 items
+    of 288 B, d=2, t of 24 bits: the first and the last expansion level's
+    key-switch NTT [2^j L, Lp, N] over QP; at N=8192 also one
+    bfv_multiply's Bsk forward NTT (the lift of a level's 114 ciphertexts,
+    [228, 5, N]) and inverse (the tensor product, [342, 5, N])."""
+    from pir_tpu_torch.utils.math import ceil_log2
+
+    shapes = []
+    for n in (8192, 16384, 32768):
+        for profile in ("seal", "tpu32"):
+            if n == 8192 and profile == "tpu32":
+                continue
+            ep = encryption_params(profile, n)
+            levels = ceil_log2(min(sum(request_dims(ep)), n))
+            L = len(ep.ct_modulus)
+            for j in (0, levels - 1):
+                shapes.append((f"N={n} {profile} expansion {j}", f"{n} {profile}", (1 << j) * L, n))
+    dim = request_dims(encryption_params("seal", 8192))[0]
+    shapes += [("N=8192 Bsk lift", "8192 bsk", 2 * dim, 8192),
+               ("N=8192 Bsk product", "8192 bsk", 3 * dim, 8192)]
+    return shapes
+
+
+def large_ring_tables(device) -> dict:
+    """NttTables of large_ring_shapes()'s keys: each ring's QP chain, and the
+    BEHZ base of SEAL's N=8192 chain."""
+    from pir_tpu_torch.core.rns import RnsTool
+    from pir_tpu_torch.ops.ntt import NttTables
+
+    tables = {}
+    for key in sorted({key for _, key, _, _ in large_ring_shapes()}):
+        n, chain = key.split()
+        n = int(n)
+        if chain == "bsk":
+            ep = encryption_params("seal", n)
+            tables[key] = RnsTool(ep.ct_modulus, n, ep.plain_modulus, device=device).ntt_bsk
+        else:
+            tables[key] = NttTables(encryption_params(chain, n).coeff_modulus, n, device)
+    return tables
+
+
+def max_abs_err_plain(tables, x, got, inverse: bool) -> int:
+    """max |got - ntt_plain(x)|, the plain version run on PLAIN_CHUNK_BYTES
+    of the input at a time (the whole of a large shape's temporaries would
+    not fit the card)."""
+    from pir_tpu_torch.ops.ntt import ntt_plain
+
+    step = max(1, PLAIN_CHUNK_BYTES // (x[0].numel() * 8))
+    return max(max_abs_err(got[i : i + step], ntt_plain(tables, x[i : i + step], inverse))
+               for i in range(0, x.shape[0], step))
+
+
+def time_ntt_large(device, gen, plain=(), reps: int = 20) -> "list[dict]":
+    """Kernel A at large_ring_shapes(), forward and inverse: bit-equal to
+    the plain version, then timed (the plain version too at the (label,
+    inverse) pairs in `plain`, on the whole shape)."""
+    import torch
+
+    from pir_tpu_torch.ops.ntt import grows, ntt_cuda, ntt_plain
+
+    tables = large_ring_tables(device)
+    rows = []
+    for label, key, batch, n in large_ring_shapes():
+        t = tables[key]
+        x = random_residues(t.moduli, (batch,), n, device, gen)
+        for inverse in (False, True):
+            got = ntt_cuda(t, x, inverse)
+            err = max_abs_err_plain(t, x, got, inverse)
+            if err:
+                raise AssertionError(f"kernel A differs from plain at {label} {tuple(x.shape)}: {err}")
+            del got
+            big = x.numel() * 8 > PLAIN_CHUNK_BYTES
+            grow = grows(t.moduli, n)
+            row = {"label": label, "shape": list(x.shape), "inverse": inverse,
+                   "max_abs_err": err, "grow": grow,
+                   "ms": device_ms(lambda: ntt_cuda(t, x, inverse), 3 if big else reps),
+                   **ntt_bound(x, n, len(t.moduli), grow)}
+            if (label, inverse) in plain:
+                row["plain_ms"] = device_ms(lambda: ntt_plain(t, x, inverse), 1)
+            rows.append(row)
+        del x
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -161,27 +265,41 @@ def request_sums(ntt_rows) -> "tuple[float, float]":
 
 
 def scan_cases():
-    """(label, profile, limb or None, P, D) of kernel B's main-path shapes."""
-    return [("K1 inner", "seal", None, 162, 162), ("K1 upper", "seal", None, 8, 162),
-            ("K5 inner", "tpu32", None, 162, 162), ("K5 upper", "tpu32", None, 12, 162),
-            ("K6 seal rank", "seal", 1, 81, 162), ("K6 tpu32 rank", "tpu32", 2, 162, 162)]
+    """(label, profile, limb or None, P, D, n) of kernel B's main-path
+    shapes: a single-query 2^20-item request's inner scan (P = D_0 prefixes
+    over D = D_1 rows) and upper scan (P = 2·ER digit plaintexts over D_0
+    rows) with a hi plane (K1: SEAL's chain, a u8 plane at N=4096, u16 at
+    N=8192's 43/44-bit moduli) and without (K5: tpu32) at N=4096 and 8192,
+    and one rank's shapes of each limb-sharded mesh at N=4096 (K6: limb 1
+    of SEAL's chain on db=2 x limb=2, one limb of tpu32 on limb=3)."""
+    cases = []
+    for n in (POLY_DEGREE, 8192):
+        ring = "" if n == POLY_DEGREE else f" N={n}"
+        for kernel, profile in (("K1", "seal"), ("K5", "tpu32")):
+            ep = encryption_params(profile, n)
+            d0, d1 = request_dims(ep)
+            cases += [(f"{kernel}{ring} inner", profile, None, d0, d1, n),
+                      (f"{kernel}{ring} upper", profile, None, 2 * expansion_ratio(ep), d0, n)]
+    d0, d1 = request_dims(encryption_params())
+    return cases + [("K6 seal rank", "seal", 1, d0 // 2, d1, POLY_DEGREE),
+                    ("K6 tpu32 rank", "tpu32", 2, d0, d1, POLY_DEGREE)]
 
 
 def time_scan(device, gen, plain: bool = False, reps: int = 20) -> "list[dict]":
-    """Kernel B at the single-query scans (K1 with a hi plane, K5 without)
-    and at one rank's shapes of the limb-sharded meshes (K6), bit-equal to
-    plain, then timed (the plain version too where `plain`)."""
+    """Kernel B at scan_cases(): the single-query scans (K1 with a hi plane,
+    K5 without) and one rank's shapes of the limb-sharded meshes (K6),
+    bit-equal to plain, then timed (the plain version too where `plain`)."""
     from pir_tpu_torch.ops import modular, scan_kernel
 
     rows = []
-    for label, profile, limb, P, D in scan_cases():
-        chain = chains()[profile].ct_modulus
+    for label, profile, limb, P, D, n in scan_cases():
+        chain = encryption_params(profile, n).ct_modulus
         bits = max(q.bit_length() for q in chain)
         limbs = modular.LimbConstants(chain, device)
         if limb is not None:
             limbs = limbs.limb_range(limb, limb + 1)
-        sv = random_residues(limbs.moduli, (D, 2), POLY_DEGREE, device, gen)
-        db = random_residues(limbs.moduli, (P, D), POLY_DEGREE, device, gen)
+        sv = random_residues(limbs.moduli, (D, 2), n, device, gen)
+        db = random_residues(limbs.moduli, (P, D), n, device, gen)
         hi, lo = scan_kernel.split_planes(db.transpose(1, 2).contiguous(), bits=bits)
         del db
         if limb is None:
@@ -207,9 +325,74 @@ def time_scan(device, gen, plain: bool = False, reps: int = 20) -> "list[dict]":
     return rows
 
 
+def shoup_cases() -> "list[tuple[str, tuple, int, int, int]]":
+    """(label, moduli, P, D, n) of kernel D's main-path shapes, each a
+    2^20-item single-query request's inner scan of the Shoup-table
+    database (P = D_0 prefixes over D = D_1 rows): N=4096 on SEAL's chain
+    and on two 60-bit moduli (only this layout serves them: its u64 sums
+    fold every 8 rows); ciphertext-multiplication mode at N=8192 (SEAL's
+    43/44-bit chain, db and companions 6.8 GB); decomposition at N=16384
+    (SEAL's 48/49-bit chain, above the planes' 48 bits)."""
+    from pir_tpu_torch.core import primes
+
+    seal = encryption_params()
+    ct8192 = encryption_params("seal", 8192)
+    seal16384 = encryption_params("seal", 16384)
+    return [("K7 inner", seal.ct_modulus, *request_dims(seal), POLY_DEGREE),
+            ("K7 60-bit inner", tuple(primes.coeff_modulus_from_bits(POLY_DEGREE, [60, 60])),
+             *request_dims(seal), POLY_DEGREE),
+            ("K7 N=8192 ct-mult inner", ct8192.ct_modulus, *request_dims(ct8192, True), 8192),
+            ("K7 N=16384 inner", seal16384.ct_modulus, *request_dims(seal16384), 16384)]
+
+
+def shoup_bound(sv, db, out) -> dict:
+    """sv, db, its companions and the output each moved once; one Shoup
+    product per (prefix, row, size, limb, coefficient)."""
+    return bound((sv.numel() + 2 * db.numel() + out.numel()) * 8,
+                 db.numel() * sv.shape[1] * MULS_SHOUP)
+
+
+def time_shoup(device, gen, cases=None, plain: bool = False, reps: int = 10) -> "list[dict]":
+    """Kernel D at `cases` (default shoup_cases()), sv [D, 2, L, N] against
+    db and companions [P, D, L, N]: bit-equal to plain, then timed (the
+    plain version too where `plain`)."""
+    import torch
+
+    from pir_tpu_torch.ops import modular, scan_kernel
+
+    rows = []
+    for label, moduli, P, D, n in cases if cases is not None else shoup_cases():
+        limbs = modular.LimbConstants(moduli, device)
+        sv = random_residues(moduli, (D, 2), n, device, gen)
+        db = random_residues(moduli, (P, D), n, device, gen)
+        shoup = torch.empty_like(db)
+        step = max(1, PLAIN_CHUNK_BYTES // (db[0].numel() * 8))  # its temporaries: a few prefixes
+        for i in range(0, P, step):
+            shoup[i : i + step] = modular.shoup_precompute_device(
+                db[i : i + step], limbs.q, limbs.ratio_hi, limbs.ratio_lo)
+        got = scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs)
+        err = max_abs_err(got, scan_kernel.contract_shoup_plain(sv, db, shoup, limbs))
+        if err:
+            raise AssertionError(f"kernel D differs from plain at {label}: {err}")
+        gb = (sv.numel() + 2 * db.numel() + got.numel()) * 8 / 1e9
+        ms = device_ms(lambda: scan_kernel.contract_shoup_cuda(sv, db, shoup, limbs), reps)
+        row = {"label": label, "sv": list(sv.shape), "db": list(db.shape),
+               "bits": max(int(q).bit_length() for q in moduli), "max_abs_err": err,
+               "ms": ms, "gb_per_s": gb / ms * 1e3, **shoup_bound(sv, db, got)}
+        if plain:
+            row["plain_ms"] = device_ms(
+                lambda: scan_kernel.contract_shoup_plain(sv, db, shoup, limbs), 1)
+        rows.append(row)
+        del sv, db, shoup, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ntt_line(r) -> str:
-    return (f"kernel A {r['label']} {r['shape']} {'inverse' if r['inverse'] else 'forward'}: "
-            f"bit-equal to plain (max_abs_err {r['max_abs_err']}), round trip exact; "
+    checks = "bit-equal to plain" + ("" if "grow" in r else ", round trip exact")
+    butterflies = "" if "grow" not in r else (" (growing)" if r["grow"] else " (reducing)")
+    return (f"kernel A {r['label']} {r['shape']} {'inverse' if r['inverse'] else 'forward'}"
+            f"{butterflies}: {checks} (max_abs_err {r['max_abs_err']}); "
             f"{r['ms']:.4f} ms" + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
@@ -218,6 +401,14 @@ def scan_line(r) -> str:
     return (f"kernel B {r['label']} sv {r['sv']} planes {r['planes']} (hi plane {r['hi_plane']}): "
             f"bit-equal to plain (max_abs_err {r['max_abs_err']}); {r['ms']:.4f} ms "
             f"({r['planes_gb_per_s']:.1f} GB/s of planes)"
+            + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def shoup_line(r) -> str:
+    return (f"kernel D {r['label']} sv {r['sv']} db+shoup {r['db']} ({r['bits']}-bit moduli): "
+            f"bit-equal to plain (max_abs_err {r['max_abs_err']}); {r['ms']:.4f} ms "
+            f"({r['gb_per_s']:.1f} GB/s)"
             + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
@@ -246,18 +437,21 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     from pir_tpu_torch import kernels
 
-    for k in (kernels.NTT, kernels.SCAN):
+    for k in (kernels.NTT, kernels.SCAN, kernels.SCAN_SHOUP):
         k.lib()
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[{args.label}] {k.name} ptxas: {line.strip()}", flush=True)
     ntt = time_ntt(device, gen)
+    large = time_ntt_large(device, gen)
     scan = time_scan(device, gen)
+    shoup = time_shoup(device, gen)
     request_ms, request_bound_ms = request_sums(ntt)
     result = {"label": args.label, "package": pir_tpu_torch.__file__, "card": card,
-              "ntt": ntt, "scan": scan,
+              "ntt": ntt, "ntt_large": large, "scan": scan, "shoup": shoup,
               "ntt_request_ms": request_ms, "ntt_request_bound_ms": request_bound_ms}
-    for line in [ntt_line(r) for r in ntt] + [scan_line(r) for r in scan]:
+    for line in ([ntt_line(r) for r in ntt + large] + [scan_line(r) for r in scan]
+                 + [shoup_line(r) for r in shoup]):
         print(f"[{args.label}] {line}", flush=True)
     print(f"[{args.label}] kernel A over one request's 22 launches: "
           f"{request_ms:.4f} ms (bound {request_bound_ms:.4f}); {card}")

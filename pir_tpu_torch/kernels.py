@@ -11,7 +11,8 @@ Every C entry point launches on the stream it is handed and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises when that is not 0
 and otherwise adds one to the kernel's ``launches`` count and to the count
 of the variant it launched (``entry_point.variant``, e.g. ``pir_scan.u32``,
-or ``pir_scan.hi.dyn`` for the runtime-moduli entry of a limb-sharded mesh)
+``pir_scan.hi.dyn`` for the runtime-moduli entry of a limb-sharded mesh, or
+``pir_ntt.grow`` / ``pir_ntt.reduce`` for kernel A's two butterflies)
 — the counts a run reads to show that its main path went through each
 kernel and each of its variants.
 """
@@ -140,12 +141,12 @@ def stream_handle(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# in, out, batch, limbs, log_n, inverse, radix_bits, polys_per_block, blocks,
-# grow, tw, tw_shoup, consts, n_inv, n_inv_shoup, stream
-NTT = CudaKernel(
-    "ntt", "ntt.cu",
-    {"pir_ntt": [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I64, _I32, _P, _P, _P, _P, _P, _P]},
-)
+# in, out, scratch, batch, limbs, log_n, inverse, radix_bits, polys_per_block,
+# blocks, top_bits, top_threads, top_blocks, grow, tw, tw_shoup, consts,
+# n_inv, n_inv_shoup, stream
+NTT_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I64, _I32, _I32, _I64, _I32,
+            _P, _P, _P, _P, _P, _P]
+NTT = CudaKernel("ntt", "ntt.cu", {"pir_ntt": NTT_ARGS})
 # sv, db_hi, db_lo, consts, out, hi_bytes, P, S, L, d_total, j_begin, D, N, stream
 _SCAN_ARGS = [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _P]
 # kernel B's: the same, then prefix_groups, row_splits, prefix_tiles,

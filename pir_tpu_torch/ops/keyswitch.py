@@ -1,6 +1,7 @@
-"""Key switching: the kernel behind Galois automorphisms.
+"""Key switching: the kernel behind Galois automorphisms and relinearization.
 
-Port of ``switch_key`` and ``apply_galois`` of ``pir_tpu/ops/keyswitch.py``.
+Port of ``switch_key``, ``apply_galois`` and ``relinearize`` of
+``pir_tpu/ops/keyswitch.py``.
 Pipeline for input polynomial c (coefficient form, ciphertext level q):
 
 1. RNS-decompose: digit i is just limb i of c, viewed in [0, q_i) and
@@ -156,3 +157,13 @@ def apply_galois(ctx: PirContext, galois_keys, ct: torch.Tensor, galois_elt: int
     c1 = poly.galois_transform(ctx, ct[..., 1, :, :], galois_elt)
     k0, k1 = switch_key(ctx, galois_keys[galois_elt], c1)
     return torch.stack([modular.add_mod(c0, k0, ctx.limbs_q.q), k1], dim=-3)
+
+
+def relinearize(ctx: PirContext, relin_key: torch.Tensor, ct3: torch.Tensor) -> torch.Tensor:
+    """Size-3 -> size-2 ciphertext with the s² switch key.
+
+    ct3: int64[..., 3, L, N] coefficient form (a ct×ct product);
+    relin_key: the key's int64[L, 2, Lp, N] tensor (``RelinKeys.key.data``)."""
+    k0, k1 = switch_key(ctx, relin_key, ct3[..., 2, :, :])
+    lq = ctx.limbs_q
+    return torch.stack([lq.add(ct3[..., 0, :, :], k0), lq.add(ct3[..., 1, :, :], k1)], dim=-3)

@@ -29,26 +29,36 @@ from pir_tpu_torch.ops import modular
 from pir_tpu_torch.ops.modular import tensor_u64
 
 KERNEL_MIN_N = 64
-KERNEL_MAX_N = 4096  # one limb of 8-byte words (+1/16 padding) in 34 KB of shared memory
+KERNEL_MAX_N = 32768
+BLOCK_MAX_N = 8192  # one limb of 8-byte words (+1/16 padding) in 68 KB of shared memory
+SUB_BLOCK_N = 4096  # above BLOCK_MAX_N: the top stages, then sub-blocks of this many words
 BLOCK_THREADS = 256  # threads per block where one polynomial takes fewer
+TOP_THREADS = 256  # threads per block of the top stages' kernel
 MIN_POLY_THREADS = 64  # at least two warps a polynomial
 GROW_MAX_BITS = 50  # below 2^50 kernel A's words may grow: reduced once, at the end
 
 
 @dataclass(frozen=True)
 class NttPlan:
-    """Kernel A's launch: each polynomial limb of n = 2^log_n words is held
-    by ``threads_per_poly`` threads with 2^radix_bits words in registers
-    each, ``polys_per_block`` limbs to a block, in a grid of ``blocks``."""
+    """Kernel A's launch: each block-kernel unit of 2^(log_n - top_bits)
+    words — a polynomial limb, or one of the 2^top_bits sub-blocks of a limb
+    above BLOCK_MAX_N — is held by ``threads_per_poly`` threads with
+    2^radix_bits words in registers each, ``polys_per_block`` units to a
+    block, in a grid of ``blocks``.  Where top_bits > 0 the top stages run
+    first (forward) or last (inverse) as their own kernel, ``top_blocks``
+    blocks of ``top_threads`` threads, each thread 2^top_bits words."""
 
     log_n: int
     radix_bits: int
     polys_per_block: int
     blocks: int
+    top_bits: int = 0
+    top_threads: int = 0
+    top_blocks: int = 0
 
     @property
     def threads_per_poly(self) -> int:
-        return (1 << self.log_n) >> self.radix_bits
+        return (1 << (self.log_n - self.top_bits)) >> self.radix_bits
 
     @property
     def threads_per_block(self) -> int:
@@ -61,22 +71,40 @@ def ntt_plan(n: int, polys: int) -> NttPlan:
     registers and ran slower on the H100 at all but one request shape),
     unless a polynomial would then get fewer than MIN_POLY_THREADS threads
     (N < 512), where 4 words a thread spread the work over twice the
-    threads."""
+    threads.  Up to BLOCK_MAX_N a limb is one block's (N=8192: 1,024
+    threads); above it the top log2(N / SUB_BLOCK_N) stages are one pass
+    through device memory and each SUB_BLOCK_N-word sub-block is transformed
+    as an N=4096 limb is."""
     log_n = n.bit_length() - 1
     if n != 1 << log_n or not (KERNEL_MIN_N <= n <= KERNEL_MAX_N):
         raise ValueError(f"kernel A handles powers of two {KERNEL_MIN_N} <= N <= {KERNEL_MAX_N}, got N={n}")
     if polys < 1:
         raise ValueError(f"no polynomials to transform ({polys})")
-    radix_bits = 3 if n >> 3 >= MIN_POLY_THREADS else 2
-    per_poly = n >> radix_bits
-    per_block = min(max(1, BLOCK_THREADS // per_poly), polys)
-    return NttPlan(log_n, radix_bits, per_block, -(-polys // per_block))
+    top_bits = 0 if n <= BLOCK_MAX_N else log_n - (SUB_BLOCK_N.bit_length() - 1)
+    units = polys << top_bits
+    unit_n = n >> top_bits
+    radix_bits = 3 if unit_n >> 3 >= MIN_POLY_THREADS else 2
+    per_poly = unit_n >> radix_bits
+    per_block = min(max(1, BLOCK_THREADS // per_poly), units)
+    if not top_bits:
+        return NttPlan(log_n, radix_bits, per_block, -(-units // per_block))
+    # the top stages' kernel: one thread per SUB_BLOCK_N-th of a limb
+    return NttPlan(log_n, radix_bits, per_block, -(-units // per_block), top_bits,
+                   TOP_THREADS, polys * unit_n // TOP_THREADS)
 
 
-def grows(moduli) -> bool:
-    """Whether kernel A runs its growing butterflies on these moduli (every
-    one below 2^GROW_MAX_BITS)."""
-    return max(int(q) for q in moduli).bit_length() <= GROW_MAX_BITS
+def grow_max_bits(n: int) -> int:
+    """The widest modulus kernel A's growing butterflies take at ring n: an
+    inverse's words reach 2^(log2 n + 1) q before the last reduction, so
+    q < 2^(63 - log2 n) keeps them in 64 bits (2^50 up to N=8192, 2^49 at
+    16384, 2^48 at 32768)."""
+    return min(GROW_MAX_BITS, 63 - (n.bit_length() - 1))
+
+
+def grows(moduli, n: int) -> bool:
+    """Whether kernel A runs its growing butterflies on these moduli at
+    ring n (every one below 2^grow_max_bits(n))."""
+    return max(int(q) for q in moduli).bit_length() <= grow_max_bits(n)
 
 
 def _bit_reverse_indices(n: int) -> np.ndarray:
@@ -221,25 +249,29 @@ def ntt_cuda(tables: NttTables, x: torch.Tensor, inverse: bool) -> torch.Tensor:
         raise ValueError("ntt_cuda needs a contiguous tensor")
     if x.device != tables.device:
         raise ValueError(f"tables live on {tables.device}, tensor on {x.device}")
-    if not (KERNEL_MIN_N <= n <= KERNEL_MAX_N):
+    if n & (n - 1) or not (KERNEL_MIN_N <= n <= KERNEL_MAX_N):
         raise ValueError(
-            f"kernel A handles {KERNEL_MIN_N} <= N <= {KERNEL_MAX_N}, got N={n}"
+            f"kernel A handles powers of two {KERNEL_MIN_N} <= N <= {KERNEL_MAX_N}, got N={n}"
         )
     out = torch.empty_like(x)
     batch = x.numel() // (L * n)
     if batch == 0:
         return out
     plan = ntt_plan(n, batch * L)
+    scratch = torch.empty_like(x) if plan.top_bits else None
     if inverse:
         tw, tw_sh = tables.psi_inv_rev, tables.psi_inv_rev_shoup
     else:
         tw, tw_sh = tables.psi_rev, tables.psi_rev_shoup
+    grow = grows(tables.moduli, n)
     kernels.NTT.launch(
         "pir_ntt",
-        x.data_ptr(), out.data_ptr(), batch, L, plan.log_n, int(inverse),
-        plan.radix_bits, plan.polys_per_block, plan.blocks, int(grows(tables.moduli)),
+        x.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+        batch, L, plan.log_n, int(inverse), plan.radix_bits, plan.polys_per_block,
+        plan.blocks, plan.top_bits, plan.top_threads, plan.top_blocks, int(grow),
         tw.data_ptr(), tw_sh.data_ptr(), tables.limbs.table.data_ptr(),
         tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(),
         kernels.stream_handle(x),
+        variant="grow" if grow else "reduce",
     )
     return out

@@ -1,12 +1,14 @@
 """The ciphertext×database scan.
 
 Port of ``pir_tpu/ops/scan.py`` (``contract_dim``, ``contract_dim_planes``,
-``items_to_planes``, ``database_scan_decomp``, ``contract_dim_planes_wide``
-and ``database_scan_decomp_batched``): the recursive hypercube dot product
-of SealPIR's decomposition mode.  The database is a zero-padded hypercube
-of NTT-form plaintexts; the innermost dimension is one contraction over all
-prefixes at once, and each upper dimension decomposes the intermediate
-ciphertexts into digit plaintexts and contracts again.
+``items_to_planes``, ``database_scan_decomp``, ``contract_dim_planes_wide``,
+``database_scan_decomp_batched`` and ``database_scan_ctmult``): the
+recursive hypercube dot product of SealPIR's two modes.  The database is a
+zero-padded hypercube of NTT-form plaintexts; the innermost dimension is one
+contraction over all prefixes at once.  In decomposition mode each upper
+dimension decomposes the intermediate ciphertexts into digit plaintexts and
+contracts again; in ciphertext-multiplication mode it multiplies them by the
+dimension's selection ciphertexts (BEHZ), relinearizes and sums.
 
 The database comes in one of two layouts (``PirDatabase.scan_impl``):
 
@@ -26,8 +28,10 @@ from __future__ import annotations
 
 import torch
 
+from pir_tpu_torch.bfv.multiply import bfv_multiply
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import decompose, modular, scan_kernel
+from pir_tpu_torch.ops.keyswitch import relinearize
 
 
 def _ct_moduli_bits(ctx: PirContext) -> int:
@@ -240,3 +244,52 @@ def database_scan_decomp_batched(
     if result.dim() == 5:
         result = result[:, :, None]
     return result.reshape(B, -1, 2, L, n)
+
+
+def database_scan_ctmult(
+    ctx: PirContext,
+    db_ntt: torch.Tensor,
+    db_shoup: torch.Tensor,
+    dims: tuple,
+    sv: torch.Tensor,
+    relin_key: "torch.Tensor | None",
+) -> torch.Tensor:
+    """Ciphertext-multiplication-mode scan (the reference's
+    database.cpp:202-211 recursion).
+
+    sv: int64[sum(dims), 2, L, N] selection vector in **coefficient** form —
+    the upper dimensions consume it through the full BFV ct×ct multiply,
+    relinearizing after each product with relin_key (int64[L, 2, Lp, N];
+    None only for d = 1).  db_ntt and its Shoup companions db_shoup (which
+    send the inner contraction to kernel D on the card): int64[prod(dims),
+    L, N].  Returns one int64[1, 2, L, N] reply.
+    """
+    offsets = []
+    off = 0
+    for dim in dims:
+        offsets.append(off)
+        off += dim
+
+    # Innermost dimension: the same NTT-domain ct×pt contraction as
+    # decomposition mode (SEAL's multiply_plain does this NTT round trip).
+    inner = dims[-1]
+    prefix = db_ntt.shape[0] // inner
+    sv_last_ntt = ctx.ntt_q.forward(sv[offsets[-1] : offsets[-1] + inner])
+    items = db_ntt.reshape(prefix, inner, *db_ntt.shape[1:])
+    result = ctx.ntt_q.inverse(contract_dim(ctx, sv_last_ntt, items, db_shoup.reshape(items.shape)))
+
+    lq = ctx.limbs_q
+    for level in range(len(dims) - 2, -1, -1):
+        dim = dims[level]
+        prefix //= dim
+        sv_lvl = sv[offsets[level] : offsets[level] + dim]  # [dim, 2, L, N]
+        blocks = result.reshape(prefix, dim, 2, ctx.L, ctx.n)
+        prod3 = bfv_multiply(ctx, blocks, sv_lvl[None])  # [prefix, dim, 3, L, N]
+        prod2 = relinearize(ctx, relin_key, prod3)  # [prefix, dim, 2, L, N]
+        # sum over the dimension: reduced summands, a chunk per u64 headroom
+        result = scan_kernel.sum_row_chunks(
+            lambda s, e: modular.barrett_reduce_64(prod2[:, s:e].sum(dim=1), lq.q, lq.ratio_hi),
+            dim, min(_max_chunk(ctx), dim), lq.q,
+        )
+
+    return result.reshape(1, 2, ctx.L, ctx.n)

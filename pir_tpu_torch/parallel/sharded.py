@@ -250,7 +250,8 @@ def make_sharded_pipeline(
     only (no view into the whole), so the whole is freed once the caller
     drops it.
     reply_limbs and use_ct_mult are refused with a limb axis, as in
-    pir_tpu; ciphertext-multiplication mode is not ported.
+    pir_tpu; ciphertext-multiplication mode on a mesh is not ported (it
+    runs on one device).
     """
     n_db = mesh.size("db")
     n_limb = mesh.size("limb")
@@ -267,8 +268,8 @@ def make_sharded_pipeline(
             )
     if use_ct_mult:
         raise ValueError(
-            "ciphertext-multiplication mode is not ported yet (ROADMAP queue 1, "
-            "ct-mult mode)"
+            "ciphertext-multiplication mode on a mesh is not ported yet (ROADMAP "
+            "queue 1: mesh ct-mult on the db/batch axes); serve it on one device"
         )
     if db_planes is None and db_ntt is None:
         raise ValueError("the pipeline needs db_planes or db_ntt")

@@ -1,13 +1,14 @@
 """PirClient: key generation, query construction, response decoding.
 
-Port of the decomposition-mode client of ``pir_tpu/pir/client.py``.  It owns
-the secret/public/Galois/relinearization keys, serializes the evaluation
-keys once, packs per-dimension one-hot indices into ⌈dim_sum/N⌉ plaintexts
-with each hot coefficient set to m⁻¹ mod t, and decodes replies by repeated
-decrypt → digit-recompose rounds.  It computes on its context's device
-(the card by default; ``device="cpu"`` keeps it on the host).  Keys
-and queries are drawn from the seeded numpy Generator in ``pir_tpu``'s
-order, so the same seed gives the same request bytes.
+Port of the client of ``pir_tpu/pir/client.py``.  It owns the
+secret/public/Galois/relinearization keys, serializes the evaluation keys
+once, packs per-dimension one-hot indices into ⌈dim_sum/N⌉ plaintexts with
+each hot coefficient set to m⁻¹ mod t, and decodes replies: by repeated
+decrypt → digit-recompose rounds in decomposition mode, by one decrypt of
+the single reply ciphertext in ciphertext-multiplication mode.  It computes
+on its context's device (the card by default; ``device="cpu"`` keeps it on
+the host).  Keys and queries are drawn from the seeded numpy Generator in
+``pir_tpu``'s order, so the same seed gives the same request bytes.
 """
 
 from __future__ import annotations
@@ -41,11 +42,6 @@ class PirClient:
 
         device: where the client's encryption and decryption run (the card
         by default)."""
-        if params.use_ciphertext_multiplication:
-            raise ValueError(
-                "ciphertext-multiplication mode is not ported yet "
-                "(ROADMAP queue 1, ct-mult mode)"
-            )
         self.compress_queries = compress_queries
         self.params = params
         self.ctx = PirContext(params, device)
@@ -146,6 +142,20 @@ class PirClient:
         ]
 
     def _process_reply(self, reply: pb.Ciphertexts) -> np.ndarray:
+        if self.params.use_ciphertext_multiplication:
+            return self._process_reply_ct_mult(reply)
+        return self._process_reply_decomp(reply)
+
+    def _process_reply_ct_mult(self, reply: pb.Ciphertexts) -> np.ndarray:
+        cts = wire.load_ciphertexts(reply, self.ctx)
+        if cts.shape[0] != 1:
+            raise ValueError(
+                "number of ciphertexts in reply must be 1 when using CT "
+                "multiplication"
+            )
+        return enc_mod.decrypt(self.ctx, self.sk, tensor_u64(cts[0], self.ctx.device))
+
+    def _process_reply_decomp(self, reply: pb.Ciphertexts) -> np.ndarray:
         """d rounds of decrypt → digit-recompose."""
         exp_ratio = decompose.expansion_ratio(self.ctx) * 2
         num_dims = len(self.params.dimensions)

@@ -13,6 +13,10 @@ device in one of ``pir_tpu``'s two layouts:
   read by kernel D (any modulus below 2^61);
 * ``"auto"`` — planes while every ciphertext modulus is at most 48 bits,
   else the Shoup table.
+
+A ciphertext-multiplication database is always held in the Shoup-table
+layout, as ``pir_tpu`` holds it (its inner scan is kernel D's; its upper
+dimensions multiply ciphertexts, not digit plaintexts).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from pir_tpu_torch.bfv import evaluator
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.core.params import PirParams
-from pir_tpu_torch.ops import modular, scan_kernel
+from pir_tpu_torch.ops import modular, scan, scan_kernel
 from pir_tpu_torch.ops.modular import tensor_u64
 from pir_tpu_torch.pir.encoders import StringEncoder
 
@@ -82,11 +86,6 @@ def default_scan_impl(moduli) -> str:
 
 class PirDatabase:
     def __init__(self, params: PirParams, scan_impl: str = "auto", device=None):
-        if params.use_ciphertext_multiplication:
-            raise ValueError(
-                "ciphertext-multiplication mode is not ported yet "
-                "(ROADMAP queue 1, ct-mult mode)"
-            )
         self.params = params
         self.ctx = PirContext(params, device)
         self.device = self.ctx.device
@@ -101,9 +100,9 @@ class PirDatabase:
             scan_impl = default_scan_impl(self.ctx.ct_moduli)
         if scan_impl not in ("pallas", "xla"):
             raise ValueError(f"unknown scan_impl {scan_impl!r}")
-        if scan_impl == "pallas":
-            scan_kernel.hi_plane_dtype(self.ctx.ct_moduli)  # raises above 48 bits
         self.scan_impl = scan_impl
+        if self._use_planes:
+            scan_kernel.hi_plane_dtype(self.ctx.ct_moduli)  # raises above 48 bits
 
     @classmethod
     def create(
@@ -115,7 +114,39 @@ class PirDatabase:
 
     @property
     def _use_planes(self) -> bool:
-        return self.scan_impl == "pallas"
+        return self.scan_impl == "pallas" and not self.params.use_ciphertext_multiplication
+
+    def scan_operands(self) -> dict:
+        """The database in its layout, as the scans take it."""
+        if self._use_planes:
+            return {"db_planes": self.db_planes}
+        return {"db_ntt": self.db_ntt, "db_shoup": self.db_ntt_shoup}
+
+    def multiply(self, selection_vector: torch.Tensor, relin_key=None) -> torch.Tensor:
+        """Scan: selection vector ciphertexts (coefficient form, int64
+        [dim_sum, 2, L, N]) -> reply ciphertexts (coefficient form).  Parity
+        with pir_tpu's PirDatabase.multiply (the reference's
+        PIRDatabase::multiply, database.cpp:290-316).  Ciphertext-
+        multiplication mode with d > 1 needs the relinearization key."""
+        p = self.params
+        if selection_vector.shape[0] != p.dimensions_sum:
+            raise ValueError("selection vector size does not match dimensions")
+        if self.db_planes is None and self.db_ntt is None:
+            raise ValueError("database not populated")
+        if p.use_ciphertext_multiplication:
+            if relin_key is None and len(p.dimensions) > 1:
+                raise ValueError(
+                    "ciphertext-multiplication mode with d > 1 requires "
+                    "relinearization keys"
+                )
+            return scan.database_scan_ctmult(
+                self.ctx, self.db_ntt, self.db_ntt_shoup, p.dimensions, selection_vector,
+                relin_key,
+            )
+        return scan.database_scan_decomp(
+            self.ctx, p.dimensions, self.ctx.ntt_q.forward(selection_vector),
+            **self.scan_operands(),
+        )
 
     @property
     def size(self) -> int:

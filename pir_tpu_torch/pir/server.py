@@ -1,16 +1,18 @@
 """PirServer: request processing — oblivious expansion + database scan.
 
-Port of the serving path of ``pir_tpu/pir/server.py`` (decomposition mode,
-either database layout).  The array-level cores are
-:meth:`PirServer.process_query` (one query) and :meth:`PirServer.process_batch`
-(B queries sharing one pass over the database planes): query ciphertexts
-and Galois keys on the device in, reply ciphertexts on the device out.
+Port of the serving path of ``pir_tpu/pir/server.py`` (decomposition mode on
+either database layout, and ciphertext-multiplication mode).  The
+array-level cores are :meth:`PirServer.process_query` (one query) and
+:meth:`PirServer.process_batch` (B queries sharing one pass over the
+database planes): query ciphertexts and evaluation keys on the device in,
+reply ciphertexts on the device out.
 ``process_request_async``, ``finalize_response``, ``process_request`` and
 ``process_request_batched`` wrap them with the wire format; replies are
 byte-identical to ``pir_tpu``'s for the same request.  On the planes layout
 a multi-query request whose query stacks share one shape goes through the
 batched path, in chunks of :meth:`PirServer.batch_lanes` queries; on the
-Shoup-table layout it goes query by query, as in ``pir_tpu``.
+Shoup-table layout and in ciphertext-multiplication mode it goes query by
+query (the same replies as ``pir_tpu``'s vmapped fallback).
 
 With ``mesh=`` every request is served by the multi-rank pipeline
 (parallel/sharded.py): every rank of the mesh calls ``process_request``
@@ -128,34 +130,29 @@ class PirServer:
             self._mesh_pipeline = sharded.make_sharded_pipeline(
                 self.ctx, params.dimensions, db.db_ntt, mesh,
                 db_shoup=db.db_ntt_shoup, reply_limbs=reply_limbs,
+                use_ct_mult=params.use_ciphertext_multiplication,
                 db_planes=db.db_planes if db._use_planes else None,
             )
-
-    def _db_operands(self) -> dict:
-        """The database in its layout, as database_scan_decomp takes it."""
-        if self.db._use_planes:
-            return {"db_planes": self.db.db_planes}
-        return {"db_ntt": self.db.db_ntt, "db_shoup": self.db.db_ntt_shoup}
 
     # ------------------------------------------------------------------
     def _single_device(self) -> None:
         if self.mesh is not None:
             raise ValueError("a mesh server serves requests through process_request")
 
-    def process_query(self, query_cts: torch.Tensor, galois_keys) -> torch.Tensor:
-        """One query: int64[k, 2, L, N] ciphertexts (on the server's device)
-        and {galois_elt: int64[L, 2, Lp, N]} -> reply int64[R, 2, L', N]."""
+    def process_query(
+        self, query_cts: torch.Tensor, galois_keys, relin_key=None
+    ) -> torch.Tensor:
+        """One query: int64[k, 2, L, N] ciphertexts (on the server's device),
+        {galois_elt: int64[L, 2, Lp, N]} and, in ciphertext-multiplication
+        mode with d > 1, the relinearization key int64[L, 2, Lp, N] ->
+        reply int64[R, 2, L', N] (R = 1 in ciphertext-multiplication mode)."""
         self._single_device()
-        ctx = self.ctx
         sv = expand.expand_query(
-            ctx, galois_keys, query_cts, self.params.dimensions_sum
+            self.ctx, galois_keys, query_cts, self.params.dimensions_sum
         )
-        sv_ntt = ctx.ntt_q.forward(sv)
-        reply = scan.database_scan_decomp(
-            ctx, self.params.dimensions, sv_ntt, **self._db_operands()
-        )
+        reply = self.db.multiply(sv, relin_key)
         if self.reply_limbs is not None:
-            reply = modswitch.mod_switch_to(ctx, reply, self.reply_limbs)
+            reply = modswitch.mod_switch_to(self.ctx, reply, self.reply_limbs)
         return reply
 
     def process_batch(self, query_cts: torch.Tensor, galois_keys) -> torch.Tensor:
@@ -226,7 +223,11 @@ class PirServer:
             h.update(blob)
         return h.digest()
 
-    def _device_keys(self, request: pb.Request) -> dict:
+    def _device_keys(self, request: pb.Request) -> tuple:
+        """(Galois keys {elt: int64[L, 2, Lp, N]}, relinearization key
+        int64[L, 2, Lp, N] or None) on the device, cached by the digest of
+        both blobs.  Only ciphertext-multiplication mode reads the relin
+        key, so only that mode uploads it."""
         digest = self._key_digest(request.galois_keys, request.relin_keys)
         cached = self._key_cache.get(digest)
         if cached is not None:
@@ -236,10 +237,13 @@ class PirServer:
         missing = [e for e in self._expansion_elts if e not in keys]
         if missing:
             raise ValueError(f"request missing galois keys for elements {missing}")
+        relin = None
+        if self.params.use_ciphertext_multiplication and request.relin_keys:
+            relin = wire.deserialize_relin_keys(request.relin_keys, self.device).key.data
         if len(self._key_cache) >= _KEY_CACHE_ENTRIES:
             self._key_cache.pop(next(iter(self._key_cache)))
-        self._key_cache[digest] = keys
-        return keys
+        self._key_cache[digest] = (keys, relin)
+        return keys, relin
 
     def _query_stacks(self, request: pb.Request) -> list:
         return [wire.load_ciphertexts(query, self.ctx) for query in request.query]
@@ -265,7 +269,16 @@ class PirServer:
         one shape takes the batched path (pir_tpu's reroute); its replies
         are byte-identical to the per-query path's.  With a mesh, the
         request goes through the mesh pipeline."""
-        galois_keys = self._device_keys(request)
+        galois_keys, relin_key = self._device_keys(request)
+        if (
+            self.params.use_ciphertext_multiplication
+            and relin_key is None
+            and len(self.params.dimensions) > 1
+        ):
+            raise ValueError(
+                "ciphertext-multiplication mode with d > 1 requires "
+                "relinearization keys in the request"
+            )
         stacks = self._query_stacks(request)
         if self.mesh is not None:
             return self._process_request_async_mesh(galois_keys, stacks)
@@ -276,7 +289,7 @@ class PirServer:
         ):
             return self._batched_wide_async(np.stack(stacks), galois_keys)
         return [
-            self.process_query(tensor_u64(stack, self.device), galois_keys)
+            self.process_query(tensor_u64(stack, self.device), galois_keys, relin_key)
             for stack in stacks
         ]
 
@@ -312,7 +325,7 @@ class PirServer:
         pipeline is batched over its "batch" axis) go to process_request."""
         if self.mesh is not None or not self.db._use_planes:
             return self.process_request(request)
-        galois_keys = self._device_keys(request)
+        galois_keys, _ = self._device_keys(request)
         stacks = self._query_stacks(request)
         if len({s.shape for s in stacks}) != 1:
             return self.process_request(request)

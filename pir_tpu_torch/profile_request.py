@@ -2,11 +2,14 @@
 
     python3 -m pir_tpu_torch.profile_request                  # 2^20 items
     python3 -m pir_tpu_torch.profile_request --log2-items 16 --out prof.json
+    python3 -m pir_tpu_torch.profile_request --ct-mult          # N=8192 ct-mult
 
 Builds the benchmark configuration (288-byte items, d=2, N=4096, 24-bit
 plain modulus, SEAL's BFVDefault chain, database from seed 42, client seed 7,
-seeded queries, replies mod-switched by ``reply_limbs_for``), fills the key
-cache with one request, then measures warm single-query requests:
+seeded queries, replies mod-switched by ``reply_limbs_for``) — with
+``--ct-mult`` the same items in ciphertext-multiplication mode at N=8192
+(``chip_smoke.py``'s phase 13) — fills the key cache with one request, then
+measures warm single-query requests:
 
 * ``stages_ms``: the steps of ``process_request`` run one by one, each
   bracketed by ``torch.cuda.synchronize()``, mean over ``--reps`` requests;
@@ -74,7 +77,7 @@ def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
     ``stages`` and each expansion level's ms to ``levels``."""
     ctx = server.ctx
     clock = _Laps(stages, server.device)
-    keys = server._device_keys(request)
+    keys, relin_key = server._device_keys(request)
     cts = tensor_u64(wire.load_ciphertexts(request.query[0], ctx), server.device)
     clock.lap("load query + keys")
     outs = []
@@ -89,11 +92,16 @@ def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
         outs.append(x[:count])
     sv = torch.cat(outs, dim=0)
     clock.lap("oblivious expansion")
-    sv_ntt = ctx.ntt_q.forward(sv)
-    clock.lap("selection-vector NTT")
-    reply = scan.database_scan_decomp(
-        ctx, server.params.dimensions, sv_ntt, **server._db_operands()
-    )
+    if server.params.use_ciphertext_multiplication:
+        # the inner scan, then per upper dimension the BEHZ multiply,
+        # relinearization and sum
+        reply = server.db.multiply(sv, relin_key)
+    else:
+        sv_ntt = ctx.ntt_q.forward(sv)
+        clock.lap("selection-vector NTT")
+        reply = scan.database_scan_decomp(
+            ctx, server.params.dimensions, sv_ntt, **server.db.scan_operands()
+        )
     clock.lap("database scan (all dimensions)")
     if server.reply_limbs is not None:
         reply = modswitch.mod_switch_to(ctx, reply, server.reply_limbs)
@@ -153,6 +161,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5, help="staged requests")
     ap.add_argument("--spread", type=int, default=10, help="timed whole requests")
     ap.add_argument("--out", help="also write the JSON result to this file")
+    ap.add_argument("--ct-mult", action="store_true",
+                    help="ciphertext-multiplication mode at N=8192")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: no CUDA device available")
@@ -165,8 +175,10 @@ def main(argv=None) -> int:
     print(smi, flush=True)
 
     db_size = 1 << args.log2_items
+    poly_degree = 8192 if args.ct_mult else 4096
     params = pt.create_pir_parameters(
-        db_size, ITEM_SIZE, 2, pt.generate_encryption_params(4096, 24)
+        db_size, ITEM_SIZE, 2, pt.generate_encryption_params(poly_degree, 24),
+        use_ciphertext_multiplication=args.ct_mult,
     )
     rng = np.random.default_rng(DB_SEED)
     pool = [rng.integers(0, 256, ITEM_SIZE, dtype=np.uint8).tobytes()
@@ -202,8 +214,9 @@ def main(argv=None) -> int:
     result = {
         "card": smi,
         "config": {"items": db_size, "item_bytes": ITEM_SIZE,
-                   "dimensions": list(params.dimensions), "poly_degree": 4096,
-                   "plain_bits": 24, "reply_limbs": server.reply_limbs},
+                   "dimensions": list(params.dimensions), "poly_degree": poly_degree,
+                   "ct_mult": args.ct_mult, "plain_bits": 24,
+                   "reply_limbs": server.reply_limbs},
         "database_build_s": build_s,
         "stages_ms": stages,
         "stages_total_ms": sum(stages.values()),

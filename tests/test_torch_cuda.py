@@ -1,9 +1,10 @@
-"""Kernels A (NTT), B (scan, with and without a hi plane, and its
-runtime-moduli entry K6), C (the wide scan of batched serving, both
+"""Kernels A (NTT, N=64..32768), B (scan, with and without a hi plane, and
+its runtime-moduli entry K6), C (the wide scan of batched serving, both
 variants) and D (the Shoup-table scan, K7) on the card against their plain
 PyTorch versions, bit for bit (tolerance 0); the port's server on the card
-(both layouts) against the same server on the CPU; and a mesh of two gloo
-ranks sharing the card against the single-device server.
+(both layouts, and ciphertext-multiplication mode) against the same server
+on the CPU; and a mesh of two gloo ranks sharing the card against the
+single-device server.
 
 These tests need an NVIDIA GPU and carry the ``cuda`` marker; without a card
 they skip.  This file imports no JAX, so it also runs on a machine that has
@@ -78,12 +79,40 @@ def test_ntt_kernel_every_radix_matches_plain(dev, n, bits):
 
 
 def test_ntt_kernel_rejects_what_it_cannot_take(dev):
-    tables = NttTables(primes.coeff_modulus_from_bits(8192, [43, 43]), 8192, dev)
-    with pytest.raises(ValueError, match="N=8192"):
-        tables.forward(torch.zeros((2, 8192), dtype=torch.int64, device=dev))
+    tables = NttTables(primes.coeff_modulus_from_bits(65536, [43, 43]), 65536, dev)
+    with pytest.raises(ValueError, match="N=65536"):
+        tables.forward(torch.zeros((2, 65536), dtype=torch.int64, device=dev))
     small = NttTables(primes.coeff_modulus_from_bits(64, [26, 27]), 64, dev)
     with pytest.raises(ValueError, match="contiguous"):
         ntt_cuda(small, torch.zeros((64, 2), dtype=torch.int64, device=dev).t(), False)
+
+
+@pytest.mark.parametrize(
+    "n,bits",
+    [(8192, (43, 43, 44, 44, 44)), (8192, (60, 60, 60, 60, 60)), (16384, (48, 49, 49)),
+     (16384, (30, 30)), (32768, (55, 56)), (32768, (30, 30, 30))],
+    ids=["8192-seal", "8192-bsk", "16384-seal", "16384-tpu32", "32768-seal", "32768-tpu32"],
+)
+def test_ntt_kernel_above_4096_matches_plain(dev, n, bits):
+    """Kernel A at N = 8192 (one 1,024-thread block a limb, 68 KB of shared
+    memory), 16384 and 32768 (top stages, then 4,096-word sub-blocks), on
+    SEAL's chains, the 60-bit BEHZ base and 30-bit tpu32 primes: one
+    polynomial and more than one wave of blocks, the residue range's
+    edges, growing or reducing butterflies as grows() picks them."""
+    from pir_tpu_torch.ops.ntt import grows
+
+    tables = NttTables(primes.coeff_modulus_from_bits(n, list(bits)), n, dev)
+    variant = "pir_ntt." + ("grow" if grows(tables.moduli, n) else "reduce")
+    for batch in (1, 96):
+        x = residues(tables.moduli, (batch,), n, dev, seed=batch + n)
+        x[0, 0, :3] = torch.tensor([0, tables.moduli[0] - 1, tables.moduli[0] - 2])
+        for inverse in (False, True):
+            before = kernels.NTT.variant_launches.get(variant, 0)
+            got = ntt_cuda(tables, x, inverse)
+            torch.cuda.synchronize()
+            assert kernels.NTT.variant_launches[variant] == before + 1
+            assert torch.equal(got, ntt_plain(tables, x, inverse)), (batch, inverse)
+    assert torch.equal(tables.inverse(tables.forward(x)), x)
 
 
 @pytest.mark.parametrize("bits,P,D", [((34, 36), 5, 7), ((36, 36), 162, 162), ((44, 46), 3, 40)])
@@ -314,6 +343,39 @@ def test_shoup_layout_server_on_card_matches_cpu(dev, bits):
     assert client.process_response([1, 48], on_card) == [raw[1], raw[48]]
 
 
+@pytest.mark.parametrize("dims", [1, 2])
+def test_ctmult_server_on_card_matches_cpu(dev, dims):
+    """Ciphertext-multiplication mode on the card (kernel D for the inner
+    scan; above d=1 the BEHZ multiply's NTTs over the 60-bit base, kernel
+    A's reducing butterflies) against the same server on the CPU: equal
+    Response bytes, every item decoded, a positive noise budget."""
+    from pir_tpu_torch.bfv.encrypt import invariant_noise_budget
+    from pir_tpu_torch.ops.modular import tensor_u64
+    from pir_tpu_torch.pir import wire
+
+    n = 128
+    ep = pt.EncryptionParams(
+        poly_modulus_degree=n,
+        plain_modulus=primes.get_prime(2 * n, 13),
+        coeff_modulus=tuple(primes.coeff_modulus_from_bits(n, [34, 36, 37])),
+    )
+    params = pt.create_pir_parameters(50, 8, dims, ep, use_ciphertext_multiplication=True)
+    rng = np.random.default_rng(dims + 10)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    client = pt.PirClient(params, seed=5, compress_queries=True, device=dev)
+    req = client.create_request([3, 47])
+    kernels.reset_launch_counts()
+    on_card = pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params).process_request(req)
+    counts = kernels.variant_launch_counts()
+    on_cpu = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params).process_request(req)
+    assert counts["pir_scan_shoup"] == 2 and counts["pir_ntt.grow"] > 0
+    assert (counts.get("pir_ntt.reduce", 0) > 0) == (dims > 1)
+    assert on_card.SerializeToString() == on_cpu.SerializeToString()
+    assert client.process_response([3, 47], on_card) == [raw[3], raw[47]]
+    ct = wire.load_ciphertexts(on_card.reply[0], client.ctx)[0]
+    assert invariant_noise_budget(client.ctx, client.sk, tensor_u64(ct, dev)) > 0
+
+
 def _mesh_job(params, raw, request, backend, world=2, limb=2):
     from pir_tpu_torch.pir import wire
 
@@ -341,7 +403,7 @@ def test_mesh_of_two_ranks_on_card(dev, tmp_path):
     for r in results:
         assert r["mesh"]["responses"] == [want.SerializeToString()]
         assert r["mesh"]["counts"][0]["pir_scan.hi.dyn"] > 0
-        assert r["mesh"]["counts"][0]["pir_ntt"] > 0
+        assert r["mesh"]["counts"][0]["pir_ntt.grow"] > 0
     assert client.process_response([4, 40], want) == [raw[4], raw[40]]
 
 

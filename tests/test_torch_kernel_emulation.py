@@ -4,7 +4,8 @@ runtime (one std::thread per CUDA thread, a std::barrier for
 __syncthreads, a byte buffer for the block's shared memory; the PTX
 carry chains and cp.async copies replaced by C equivalents), held bit for
 bit to the plain versions at every radix and row split their plans can
-choose.
+choose, and kernel A at every ring up to N=32768 (its top-stage pass and
+sub-blocks above N=8192) on growing and reducing chains.
 
 What this shows is the kernels' index arithmetic, twiddle choice,
 exchange layout, lazy-reduction bounds and row-split sums; it says nothing
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from pir_tpu_torch import kernels
 from pir_tpu_torch.core import primes
 from pir_tpu_torch.ops import modular, scan_kernel
 from pir_tpu_torch.ops import ntt as tntt
@@ -164,7 +166,7 @@ def libs(tmp_path_factory):
                        check=True, capture_output=True, text=True)
         out[name] = ctypes.CDLL(str(so))
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    out["ntt"].pir_ntt.argtypes = [P, P, I64, I32, I32, I32, I32, I32, I64, I32, P, P, P, P, P, P]
+    out["ntt"].pir_ntt.argtypes = kernels.NTT_ARGS
     out["scan"].pir_scan.argtypes = [P, P, P, P, P, I32, I64, I32, I32, I64, I64, I64, I64,
                                      I32, I32, I32, I32, P]
     return out
@@ -227,12 +229,58 @@ def test_kernel_a_emulated_equals_plain(libs, n, bits, radix_bits):
                    else (tables.psi_rev, tables.psi_rev_shoup))
         out = torch.empty_like(x)
         rc = libs["ntt"].pir_ntt(
-            x.data_ptr(), out.data_ptr(), batch, L, n.bit_length() - 1, int(inverse), radix_bits,
-            per_block, blocks, int(tntt.grows(tables.moduli)), tw.data_ptr(), tws.data_ptr(),
-            tables.limbs.table.data_ptr(), tables.n_inv.data_ptr(),
-            tables.n_inv_shoup.data_ptr(), None)
+            x.data_ptr(), out.data_ptr(), None, batch, L, n.bit_length() - 1, int(inverse),
+            radix_bits, per_block, blocks, 0, 0, 0, int(tntt.grows(tables.moduli, n)),
+            tw.data_ptr(), tws.data_ptr(), tables.limbs.table.data_ptr(),
+            tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(), None)
         assert rc == 0
         assert torch.equal(out, tntt.ntt_plain(tables, x, inverse)), inverse
+
+
+def _emulated_ntt(lib, tables, x, inverse, plan):
+    """pir_ntt through the emulation, laid out by `plan`."""
+    tw, tws = ((tables.psi_inv_rev, tables.psi_inv_rev_shoup) if inverse
+               else (tables.psi_rev, tables.psi_rev_shoup))
+    out, scratch = torch.empty_like(x), torch.empty_like(x)
+    L = len(tables.moduli)
+    rc = lib.pir_ntt(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), x.numel() // (L * tables.n), L,
+        plan.log_n, int(inverse), plan.radix_bits, plan.polys_per_block, plan.blocks,
+        plan.top_bits, plan.top_threads, plan.top_blocks,
+        int(tntt.grows(tables.moduli, tables.n)), tw.data_ptr(), tws.data_ptr(),
+        tables.limbs.table.data_ptr(), tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(),
+        None)
+    assert rc == 0
+    return out
+
+
+# (n, chain bits, batch): every ring above N=4096, with growing chains (the
+# tpu32 30-bit primes, SEAL's 43/44 and 48/49-bit ones) and reducing ones
+# (the 60-bit BEHZ base, SEAL's 55/56-bit N=32768 primes); each ring has a
+# chain at the growing rule's edge, 2^(63 - log2 N) at 16384 and 32768
+# (q of 49 and 48 bits) and 2^50 at 8192, and one just past it, which
+# reduces.
+LARGE_RINGS = [
+    (8192, (44, 50), 1), (8192, (51, 60), 1),
+    (16384, (48, 49), 1), (16384, (30, 50), 1),
+    (32768, (30, 48), 1), (32768, (55, 56), 1), (32768, (49,), 2),
+]
+
+
+@pytest.mark.parametrize("n,bits,batch", LARGE_RINGS)
+def test_kernel_a_emulated_equals_plain_above_4096(libs, n, bits, batch):
+    """Forward and inverse at N = 8192 (one 1,024-thread block a limb),
+    16384 and 32768 (the top stages' pass, then 4,096-word sub-blocks),
+    bit-equal to the plain version, with the words at the edges of the
+    residue range, on the plan's own layout."""
+    tables = tntt.NttTables(primes.coeff_modulus_from_bits(n, list(bits)), n, "cpu")
+    assert tntt.grows(tables.moduli, n) == (max(bits) <= min(50, 63 - (n.bit_length() - 1)))
+    plan = tntt.ntt_plan(n, batch * len(bits))
+    x = _residues(np.random.default_rng(n + sum(bits)), tables.moduli, (batch, n), 1)
+    x[0, -1, :3] = torch.tensor([tables.moduli[-1] - 1, tables.moduli[-1] - 2, 0])
+    for inverse in (False, True):
+        assert torch.equal(_emulated_ntt(libs["ntt"], tables, x, inverse, plan),
+                           tntt.ntt_plain(tables, x, inverse)), inverse
 
 
 @pytest.mark.parametrize(

@@ -2,8 +2,9 @@
 CPU: ops/ntt.py::ntt_plan and ops/scan_kernel.py::scan_plan, whose grids
 the kernels launch as given.
 
-The blocks of kernel A's plan hold every polynomial, and its words per
-thread follow N; the tiles of kernel B's grid cover every prefix and
+The blocks of kernel A's plan hold every polynomial (above N=8192 every
+4,096-word sub-block, after a top-stage grid that covers every limb), and
+its words per thread follow N; the tiles of kernel B's grid cover every prefix and
 coefficient, with a row split of 1, 2, 4 or 8 that never exceeds the rows
 (a ragged tail where it does not divide them).  That kernel A's passes
 cover every stage once, in order, is checked where the passes are defined,
@@ -45,16 +46,45 @@ def test_ntt_plan_at_the_request_shapes():
     assert (small.radix_bits, small.threads_per_poly, small.polys_per_block) == (2, 64, 4)
     assert small.blocks == 48
     assert plan(64, 1).threads_per_block == 16
-    with pytest.raises(ValueError, match="N=8192"):
-        plan(8192, 4)
+    with pytest.raises(ValueError, match="N=65536"):
+        plan(65536, 4)
+    with pytest.raises(ValueError, match="N=12288"):
+        plan(12288, 4)
     with pytest.raises(ValueError, match="no polynomials"):
         plan(4096, 0)
 
 
 def test_ntt_grows_below_50_bits():
-    assert tntt.grows([0xffffee001, 0xffffc4001, 0x1ffffe0001])  # SEAL's 36/37-bit chain
-    assert tntt.grows([(1 << 50) - 27])
-    assert not tntt.grows([(1 << 36) - 1, (1 << 50) + 55])
+    assert tntt.grows([0xffffee001, 0xffffc4001, 0x1ffffe0001], 4096)  # SEAL's 36/37-bit chain
+    assert tntt.grows([(1 << 50) - 27], 4096)
+    assert not tntt.grows([(1 << 36) - 1, (1 << 50) + 55], 4096)
+    # above N=8192 the inverse's growth, 2^(log2 N + 1) q, lowers the edge
+    assert tntt.grows([(1 << 50) - 27], 8192)
+    assert [tntt.grow_max_bits(n) for n in (64, 4096, 8192, 16384, 32768)] == [50, 50, 50, 49, 48]
+    assert tntt.grows([(1 << 49) - 1], 16384) and not tntt.grows([(1 << 49) + 1], 16384)
+    assert tntt.grows([(1 << 48) - 1], 32768) and not tntt.grows([(1 << 48) + 1], 32768)
+
+
+@pytest.mark.parametrize("n", [8192, 16384, 32768])
+@pytest.mark.parametrize("polys", [1, 5, 15, 448, 1792])
+def test_ntt_plan_above_4096(n, polys):
+    """N=8192: one 1,024-thread block a limb, 68 KB of shared memory (above
+    the 48 KB default; the launch raises the limit).  N=16384, 32768: the
+    top log2(N/4096) stages as their own kernel, one thread per 4,096th of
+    a limb with 2^top_bits words, then every 4,096-word sub-block laid out
+    as an N=4096 limb."""
+    plan = tntt.ntt_plan(n, polys)
+    assert plan.radix_bits == 3 and plan.polys_per_block == 1
+    if n == 8192:
+        assert (plan.top_bits, plan.top_threads, plan.top_blocks) == (0, 0, 0)
+        assert plan.threads_per_block == 1024 and plan.blocks == polys
+        assert 48 * 1024 < (n + n // 16) * 8 <= 227 * 1024
+        return
+    top = n.bit_length() - 13
+    assert plan.top_bits == top and plan.threads_per_block == 512
+    assert plan.blocks == polys << top  # every sub-block
+    assert plan.top_threads == tntt.TOP_THREADS
+    assert plan.top_threads * plan.top_blocks == polys * 4096  # every 4,096th of every limb
 
 
 @pytest.mark.parametrize(
@@ -95,3 +125,29 @@ def test_scan_plan_splits_at_most_the_rows(D, splits):
     assert scan_kernel.scan_plan(5, 2, 256, D).row_splits == splits
     with pytest.raises(ValueError, match="empty"):
         scan_kernel.scan_plan(0, 2, 4096, D)
+
+
+@pytest.mark.parametrize("n,profile", [(4096, "seal"), (4096, "tpu32"), (8192, "seal"),
+                                       (8192, "tpu32"), (16384, "seal")])
+def test_kernel_times_shapes_follow_the_served_request(n, profile):
+    """kernel_times derives its checks' scan shapes from a 2^20-item
+    request's parameters: its digit count is the server's (ops.decompose),
+    and its hypercube and NTT chain are the database's."""
+    from pir_tpu_torch import kernel_times as kt
+    from pir_tpu_torch.core.context import PirContext
+    from pir_tpu_torch.core.params import create_pir_parameters
+    from pir_tpu_torch.ops import decompose
+
+    ep = kt.encryption_params(profile, n)
+    params = create_pir_parameters(kt.ITEMS, kt.ITEM_BYTES, kt.DIMS, ep)
+    assert kt.expansion_ratio(ep) == decompose.expansion_ratio(PirContext(params, "cpu"))
+    assert kt.request_dims(ep) == params.dimensions
+    cases = {c[0]: c for c in kt.scan_cases() + kt.shoup_cases()}
+    if n == 4096 and profile == "seal":
+        assert cases["K1 inner"][3:5] == params.dimensions and cases["K1 upper"][3] == 8
+    if n == 8192:
+        label = "K1 N=8192" if profile == "seal" else "K5 N=8192"
+        assert cases[f"{label} inner"][3:] == (*params.dimensions, n)
+        assert cases[f"{label} upper"][3:] == (2 * kt.expansion_ratio(ep), params.dimensions[0], n)
+    if n == 16384:
+        assert cases["K7 N=16384 inner"][1:] == (ep.ct_modulus, *params.dimensions, n)
