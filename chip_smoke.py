@@ -18,9 +18,10 @@ Phases, each of which raises on failure:
    time and bound on a line of their own) and at N=256 (K3's ring); B at a
    2^20-item request's inner and upper scans with a hi plane (K1: SEAL's
    chain, a u8 plane at N=4096 and a u16 plane at N=8192) and without (K5,
-   tpu32, N=4096 and 8192); C at S = 32 columns with a hi plane (K4) and
-   without (K4-u32), at N=4096 and 8192, beside 16 calls of kernel B on the
-   same columns, with GB/s of database planes; B's runtime-moduli entry
+   tpu32, N=4096 and 8192); C at a 16-query batch's S = 32 columns with a
+   hi plane (K4) and without (K4-u32), at N=4096 and 8192, beside 16 calls
+   of kernel B on the same columns, with GB/s of database planes
+   (kernel_times.time_wide); B's runtime-moduli entry
    (K6) at the shapes of one rank of the limb-sharded meshes below; D (K7)
    at the inner scan of the Shoup-table database at N=4096, on SEAL's chain
    and on a chain of 60-bit moduli (above the planes' 48 bits, where its
@@ -93,7 +94,8 @@ written once) at 3.35 TB/s and its 32-bit integer multiply instructions at
 16.75 T/s (the on-chip guide's 67 TFLOP/s float32 rate is 128 lanes per SM;
 Hopper has 64 INT32 lanes per SM), counted for the arithmetic the kernel
 runs (12 multiplies a butterfly of kernel A where it grows, every modulus
-below 2^min(50, 63 - log2 N); 16 where it reduces).  Kernel
+below 2^min(50, 63 - log2 N); 16 where it reduces; 7 a scan product with a
+hi plane, 3 without).  Kernel
 times are device times of back-to-back launches queued behind a
 device-side sleep.  No single PyTorch
 call computes a modular contraction or a negacyclic NTT, so library_ms is
@@ -121,7 +123,6 @@ import numpy as np
 import torch
 
 from pir_tpu_torch import kernel_times as kt
-from pir_tpu_torch.kernel_times import random_residues
 
 ITEM_SIZE = 288
 DIMENSIONS = 2
@@ -238,18 +239,6 @@ def check_ntt_large(device, gen) -> dict:
                        if (r["label"], r["inverse"]) == head)}
 
 
-def planes_gb(hi, lo) -> float:
-    return ((0 if hi is None else hi.numel() * hi.element_size()) + lo.numel() * 4) / 1e9
-
-
-def random_planes(chain, P, D, n, device, gen):
-    """(hi, lo) planes [P, L, D, n] of random residues."""
-    from pir_tpu_torch.ops import scan_kernel
-
-    db = random_residues(chain, (P, D), n, device, gen)  # [P, D, L, n]
-    return scan_kernel.split_planes(db.transpose(1, 2).contiguous(), chain)
-
-
 def check_scan(device, gen) -> dict:
     """Kernel B vs its plain version (tolerance 0) at the main paths' shapes
     (kernel_times.scan_cases): the inner and upper scans with a hi plane
@@ -266,48 +255,16 @@ def check_scan(device, gen) -> dict:
 
 
 def check_scan_wide(device, gen) -> dict:
-    """Kernel C vs its plain version at a 2^20-item batched request's inner
-    scan (16 lanes: S = 32 columns; tolerance 0), with a hi plane (K4) and
-    without (K4-u32), at N=4096 and 8192, beside 16 calls of kernel B on the
-    same columns.  Returns the N=4096 headlines."""
-    from pir_tpu_torch.ops import modular, scan_kernel
-
-    headline = {}
-    for n, profile in ((POLY_DEGREE, "seal"), (POLY_DEGREE, "tpu32"), (8192, "seal"),
-                       (8192, "tpu32")):
-        ep = kt.encryption_params(profile, n)
-        chain = ep.ct_modulus
-        L = len(chain)
-        P, D = kt.request_dims(ep)
-        limbs = modular.LimbConstants(chain, device)
-        S = 32
-        sv = random_residues(chain, (D, S), n, device, gen)
-        hi, lo = random_planes(chain, P, D, n, device, gen)
-        got = scan_kernel.contract_wide_cuda(sv, hi, lo, limbs)
-        want = scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table)
-        err = kt.max_abs_err(got, want)
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"kernel C differs from plain at {profile} N={n}")
-        pairs = [sv[:, 2 * k : 2 * k + 2].contiguous() for k in range(S // 2)]
-        for k, x in enumerate(pairs[:2]):
-            if not torch.equal(scan_kernel.contract_cuda(x, hi, lo, limbs), got[:, 2 * k : 2 * k + 2]):
-                raise AssertionError(f"kernel C columns differ from kernel B at {profile} N={n}")
-        ms = kt.device_ms(lambda: scan_kernel.contract_wide_cuda(sv, hi, lo, limbs), 5)
-        b16_ms = kt.device_ms(lambda: [scan_kernel.contract_cuda(x, hi, lo, limbs) for x in pairs], 3)
-        plain_ms = kt.device_ms(lambda: scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table), 1)
-        gb = planes_gb(hi, lo)
-        variant = "K4" if hi is not None else "K4-u32"
-        numbers = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **kt.scan_bound(sv, hi, lo)}
-        if n == POLY_DEGREE:
-            headline[variant] = numbers
-        log(f"kernel C ({variant}) {profile} sv [{D},{S},{L},{n}] planes [{P},{L},{D},{n}]: "
-            f"bit-equal to plain (max_abs_err 0); kernel {ms:.4f} ms "
-            f"({gb / ms * 1e3:.1f} GB/s of planes); 16 x kernel B on the same columns "
-            f"{b16_ms:.4f} ms ({gb / (b16_ms / 16) * 1e3:.1f} GB/s each); plain {plain_ms:.4f} ms, "
-            f"bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']})")
-        del sv, hi, lo, got, want, pairs
-        torch.cuda.empty_cache()
-    return headline
+    """Kernel C vs its plain version (tolerance 0) at a 2^20-item batched
+    request's inner scan (16 lanes: S = 32 columns), with a hi plane (K4)
+    and without (K4-u32), at N=4096 and 8192 (kernel_times.time_wide),
+    beside 16 calls of kernel B on the same columns.  Returns the N=4096
+    headlines."""
+    heads = {"K4": "K4", "K4-u32": "K4-u32"}
+    rows = kt.time_wide(device, gen, plain=True)
+    for r in rows:
+        log(kt.wide_line(r))
+    return {heads[r["label"]]: {k: r[k] for k in NUMBERS} for r in rows if r["label"] in heads}
 
 
 def check_scan_shoup(device, gen) -> dict:

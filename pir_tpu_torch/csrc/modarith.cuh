@@ -47,3 +47,32 @@ __device__ __forceinline__ uint64_t add_mod(uint64_t a, uint64_t b,
   const uint64_t s = a + b;
   return s >= q ? s - q : s;
 }
+
+// The scans' exact sums (csrc/scan.cu, csrc/scan_wide.cu), three 32-bit
+// words with the carry chain (mad.cc / madc):
+// (a2:a1:a0) += (xh:xl) * (wh:wl), 96-bit wrap; xh, wh < 2^16.  Seven
+// multiply-adds: the low product's carry out of a1 enters a2 with xh * wh
+// (< 2^32), then the two cross products go into a1:a2.
+__device__ __forceinline__ void mac96(uint32_t& a0, uint32_t& a1, uint32_t& a2,
+                                      uint32_t xl, uint32_t xh, uint32_t wl,
+                                      uint32_t wh) {
+  asm("mad.lo.cc.u32 %0, %3, %5, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %5, %1;\n\t"
+      "madc.lo.u32 %2, %4, %6, %2;\n\t"
+      "mad.lo.cc.u32 %1, %3, %6, %1;\n\t"
+      "madc.hi.u32 %2, %3, %6, %2;\n\t"
+      "mad.lo.cc.u32 %1, %4, %5, %1;\n\t"
+      "madc.hi.u32 %2, %4, %5, %2;"
+      : "+r"(a0), "+r"(a1), "+r"(a2)
+      : "r"(xl), "r"(xh), "r"(wl), "r"(wh));
+}
+
+// (a2:a1:a0) += x * w for single words x, w (no hi plane).
+__device__ __forceinline__ void mac32(uint32_t& a0, uint32_t& a1, uint32_t& a2,
+                                      uint32_t x, uint32_t w) {
+  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(a0), "+r"(a1), "+r"(a2)
+      : "r"(x), "r"(w));
+}

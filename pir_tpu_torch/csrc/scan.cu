@@ -42,13 +42,14 @@
 //
 // What bounds it on the H100: the database planes, 5 bytes per coefficient
 // at the 36-bit chain (26,244 x 2 x 4096 x 5 B ~ 1.07 GB per inner scan),
-// read once at 3.35 TB/s, against 2 x 8 multiply-adds per database word on
+// read once at 3.35 TB/s, against 2 x 7 multiply-adds per database word on
 // the CUDA cores' 32-bit integer pipe, which runs close behind.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "async.cuh"
 #include "modarith.cuh"
 
 namespace {
@@ -69,32 +70,6 @@ struct HiWord<2> {
   using vec = uint2;
 };
 
-// (a2:a1:a0) += (xh:xl) * (wh:wl), 96-bit wrap; xh, wh < 2^16.
-__device__ __forceinline__ void mac96(uint32_t& a0, uint32_t& a1, uint32_t& a2,
-                                      uint32_t xl, uint32_t xh, uint32_t wl,
-                                      uint32_t wh) {
-  asm("mad.lo.cc.u32 %0, %3, %5, %0;\n\t"
-      "madc.hi.cc.u32 %1, %3, %5, %1;\n\t"
-      "addc.u32 %2, %2, 0;\n\t"
-      "mad.lo.cc.u32 %1, %3, %6, %1;\n\t"
-      "madc.hi.u32 %2, %3, %6, %2;\n\t"
-      "mad.lo.cc.u32 %1, %4, %5, %1;\n\t"
-      "madc.hi.u32 %2, %4, %5, %2;\n\t"
-      "mad.lo.u32 %2, %4, %6, %2;"
-      : "+r"(a0), "+r"(a1), "+r"(a2)
-      : "r"(xl), "r"(xh), "r"(wl), "r"(wh));
-}
-
-// (a2:a1:a0) += x * w for single words x, w (the no-hi-plane variant).
-__device__ __forceinline__ void mac32(uint32_t& a0, uint32_t& a1, uint32_t& a2,
-                                      uint32_t x, uint32_t w) {
-  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
-      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
-      "addc.u32 %2, %2, 0;"
-      : "+r"(a0), "+r"(a1), "+r"(a2)
-      : "r"(x), "r"(w));
-}
-
 // (a2:a1:a0) += (b2:b1:b0)
 __device__ __forceinline__ void add96(uint32_t& a0, uint32_t& a1, uint32_t& a2,
                                       uint32_t b0, uint32_t b1, uint32_t b2) {
@@ -103,25 +78,6 @@ __device__ __forceinline__ void add96(uint32_t& a0, uint32_t& a1, uint32_t& a2,
       "addc.u32 %2, %2, %5;"
       : "+r"(a0), "+r"(a1), "+r"(a2)
       : "r"(b0), "r"(b1), "r"(b2));
-}
-
-// Asynchronous copies of a thread's own plane words into its own slots of
-// shared memory (so no barrier orders them: cp.async.wait_group suffices).
-__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-template <int kBytes>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "n"(kBytes));
-}
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;"); }
-template <int kPending>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending));
 }
 
 // The ring of rows in flight per thread, in shared memory: per slot the

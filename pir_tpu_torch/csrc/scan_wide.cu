@@ -15,45 +15,65 @@
 // [P, L, D_total, N], read over rows [j_begin, j_begin + D); the moduli come
 // as a u64 [L, 3] table of (q, floor(2^128/q) hi word, lo word).
 //
-// What it keeps from K4: ONE pass over the database planes serves every
-// column of the batch.  A block owns kTP prefixes x kNB coefficients of one
-// limb, stages that database slab in shared memory kDC rows at a time, and
-// its warps walk the columns in register tiles of kTS (one tile per warp,
-// up to kGroups warps = 32 columns), each tile against the staged words.  So
-// each database word leaves device memory once per call for S <= 32 (for
-// wider S, once per 32 columns); each selection-vector word is read by the
-// ceil(P / kTP) blocks of its (coefficient tile, limb), which run side by
-// side (prefix tiles are the grid's fastest axis) and share it through L2.
+// Arithmetic: each product is summed exactly in a three-word (96-bit)
+// accumulator with the carry chain (mac96: 7 multiply-adds with a hi plane,
+// mac32: 3 without; csrc/modarith.cuh); with moduli below 2^b and
+// D <= 2^(96-2b) rows (pallas_scan.max_raw_chunk) it cannot wrap.
 //
-// What bounds it on the H100: arithmetic and the selection vector, not
-// device memory.  The sum is kept exact in a three-word (96-bit)
-// accumulator: with moduli below 2^b and D <= 2^(96-2b) rows
-// (pallas_scan.max_raw_chunk) it cannot wrap.  A product of x = xh:xl and
-// w = wh:wl (16:32-bit halves) adds in 8 multiply-adds with the carry chain
-// (mad.cc / madc), against about 14 for a 64x64->128 product and a 128-bit
-// add; without a hi plane it is 3.  At the batched bench shape (P = D = 162,
-// S = 32, L = 2, N = 4096: 6.9e9 products) it took 6.40 ms against 15.52 ms
-// for 16 calls of kernel B on the same columns, and 5.16 ms against 8.92 ms
-// at the tpu32 shape (L = 3), reading the planes at 168 and 250 GB/s
-// (NVIDIA H100 80GB HBM3, 700 W).  Each selection-vector word is read by
-// ceil(P / kTP) = 41 prefix tiles, from L2.  The tile, 4 prefixes x 4
-// columns (48 accumulator registers), fits 128 registers without spills, so
-// two blocks share an SM; 8 x 4 and 6 x 4 tiles spilled, and 8 x 2 or
-// 12 x 2 tiles over 16 warps were no faster.
+// What bounds it on the H100: the multiply-adds.  A thread holds a 4 x 4
+// tile (4 prefixes x 4 columns of one coefficient, 48 accumulator
+// registers), which fits 128 registers without spills.  For each row it
+// needs 4 selection-vector words and 4 database words; read from device
+// memory (or L2) per thread, the selection vector alone is 2 bytes per
+// product, and blocks that share the database but only 4 prefixes re-read
+// each sv word from L2 ceil(P / 4) times (41 at the bench shape), which
+// without a hi plane set the time.  Staged as below, the kernel runs close
+// to its multiply-adds alone: at the bench's batched shape (P = D = 162,
+// S = 32, L = 2, N = 4096, u8 hi plane) 5.07 ms as built, 4.69 ms with the
+// copies taken out, 0.87 ms with the multiply-adds taken out (NVIDIA H100
+// 80GB HBM3, 700 W; pir_tpu_torch/scan_wide_variants.py).
+//
+// Design: a block of 16 warps covers 32 coefficients (one per lane) of one
+// limb, `columns` = 4 x column warps selection-vector columns and
+// `prefixes` = 4 x prefix warps database prefixes (16 x 16 from S = 9 on,
+// 32 x 8 for S <= 8), and stages `rows` rows of both operands at a time in
+// shared memory: sv [rows][columns][32] u64, the lo plane
+// [rows][prefixes][32] u32 and the hi plane [rows][prefixes][32].  Every
+// thread reads its 4 sv and 4 database words of a row from there, so an sv
+// word leaves L2 once per prefix tile (ceil(162 / 16) = 11 times at the
+// bench shape) and a database word once per column group (twice at
+// S = 32).  Each thread copies one 16-byte piece of each staged row (of sv,
+// of the lo plane or of the hi plane) with cp.async (csrc/async.cuh), its
+// source and destination advanced by additions only, into a ring of
+// `stages` stages: right after a stage's barrier the threads issue the
+// whole stage after next, which lands while the block multiplies this one
+// and the next (issued a row at a time among the multiply-adds, or with
+// per-row address arithmetic, the copies cost more).  Column groups are the
+// grid's fastest axis, prefix tiles the next: the blocks that read one
+// database slab, and the prefix tiles that read one sv slab, run side by
+// side and meet in L2.  Warps whose prefixes or columns all lie past the
+// work copy and skip the multiply-adds.  ops/scan_kernel.py::scan_wide_plan
+// lays out the launch (3 stages of 8 rows: 159,744 B of shared memory at
+// the bench shape with a u8 hi plane, 172,032 B with a u16 one, 147,456 B
+// without; rows halved while a ring exceeds 232,448 B), one block an SM.
+// A piece that runs past N or is not 16-byte aligned (a ragged or odd N) is
+// copied byte by byte.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "async.cuh"
 #include "modarith.cuh"
 
 namespace {
 
-constexpr int kNB = 32;      // coefficients per block (one warp's lanes)
-constexpr int kGroups = 8;   // column tiles per block pass (one warp each)
-constexpr int kTS = 4;       // columns per thread
-constexpr int kTP = 4;       // prefixes per block
-constexpr int kDC = 16;      // database rows staged per step
+constexpr int kNB = 32;      // coefficients per block, one per lane
+constexpr int kPT = 4;       // prefixes of a thread's accumulators
+constexpr int kCols = 4;     // columns of a thread's accumulators
+constexpr int kWarps = 16;   // prefix warps x column warps
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxShared = 232448;  // a block's dynamic shared memory on the H100
 
 template <int kHiBytes>
 struct HiWord {
@@ -64,140 +84,218 @@ struct HiWord<2> {
   using type = uint16_t;
 };
 
-// (a2:a1:a0) += (xh:xl) * (wh:wl), 96-bit wrap; xh, wh < 2^16.
-__device__ __forceinline__ void mac96(uint32_t& a0, uint32_t& a1, uint32_t& a2,
-                                      uint32_t xl, uint32_t xh, uint32_t wl,
-                                      uint32_t wh) {
-  asm("mad.lo.cc.u32 %0, %3, %5, %0;\n\t"
-      "madc.hi.cc.u32 %1, %3, %5, %1;\n\t"
-      "addc.u32 %2, %2, 0;\n\t"
-      "mad.lo.cc.u32 %1, %3, %6, %1;\n\t"
-      "madc.hi.u32 %2, %3, %6, %2;\n\t"
-      "mad.lo.cc.u32 %1, %4, %5, %1;\n\t"
-      "madc.hi.u32 %2, %4, %5, %2;\n\t"
-      "mad.lo.u32 %2, %4, %6, %2;"
-      : "+r"(a0), "+r"(a1), "+r"(a2)
-      : "r"(xl), "r"(xh), "r"(wl), "r"(wh));
+// cp.async.wait_group with a run-time count (stages - 2, stages in 2..4)
+__device__ __forceinline__ void copy_wait_upto(int pending) {
+  if (pending >= 2)
+    copy_wait<2>();
+  else if (pending == 1)
+    copy_wait<1>();
+  else
+    copy_wait<0>();
 }
 
-// (a2:a1:a0) += x * w for single words x, w (the no-hi-plane variant).
-__device__ __forceinline__ void mac32(uint32_t& a0, uint32_t& a1, uint32_t& a2,
-                                      uint32_t x, uint32_t w) {
-  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
-      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
-      "addc.u32 %2, %2, 0;"
-      : "+r"(a0), "+r"(a1), "+r"(a2)
-      : "r"(x), "r"(w));
+// A thread's copies: the same 16-byte piece of every row of a stage (see
+// the kernel), from `src` (row j's piece at src + j * stride) into the
+// stage at `dst` (a staged row `row` bytes after the previous one).  A piece
+// whose `bytes` (of the 16, inside the ring) are all there and whose rows
+// are all 16-byte aligned is one cp.async; another (a ragged or odd N) is
+// copied byte by byte, which the barrier before the stage's use makes
+// visible as well; a piece of no column or prefix has no bytes.
+struct Piece {
+  const unsigned char* src;
+  int64_t stride;
+  int dst, row, bytes;
+  bool whole;
+  __device__ void copy(unsigned char* to, const unsigned char* from) const {
+    if (whole) {
+      copy_async16(to, from);
+    } else {
+      for (int i = 0; i < bytes; ++i) to[i] = from[i];
+    }
+  }
+};
+
+// bytes of a piece that lie inside the ring, of the `left` bytes of its
+// row from the piece's start
+__device__ __forceinline__ int piece_bytes(int64_t left) {
+  return left <= 0 ? 0 : left >= 16 ? 16 : static_cast<int>(left);
 }
 
-// grid (ceil(P / kTP), ceil(N / kNB), L * passes), block (kNB, groups):
-// pass k covers columns [k * groups * kTS, (k + 1) * groups * kTS).
+// grid (column groups, prefix tiles, coefficient tiles x L), kThreads
+// threads: column warp cx = warp % 2^col_log2, prefix warp py = warp >>
+// col_log2.  A thread sums kPT prefixes x kCols columns.
 template <int kHiBytes>
-__global__ void __launch_bounds__(kNB * kGroups, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 scan_wide_kernel(const uint64_t* __restrict__ sv,
                  const typename HiWord<kHiBytes>::type* __restrict__ db_hi,
                  const uint32_t* __restrict__ db_lo,
                  const uint64_t* __restrict__ consts,
                  uint64_t* __restrict__ out, int64_t P, int S, int L,
-                 int64_t d_total, int64_t j_begin, int64_t D, int64_t N) {
+                 int64_t d_total, int64_t j_begin, int64_t D, int64_t N,
+                 int col_log2, int rows, int stages) {
   using HiT = typename HiWord<kHiBytes>::type;
   constexpr bool kHasHi = kHiBytes > 0;
-  __shared__ uint32_t lo_s[kDC][kTP][kNB];
-  __shared__ HiT hi_s[kHasHi ? kDC : 1][kTP][kNB];
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int lane = threadIdx.x;
-  const int groups = blockDim.y;
-  const int tid = threadIdx.y * kNB + lane;
-  const int nthreads = groups * kNB;
-  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kTP;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.y) * kNB;
+  const int ts = kCols << col_log2;           // the block's columns
+  const int tp = (kPT * kWarps) >> col_log2;  // the block's prefixes
+  const int sv_bytes = rows * ts * kNB * 8;   // a stage: sv, then lo, then hi
+  const int lo_bytes = rows * tp * kNB * 4;
+  const int slot_bytes = sv_bytes + lo_bytes + (kHasHi ? rows * tp * kNB * kHiBytes : 0);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int cx = (tid >> 5) & ((1 << col_log2) - 1);
+  const int py = (tid >> 5) >> col_log2;
+  const int s_blk = blockIdx.x * ts;
+  const int64_t p_blk = static_cast<int64_t>(blockIdx.y) * tp;
   const int l = blockIdx.z % L;
-  const int s0 = (blockIdx.z / L) * groups * kTS + threadIdx.y * kTS;
-  const int64_t n = n0 + lane;
-  const int64_t n_in = n < N ? n : N - 1;  // loads stay in bounds; no store
+  const int64_t n0 = static_cast<int64_t>(blockIdx.z / L) * kNB;
+  // a warp whose prefixes all lie past P (in the last prefix tile) or whose
+  // columns all lie past S copies its pieces and skips the multiply-adds,
+  // which leaves the SM to the warps with work
+  const bool computes = p_blk + py * kPT < P && s_blk + cx * kCols < S;
 
-  // selection-vector words of this thread's columns (clamped to S - 1; the
-  // extra columns are computed and dropped)
-  const int64_t sv_row = static_cast<int64_t>(S) * L * N;
-  const uint64_t* svp[kTS];
-#pragma unroll
-  for (int t = 0; t < kTS; ++t) {
-    const int s = s0 + t < S ? s0 + t : S - 1;
-    svp[t] = sv + (static_cast<int64_t>(s) * L + l) * N + n_in;
+  // this thread's piece of each staged row: threads [0, 16 ts) take sv (a
+  // column's 32 words are 16 pieces), the next 8 tp the lo plane (8 pieces
+  // a prefix), the next 2 hi_bytes tp the hi plane, the rest none (the plan
+  // keeps the pieces within kThreads, each operand's a multiple of a warp);
+  // columns past S and prefixes past P are not copied (their sums are never
+  // stored)
+  Piece pc{reinterpret_cast<const unsigned char*>(db_lo), 0, 0, 0, 0, false};
+  {
+    const int64_t left = N - n0;  // coefficients of this tile inside the ring
+    int k = tid;
+    if (k < 16 * ts) {
+      const int col = k / 16, part = k % 16;
+      pc.row = ts * kNB * 8;
+      if (s_blk + col < S) {
+        pc.src = reinterpret_cast<const unsigned char*>(
+                     sv + (static_cast<int64_t>(s_blk + col) * L + l) * N + n0) + 16 * part;
+        pc.stride = static_cast<int64_t>(S) * L * N * 8;
+        pc.dst = col * kNB * 8 + 16 * part;
+        pc.bytes = piece_bytes(left * 8 - 16 * part);
+      }
+    } else if ((k -= 16 * ts) < 8 * tp) {
+      const int pp = k / 8, part = k % 8;
+      pc.row = tp * kNB * 4;
+      if (p_blk + pp < P) {
+        pc.src = reinterpret_cast<const unsigned char*>(
+                     db_lo + (((p_blk + pp) * L + l) * d_total + j_begin) * N + n0) + 16 * part;
+        pc.stride = N * 4;
+        pc.dst = sv_bytes + pp * kNB * 4 + 16 * part;
+        pc.bytes = piece_bytes(left * 4 - 16 * part);
+      }
+    } else if (kHasHi && (k -= 8 * tp) < 2 * kHiBytes * tp) {
+      const int pp = k / (2 * kHiBytes), part = k % (2 * kHiBytes);
+      pc.row = tp * kNB * kHiBytes;
+      if (p_blk + pp < P) {
+        pc.src = reinterpret_cast<const unsigned char*>(
+                     db_hi + (((p_blk + pp) * L + l) * d_total + j_begin) * N + n0) + 16 * part;
+        pc.stride = N * kHiBytes;
+        pc.dst = sv_bytes + lo_bytes + pp * kNB * kHiBytes + 16 * part;
+        pc.bytes = piece_bytes(left * kHiBytes - 16 * part);
+      }
+    }
+    pc.whole = pc.bytes == 16 && (reinterpret_cast<uintptr_t>(pc.src) & 15) == 0 &&
+               (pc.stride & 15) == 0;
   }
 
-  uint32_t acc[kTP][kTS][3];
-#pragma unroll
-  for (int p = 0; p < kTP; ++p)
-#pragma unroll
-    for (int t = 0; t < kTS; ++t) acc[p][t][0] = acc[p][t][1] = acc[p][t][2] = 0;
+  // this thread's piece of each row of stage c (D's rows [c * rows,
+  // c * rows + rows)) into ring slot c % stages
+  auto copy_stage = [&](int c) {
+    const int64_t j0 = static_cast<int64_t>(c) * rows;
+    const int n = pc.bytes == 0 || D <= j0 ? 0 : D - j0 < rows ? static_cast<int>(D - j0) : rows;
+    const unsigned char* from = pc.src + j0 * pc.stride;
+    unsigned char* to = smem + (c % stages) * slot_bytes + pc.dst;
+    for (int jj = 0; jj < n; ++jj, from += pc.stride, to += pc.row) pc.copy(to, from);
+  };
 
-  for (int64_t j0 = 0; j0 < D; j0 += kDC) {
-    // stage rows [j0, j0 + kDC) of the block's kTP prefixes; zeros past
-    // the ends contribute nothing
-    for (int e = tid; e < kDC * kTP * kNB; e += nthreads) {
-      const int nn = e % kNB;
-      const int tp = (e / kNB) % kTP;
-      const int jj = e / (kNB * kTP);
-      const int64_t p = p0 + tp;
-      const int64_t j = j0 + jj;
-      uint32_t w_lo = 0;
-      HiT w_hi = 0;
-      if (p < P && j < D && n0 + nn < N) {
-        const int64_t idx = ((p * L + l) * d_total + j_begin + j) * N + n0 + nn;
-        w_lo = db_lo[idx];
-        if constexpr (kHasHi) w_hi = db_hi[idx];
-      }
-      lo_s[jj][tp][nn] = w_lo;
-      if constexpr (kHasHi) hi_s[jj][tp][nn] = w_hi;
-    }
-    __syncthreads();
-
-    const int rows = D - j0 < kDC ? static_cast<int>(D - j0) : kDC;
-    for (int jj = 0; jj < rows; ++jj) {
-      const int64_t off = (j0 + jj) * sv_row;
-      uint32_t xl[kTS], xh[kTS];
+  uint32_t acc[kPT][kCols][3];
 #pragma unroll
-      for (int t = 0; t < kTS; ++t) {
-        const uint64_t x = svp[t][off];
+  for (int p = 0; p < kPT; ++p)
+#pragma unroll
+    for (int t = 0; t < kCols; ++t) acc[p][t][0] = acc[p][t][1] = acc[p][t][2] = 0;
+
+  const int chunks = static_cast<int>((D + rows - 1) / rows);
+  for (int c = 0; c < stages - 1; ++c) {
+    copy_stage(c);
+    copy_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    copy_wait_upto(stages - 2);  // this thread's copies of stage c have landed
+    __syncthreads();             // everyone's have, and stage c - 1 is consumed
+    copy_stage(c + stages - 1);  // into stage c - 1's slot
+    copy_commit();
+
+    const unsigned char* slot = smem + (c % stages) * slot_bytes;
+    const uint64_t* x_s = reinterpret_cast<const uint64_t*>(slot) + cx * kCols * kNB + lane;
+    const uint32_t* wl_s =
+        reinterpret_cast<const uint32_t*>(slot + sv_bytes) + py * kPT * kNB + lane;
+    const HiT* wh_s = reinterpret_cast<const HiT*>(slot + sv_bytes + lo_bytes) +
+                      py * kPT * kNB + lane;
+    const int64_t j0 = static_cast<int64_t>(c) * rows;
+    const int nrows = !computes ? 0 : D - j0 < rows ? static_cast<int>(D - j0) : rows;
+    for (int jj = 0; jj < nrows; ++jj) {
+      uint32_t xl[kCols], xh[kCols];
+#pragma unroll
+      for (int t = 0; t < kCols; ++t) {
+        const uint64_t x = x_s[(jj * ts + t) * kNB];
         xl[t] = static_cast<uint32_t>(x);
         xh[t] = static_cast<uint32_t>(x >> 32);
       }
 #pragma unroll
-      for (int p = 0; p < kTP; ++p) {
-        const uint32_t wl = lo_s[jj][p][lane];
+      for (int p = 0; p < kPT; ++p) {
+        const uint32_t wl = wl_s[(jj * tp + p) * kNB];
         if constexpr (kHasHi) {
-          const uint32_t wh = hi_s[jj][p][lane];
+          const uint32_t wh = wh_s[(jj * tp + p) * kNB];
 #pragma unroll
-          for (int t = 0; t < kTS; ++t)
+          for (int t = 0; t < kCols; ++t)
             mac96(acc[p][t][0], acc[p][t][1], acc[p][t][2], xl[t], xh[t], wl, wh);
         } else {
 #pragma unroll
-          for (int t = 0; t < kTS; ++t)
+          for (int t = 0; t < kCols; ++t)
             mac32(acc[p][t][0], acc[p][t][1], acc[p][t][2], xl[t], wl);
         }
       }
     }
-    __syncthreads();
   }
 
+  const int64_t n = n0 + lane;
   if (n >= N) return;
   const uint64_t q = consts[3 * l];
   const uint64_t rh = consts[3 * l + 1];
   const uint64_t rl = consts[3 * l + 2];
 #pragma unroll
-  for (int p = 0; p < kTP; ++p) {
+  for (int p = 0; p < kPT; ++p) {
+    const int64_t pp = p_blk + py * kPT + p;
 #pragma unroll
-    for (int t = 0; t < kTS; ++t) {
-      const int64_t pp = p0 + p;
-      const int s = s0 + t;
+    for (int t = 0; t < kCols; ++t) {
+      const int s = s_blk + cx * kCols + t;
       if (pp < P && s < S) {
         const uint64_t lo = (static_cast<uint64_t>(acc[p][t][1]) << 32) | acc[p][t][0];
-        out[((pp * S + s) * L + l) * N + n] =
-            barrett_reduce_128(acc[p][t][2], lo, q, rh, rl);
+        out[((pp * S + s) * L + l) * N + n] = barrett_reduce_128(acc[p][t][2], lo, q, rh, rl);
       }
     }
   }
+}
+
+template <int kHiBytes>
+int launch(const void* sv, const void* db_hi, const void* db_lo, const void* consts,
+           void* out, int64_t P, int S, int L, int64_t d_total, int64_t j_begin, int64_t D,
+           int64_t N, int col_log2, int rows, int stages, int shared_bytes, dim3 grid,
+           cudaStream_t s) {
+  const auto kernel = scan_wide_kernel<kHiBytes>;
+  // above 48 KB a block's dynamic shared memory must be asked for
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, shared_bytes, s>>>(
+      static_cast<const uint64_t*>(sv),
+      static_cast<const typename HiWord<kHiBytes>::type*>(db_hi),
+      static_cast<const uint32_t*>(db_lo), static_cast<const uint64_t*>(consts),
+      static_cast<uint64_t*>(out), P, S, L, d_total, j_begin, D, N, col_log2, rows, stages);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -208,38 +306,42 @@ extern "C" {
 // [P, L, d_total, N] over j in [j_begin, j_begin + D).  hi_bytes is the hi
 // plane's element size: 1 or 2, or 0 for no hi plane (db_hi unused, moduli
 // below 2^32).  D <= 2^(96 - 2 * bits) keeps the 96-bit sums exact (the
-// caller chunks).  Returns cudaGetLastError().
+// caller chunks).  The launch (ops/scan_kernel.py::scan_wide_plan): a
+// block of 16 warps of 4 x 4 tiles covers `prefixes` x `columns` (16 x 16
+// or 32 x 8), at most one 16-byte piece of a staged row a thread; a ring
+// of `stages` (2-4) stages of `rows` rows in shared_bytes
+// of dynamic shared memory; and a grid of col_tiles x prefix_tiles x
+// coeff_limb_tiles blocks that must cover S, P and ceil(N / 32) * L.
+// Returns a CUDA error code.
 int pir_scan_wide(const void* sv, const void* db_hi, const void* db_lo,
                   const void* consts, void* out, int hi_bytes, int64_t P, int S,
                   int L, int64_t d_total, int64_t j_begin, int64_t D, int64_t N,
-                  void* stream) {
-  if (S < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int groups = (S + kTS - 1) / kTS < kGroups ? (S + kTS - 1) / kTS : kGroups;
-  const int passes = (S + groups * kTS - 1) / (groups * kTS);
-  const dim3 grid(static_cast<unsigned>((P + kTP - 1) / kTP),
-                  static_cast<unsigned>((N + kNB - 1) / kNB),
-                  static_cast<unsigned>(L * passes));
-  const dim3 block(kNB, groups);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const uint64_t*>(sv);
-  const auto* lo = static_cast<const uint32_t*>(db_lo);
-  const auto* c = static_cast<const uint64_t*>(consts);
-  auto* y = static_cast<uint64_t*>(out);
-  if (hi_bytes == 0) {
-    scan_wide_kernel<0><<<grid, block, 0, s>>>(
-        x, nullptr, lo, c, y, P, S, L, d_total, j_begin, D, N);
-  } else if (hi_bytes == 1) {
-    scan_wide_kernel<1><<<grid, block, 0, s>>>(
-        x, static_cast<const uint8_t*>(db_hi), lo, c, y, P, S, L, d_total,
-        j_begin, D, N);
-  } else if (hi_bytes == 2) {
-    scan_wide_kernel<2><<<grid, block, 0, s>>>(
-        x, static_cast<const uint16_t*>(db_hi), lo, c, y, P, S, L, d_total,
-        j_begin, D, N);
-  } else {
+                  int prefixes, int columns, int rows, int stages, int shared_bytes,
+                  int col_tiles, int prefix_tiles, int coeff_limb_tiles, void* stream) {
+  const int col_log2 = columns == 8 ? 1 : columns == 16 ? 2 : -1;
+  if (col_log2 < 0 || prefixes * columns != kWarps * kPT * kCols ||
+      16 * columns + (8 + 2 * hi_bytes) * prefixes > kThreads ||  // a piece a thread
+      S < 1 || L < 1 || P < 1 || D < 1 || N < 1 || rows < 1 || stages < 2 || stages > 4 ||
+      hi_bytes < 0 || hi_bytes > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t stage_bytes =
+      static_cast<int64_t>(rows) * kNB * (columns * 8 + prefixes * (4 + hi_bytes));
+  if (stage_bytes * stages > shared_bytes || shared_bytes > kMaxShared ||
+      static_cast<int64_t>(col_tiles) * columns < S ||
+      static_cast<int64_t>(prefix_tiles) * prefixes < P || coeff_limb_tiles < L ||
+      coeff_limb_tiles % L != 0 || static_cast<int64_t>(coeff_limb_tiles / L) * kNB < N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(col_tiles), static_cast<unsigned>(prefix_tiles),
+                  static_cast<unsigned>(coeff_limb_tiles));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hi_bytes == 0)
+    return launch<0>(sv, nullptr, db_lo, consts, out, P, S, L, d_total, j_begin, D, N, col_log2,
+                     rows, stages, shared_bytes, grid, s);
+  if (hi_bytes == 1)
+    return launch<1>(sv, db_hi, db_lo, consts, out, P, S, L, d_total, j_begin, D, N, col_log2,
+                     rows, stages, shared_bytes, grid, s);
+  return launch<2>(sv, db_hi, db_lo, consts, out, P, S, L, d_total, j_begin, D, N, col_log2,
+                   rows, stages, shared_bytes, grid, s);
 }
 
 const char* cuda_error_string(int code) {

@@ -1,12 +1,13 @@
-"""Device times of kernels A (NTT), B (scan) and D (Shoup-table scan) at
-the shapes one single-query request at the bench configuration gives them
-(2^20 items of 288 B, d=2, N=4096, SEAL's chain; the tpu32 profile and one
-rank of the meshes for kernel B's other cases), and at the rings above
-N=4096 (:func:`large_ring_shapes`, :func:`scan_cases`,
+"""Device times of kernels A (NTT), B (scan), C (wide scan) and D
+(Shoup-table scan) at the shapes one request at the bench configuration
+gives them (2^20 items of 288 B, d=2, N=4096, SEAL's chain; the tpu32
+profile and one rank of the meshes for kernel B's other cases; a batched
+request of 16 queries for kernel C), and at the rings above N=4096
+(:func:`large_ring_shapes`, :func:`scan_cases`, :func:`wide_cases`,
 :func:`shoup_cases`), each checked bit-equal to its plain version first.
-``chip_smoke.py`` makes its checks of the three kernels through
-:func:`time_ntt`, :func:`time_ntt_large`, :func:`time_scan` and
-:func:`time_shoup`.
+``chip_smoke.py`` makes its checks of the four kernels through
+:func:`time_ntt`, :func:`time_ntt_large`, :func:`time_scan`,
+:func:`time_wide` and :func:`time_shoup`.
 
     python3 pir_tpu_torch/kernel_times.py --out chiprun_out/times.json
     python3 pir_tpu_torch/kernel_times.py --root build/parent --label parent
@@ -34,7 +35,7 @@ IMAD_PER_S = 67e12 / 4  # 132 SMs x 64 INT32 lanes x 1.98 GHz
 # product (x w, quotient q) and 8 for the quotient's 64-bit high product
 MULS_SHOUP = 16
 MULS_SHOUP_GROW = 12  # kernel A's growing butterflies: the quotient from 3 partial products
-MULS_48BIT = 8   # per product with a hi plane (kernel B's three-word sum)
+MULS_48BIT = 7   # per product with a hi plane (the three-word sum, modarith.cuh::mac96)
 MULS_32BIT = 3   # without
 POLY_DEGREE = 4096
 PLAIN_BITS = 24
@@ -325,6 +326,64 @@ def time_scan(device, gen, plain: bool = False, reps: int = 20) -> "list[dict]":
     return rows
 
 
+BATCH_COLUMNS = 32  # a batched pass of 16 lanes: two ciphertext halves a query
+
+
+def wide_cases() -> "list[tuple[str, str, int]]":
+    """(label, profile, n) of kernel C's main-path shapes: the inner scan of
+    a 2^20-item batched request at 16 lanes (S = 32 columns; P = D_0
+    prefixes over D = D_1 rows) with a hi plane (K4: SEAL's chain, u8 at
+    N=4096, u16 at N=8192) and without (K4-u32: tpu32), at N=4096 and
+    8192."""
+    return [("K4", "seal", POLY_DEGREE), ("K4-u32", "tpu32", POLY_DEGREE),
+            ("K4 N=8192", "seal", 8192), ("K4-u32 N=8192", "tpu32", 8192)]
+
+
+def time_wide(device, gen, plain: bool = False, reps: int = 5) -> "list[dict]":
+    """Kernel C at wide_cases(): bit-equal to plain and, on its first two
+    column pairs, to kernel B; then timed, beside 16 calls of kernel B on
+    the same columns (``b16_ms``), and the plain version where `plain`."""
+    import torch
+
+    from pir_tpu_torch.ops import modular, scan_kernel
+
+    rows = []
+    for label, profile, n in wide_cases():
+        ep = encryption_params(profile, n)
+        chain = ep.ct_modulus
+        P, D = request_dims(ep)
+        limbs = modular.LimbConstants(chain, device)
+        sv = random_residues(chain, (D, BATCH_COLUMNS), n, device, gen)
+        db = random_residues(chain, (P, D), n, device, gen)
+        hi, lo = scan_kernel.split_planes(db.transpose(1, 2).contiguous(), chain)
+        del db
+        got = scan_kernel.contract_wide_cuda(sv, hi, lo, limbs)
+        err = max_abs_err(got, scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table))
+        if err:
+            raise AssertionError(f"kernel C differs from plain at {label}: {err}")
+        pairs = [sv[:, c : c + 2].contiguous() for c in range(0, BATCH_COLUMNS, 2)]
+        for c in (0, 2):
+            if not torch.equal(scan_kernel.contract_cuda(pairs[c // 2], hi, lo, limbs),
+                               got[:, c : c + 2]):
+                raise AssertionError(f"kernel C's columns differ from kernel B's at {label}")
+        del got
+        gb = ((0 if hi is None else hi.numel() * hi.element_size()) + lo.numel() * 4) / 1e9
+        ms = device_ms(lambda: scan_kernel.contract_wide_cuda(sv, hi, lo, limbs), reps)
+        row = {"label": label, "sv": list(sv.shape), "planes": list(lo.shape),
+               "hi_plane": None if hi is None else str(hi.dtype), "max_abs_err": err,
+               "ms": ms, "planes_gb_per_s": gb / ms * 1e3,
+               "b16_ms": device_ms(lambda: [scan_kernel.contract_cuda(x, hi, lo, limbs)
+                                            for x in pairs], 3),
+               **scan_bound(sv, hi, lo)}
+        if plain:
+            row["plain_ms"] = device_ms(
+                lambda: scan_kernel.contract_wide_plain(sv, hi, lo, limbs.table), 1)
+        rows.append(row)
+        del sv, hi, lo, pairs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def shoup_cases() -> "list[tuple[str, tuple, int, int, int]]":
     """(label, moduli, P, D, n) of kernel D's main-path shapes, each a
     2^20-item single-query request's inner scan of the Shoup-table
@@ -405,6 +464,15 @@ def scan_line(r) -> str:
             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+def wide_line(r) -> str:
+    return (f"kernel C ({r['label']}) sv {r['sv']} planes {r['planes']} (hi plane "
+            f"{r['hi_plane']}): bit-equal to plain (max_abs_err {r['max_abs_err']}); "
+            f"{r['ms']:.4f} ms ({r['planes_gb_per_s']:.1f} GB/s of planes, "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound); 16 x kernel B on the same columns "
+            f"{r['b16_ms']:.4f} ms" + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def shoup_line(r) -> str:
     return (f"kernel D {r['label']} sv {r['sv']} db+shoup {r['db']} ({r['bits']}-bit moduli): "
             f"bit-equal to plain (max_abs_err {r['max_abs_err']}); {r['ms']:.4f} ms "
@@ -437,7 +505,7 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     from pir_tpu_torch import kernels
 
-    for k in (kernels.NTT, kernels.SCAN, kernels.SCAN_SHOUP):
+    for k in (kernels.NTT, kernels.SCAN, kernels.SCAN_WIDE, kernels.SCAN_SHOUP):
         k.lib()
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -445,13 +513,14 @@ def main(argv=None) -> int:
     ntt = time_ntt(device, gen)
     large = time_ntt_large(device, gen)
     scan = time_scan(device, gen)
+    wide = time_wide(device, gen)
     shoup = time_shoup(device, gen)
     request_ms, request_bound_ms = request_sums(ntt)
     result = {"label": args.label, "package": pir_tpu_torch.__file__, "card": card,
-              "ntt": ntt, "ntt_large": large, "scan": scan, "shoup": shoup,
+              "ntt": ntt, "ntt_large": large, "scan": scan, "wide": wide, "shoup": shoup,
               "ntt_request_ms": request_ms, "ntt_request_bound_ms": request_bound_ms}
     for line in ([ntt_line(r) for r in ntt + large] + [scan_line(r) for r in scan]
-                 + [shoup_line(r) for r in shoup]):
+                 + [wide_line(r) for r in wide] + [shoup_line(r) for r in shoup]):
         print(f"[{args.label}] {line}", flush=True)
     print(f"[{args.label}] kernel A over one request's 22 launches: "
           f"{request_ms:.4f} ms (bound {request_bound_ms:.4f}); {card}")

@@ -152,7 +152,10 @@ _SCAN_ARGS = [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _I64, _I64, _I64, _I64
 # kernel B's: the same, then prefix_groups, row_splits, prefix_tiles,
 # coeff_tiles before the stream
 SCAN = CudaKernel("scan", "scan.cu", {"pir_scan": _SCAN_ARGS[:-1] + [_I32] * 4 + [_P]})
-SCAN_WIDE = CudaKernel("scan_wide", "scan_wide.cu", {"pir_scan_wide": _SCAN_ARGS})
+# kernel C's: the same, then prefixes, columns, rows, stages, shared_bytes
+# and the grid's three dimensions before the stream
+SCAN_WIDE = CudaKernel("scan_wide", "scan_wide.cu",
+                       {"pir_scan_wide": _SCAN_ARGS[:-1] + [_I32] * 8 + [_P]})
 # sv, db, db_shoup, consts, out, P, D, L, N, chunk, stream
 SCAN_SHOUP = CudaKernel(
     "scan_shoup", "scan_shoup.cu",

@@ -253,11 +253,67 @@ def contract_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
     return _scan_b(sv, db_hi, db_lo, limbs.table, _limbs_bits(limbs), j_begin, False)
 
 
+# Kernel C's launch (csrc/scan_wide.cu): SCAN_WIDE_WARPS warps a block, each
+# thread a SCAN_WIDE_TILE x SCAN_WIDE_TILE tile of (prefix, column) sums of
+# one of the block's SCAN_WIDE_COEFFS coefficients; the block stages
+# SCAN_WIDE_ROWS rows of both operands a stage in a ring of
+# SCAN_WIDE_STAGES stages, each thread copying at most one 16-byte piece
+# of a staged row.
+SCAN_WIDE_WARPS = 16
+SCAN_WIDE_TILE = 4
+SCAN_WIDE_COEFFS = 32
+SCAN_WIDE_ROWS = 8
+SCAN_WIDE_STAGES = 3
+SHARED_MAX_BYTES = 232448  # a block's dynamic shared memory on the H100
+
+
+@dataclass(frozen=True)
+class ScanWidePlan:
+    """Kernel C's launch: a block covers `prefixes` prefixes, `columns`
+    selection-vector columns and `coeffs` coefficients of one limb, and
+    stages `rows` rows of both operands at a time in a ring of `stages`
+    stages (`shared_bytes` of dynamic shared memory); the grid of (column
+    groups, prefix tiles, coefficient tiles x limbs) blocks it launches."""
+
+    prefixes: int
+    columns: int
+    coeffs: int
+    rows: int
+    stages: int
+    shared_bytes: int
+    grid: "tuple[int, int, int]"
+
+
+def scan_wide_plan(P: int, S: int, L: int, N: int, D: int, hi_bytes: int) -> ScanWidePlan:
+    """Give the columns 4 warps (16 columns) from S = 9 on and 2 for
+    S <= 8, the prefixes the other warps of 16 (16 or 32 prefixes), so a
+    ragged batch's few columns still share each staged selection-vector
+    word with more prefixes (64 x 4 would need more 16-byte pieces a staged
+    row than the block has threads).  Stage 8 rows (fewer where D is
+    smaller), halved while the ring would exceed SHARED_MAX_BYTES."""
+    if min(P, S, L, N, D) < 1:
+        raise ValueError(f"empty contraction P={P} S={S} L={L} N={N} D={D}")
+    if hi_bytes not in (0, 1, 2):
+        raise ValueError(f"hi plane of {hi_bytes} bytes")
+    col_warps = 2 if S <= 8 else 4
+    columns = SCAN_WIDE_TILE * col_warps
+    prefixes = SCAN_WIDE_TILE * SCAN_WIDE_WARPS // col_warps
+    row_bytes = SCAN_WIDE_COEFFS * (columns * 8 + prefixes * (4 + hi_bytes))
+    rows = min(SCAN_WIDE_ROWS, 1 << (D - 1).bit_length())
+    while SCAN_WIDE_STAGES * rows * row_bytes > SHARED_MAX_BYTES:
+        rows //= 2
+    grid = (-(-S // columns), -(-P // prefixes), -(-N // SCAN_WIDE_COEFFS) * L)
+    return ScanWidePlan(prefixes, columns, SCAN_WIDE_COEFFS, rows, SCAN_WIDE_STAGES,
+                        SCAN_WIDE_STAGES * rows * row_bytes, grid)
+
+
 def contract_wide_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:
     """Kernel C: sv int64 [D, S, L, N] (any S >= 1) against planes
     [P, L, D_total, N] over rows [j_begin, j_begin + D) -> reduced int64
-    [P, S, L, N], reading each database word once for up to 32 columns.
-    db_hi None (moduli below 2^32) runs the single-word variant (K4-u32)."""
+    [P, S, L, N], laid out by :func:`scan_wide_plan`: each selection-vector
+    word staged once for a block's 16 or 32 prefixes, each database word
+    once for its 8 or 16 columns.  db_hi None (moduli below 2^32) runs the
+    single-word variant (K4-u32)."""
     if sv.dim() != 4 or sv.shape[1] < 1:
         raise ValueError(f"kernel C takes sv [D, S, L, N], got {tuple(sv.shape)}")
     if sv.shape[0] > max_raw_chunk(limbs.moduli):
@@ -265,8 +321,14 @@ def contract_wide_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tenso
         raise ValueError(
             f"{sv.shape[0]} rows exceed the exact bound {max_raw_chunk(limbs.moduli)}"
         )
+    S = sv.shape[1]
+
+    def plan(P, L, N, D):
+        p = scan_wide_plan(P, S, L, N, D, 0 if db_hi is None else db_hi.element_size())
+        return (p.prefixes, p.columns, p.rows, p.stages, p.shared_bytes, *p.grid)
+
     return _launch(kernels.SCAN_WIDE, "pir_scan_wide", sv, db_hi, db_lo, limbs.table,
-                   _limbs_bits(limbs), j_begin)
+                   _limbs_bits(limbs), j_begin, plan=plan)
 
 
 def contract_dim_raw(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:

@@ -3,13 +3,15 @@
     python3 -m pir_tpu_torch.profile_request                  # 2^20 items
     python3 -m pir_tpu_torch.profile_request --log2-items 16 --out prof.json
     python3 -m pir_tpu_torch.profile_request --ct-mult          # N=8192 ct-mult
+    python3 -m pir_tpu_torch.profile_request --batched 16       # 16-query requests
 
 Builds the benchmark configuration (288-byte items, d=2, N=4096, 24-bit
 plain modulus, SEAL's BFVDefault chain, database from seed 42, client seed 7,
 seeded queries, replies mod-switched by ``reply_limbs_for``) — with
 ``--ct-mult`` the same items in ciphertext-multiplication mode at N=8192
 (``chip_smoke.py``'s phase 13) — fills the key cache with one request, then
-measures warm single-query requests:
+measures warm single-query requests, or with ``--batched Q`` warm
+``process_request_batched`` requests of Q queries each (no stage profile):
 
 * ``stages_ms``: the steps of ``process_request`` run one by one, each
   bracketed by ``torch.cuda.synchronize()``, mean over ``--reps`` requests;
@@ -19,7 +21,8 @@ measures warm single-query requests:
   calls, no profiler;
 * ``profiler``: ``torch.profiler`` over 3 requests — device kernels and
   copies launched, their summed and merged device time, the wall time, the
-  busy share (merged device time / wall) and the device time by kernel name.
+  busy share (merged device time / wall), the device time by kernel name and
+  a request's device time in each hand-written kernel (A-D).
 
 Prints one line per section and, as the last line, the whole result as one
 JSON object, which it also writes to ``--out`` when one is given.
@@ -30,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import time
 from collections import defaultdict
@@ -46,6 +50,10 @@ from pir_tpu_torch.utils.math import ceil_log2
 ITEM_SIZE = 288
 DB_SEED = 42
 CLIENT_SEED = 7
+# the hand-written kernels' device functions (csrc/*.cu) by kernel
+HAND_KERNELS = {"ntt_kernel": "A", "ntt_top_kernel": "A", "scan_kernel": "B",
+                "scan_wide_kernel": "C", "scan_shoup_kernel": "D"}
+_HAND_KERNEL = re.compile(r"\b(" + "|".join(HAND_KERNELS) + r")\b")
 
 
 def _sync(device: torch.device) -> None:
@@ -111,9 +119,10 @@ def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
     return response
 
 
-def device_profile(server: pt.PirServer, requests) -> dict:
-    """torch.profiler over the given requests: device events, busy share and
-    device time by name."""
+def device_profile(serve, requests) -> dict:
+    """torch.profiler over serve(request) for the given requests: device
+    events, busy share, device time by name, and each hand-written kernel's
+    device time a request."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,7 +130,7 @@ def device_profile(server: pt.PirServer, requests) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for req in requests:
-            server.process_request(req)
+            serve(req)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -142,6 +151,10 @@ def device_profile(server: pt.PirServer, requests) -> dict:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    hand: dict = defaultdict(float)
+    for name, (_, us) in by_name.items():
+        if m := _HAND_KERNEL.search(name):
+            hand[f"kernel {HAND_KERNELS[m[1]]}"] += us / 1e3 / len(requests)
     return {
         "requests": len(requests),
         "device_events": len(events),
@@ -149,6 +162,7 @@ def device_profile(server: pt.PirServer, requests) -> dict:
         "device_ms_merged": merged_us / 1e3,
         "wall_ms": wall_ms,
         "busy_share": merged_us / 1e3 / wall_ms,
+        "hand_kernels_ms_per_request": dict(sorted(hand.items())),
         "by_name": [
             {"name": name[:120], "count": c, "ms": us / 1e3} for name, (c, us) in top
         ],
@@ -163,7 +177,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the JSON result to this file")
     ap.add_argument("--ct-mult", action="store_true",
                     help="ciphertext-multiplication mode at N=8192")
+    ap.add_argument("--batched", type=int, metavar="Q",
+                    help="profile process_request_batched requests of Q queries")
     args = ap.parse_args(argv)
+    if args.batched is not None and (args.batched < 1 or args.ct_mult):
+        raise SystemExit("profile_request: --batched takes Q >= 1 queries, in decomposition mode")
     if not torch.cuda.is_available():
         raise SystemExit("profile_request: no CUDA device available")
     device = torch.device("cuda", 0)
@@ -192,30 +210,34 @@ def main(argv=None) -> int:
     server = pt.PirServer(db, params, reply_limbs=pt.reply_limbs_for(params))
     client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device="cpu")
     n_req = max(args.reps, args.spread, 3) + 1
-    requests = [client.create_request([(k * 7919) % db_size]) for k in range(n_req)]
-    server.process_request(requests[0])  # fills the key cache; builds kernels
+    queries = args.batched or 1
+    requests = [client.create_request([(k * queries + i) * 7919 % db_size for i in range(queries)])
+                for k in range(n_req)]
+    serve = server.process_request_batched if args.batched else server.process_request
+    serve(requests[0])  # fills the key cache; builds kernels
 
     stages: dict = {}
     levels = [0.0] * ceil_log2(min(params.dimensions_sum, params.encryption_params.poly_modulus_degree))
-    for req in requests[1 : 1 + args.reps]:
+    reps = 0 if args.batched else args.reps
+    for req in requests[1 : 1 + reps]:
         staged = staged_request(server, req, stages, levels)
         if staged.SerializeToString() != server.process_request(req).SerializeToString():
             raise AssertionError("staged request differs from process_request")
-    stages = {k: v / args.reps for k, v in stages.items()}
-    levels = [v / args.reps for v in levels]
+    stages = {k: v / reps for k, v in stages.items()}
+    levels = [v / reps for v in levels] if reps else []
 
     latency = []
     for req in requests[1 : 1 + args.spread]:
         t0 = time.perf_counter()
-        server.process_request(req)
+        serve(req)
         latency.append((time.perf_counter() - t0) * 1e3)
-    prof = device_profile(server, requests[1:4])
+    prof = device_profile(serve, requests[1:4])
 
     result = {
         "card": smi,
         "config": {"items": db_size, "item_bytes": ITEM_SIZE,
                    "dimensions": list(params.dimensions), "poly_degree": poly_degree,
-                   "ct_mult": args.ct_mult, "plain_bits": 24,
+                   "ct_mult": args.ct_mult, "batched": args.batched, "plain_bits": 24,
                    "reply_limbs": server.reply_limbs},
         "database_build_s": build_s,
         "stages_ms": stages,
@@ -228,12 +250,17 @@ def main(argv=None) -> int:
     print(f"database: {db_size} items, built in {build_s:.2f} s", flush=True)
     for name, ms in stages.items():
         print(f"stage {name}: {ms:.3f} ms ({ms / total:.1%})", flush=True)
-    print(f"stages total {total:.3f} ms (mean of {args.reps} staged requests)")
-    print("expansion per level (ms): " + ", ".join(f"{x:.3f}" for x in levels))
-    print("whole-request latency (ms): " + ", ".join(f"{x:.2f}" for x in latency))
+    if reps:
+        print(f"stages total {total:.3f} ms (mean of {reps} staged requests)")
+        print("expansion per level (ms): " + ", ".join(f"{x:.3f}" for x in levels))
+    print(f"whole-request latency, {queries} queries a request (ms): "
+          + ", ".join(f"{x:.2f}" for x in latency))
     print(f"profiler, {prof['requests']} requests: {prof['device_events']} device "
           f"events, device {prof['device_ms_merged']:.3f} ms (merged) of "
           f"{prof['wall_ms']:.3f} ms wall, busy share {prof['busy_share']:.3f}")
+    print("hand-written kernels, device ms a request: " + ", ".join(
+        f"{k} {ms:.3f} ({ms / (prof['wall_ms'] / prof['requests']):.2%} of the request)"
+        for k, ms in prof["hand_kernels_ms_per_request"].items()))
     for row in prof["by_name"][:12]:
         print(f"  {row['ms']:9.3f} ms  {row['count']:6d}x  {row['name']}")
     if args.out:

@@ -176,28 +176,42 @@ def test_scan_kernel_without_hi_plane_matches_plain(dev):
 
 
 @pytest.mark.parametrize(
-    "bits,P,D,S",
-    [((34, 36), 5, 7, 1), ((36, 36), 162, 162, 32), ((44, 46), 3, 40, 5),
-     ((26, 26, 26), 162, 162, 32), ((26, 27), 9, 20, 3), ((30, 30), 4, 33, 34)],
+    "bits,P,D,S,j_begin,n",
+    [((34, 36), 5, 7, 1, 0, 256), ((36, 36), 162, 162, 32, 0, 256), ((44, 46), 3, 40, 5, 0, 256),
+     ((26, 26, 26), 162, 162, 32, 0, 256), ((26, 27), 9, 20, 3, 0, 256), ((30, 30), 4, 33, 34, 0, 256),
+     ((26, 26), 5, 3, 1, 0, 64), ((34, 36), 64, 40, 2, 1, 64), ((41, 42), 33, 12, 5, 2, 64),
+     ((26, 27), 16, 17, 16, 0, 64), ((36, 36), 17, 9, 32, 3, 64), ((34, 36), 7, 12, 33, 0, 70),
+     ((41, 42), 20, 30, 32, 0, 96), ((30, 30), 9, 11, 2, 5, 70), ((26, 26), 40, 9, 32, 2, 64),
+     ((36, 36), 162, 162, 4, 0, 4096), ((26, 26, 26), 162, 162, 32, 0, 512),
+     ((43, 44), 114, 114, 32, 0, 512)],
 )
-def test_scan_wide_kernel_matches_plain(dev, bits, P, D, S):
-    """Kernel C (K4 with a hi plane, K4-u32 without) at odd S, S=32 and a
-    width beyond one block pass (S=34)."""
+def test_scan_wide_kernel_matches_plain(dev, bits, P, D, S, j_begin, n):
+    """Kernel C (K4 with a hi plane of 1 or 2 bytes, K4-u32 without) at the
+    edges of scan_wide_plan (the emulation test's shapes): S from 1 to 34
+    (8 and 16 columns a block, up
+    to three column groups), P below, at and above the prefix tile, D within
+    one stage, over two and around the ring, in exactness chunks (46 bits:
+    16 rows), rows from j_begin, N = 64, and ragged coefficient tiles (N =
+    70, whose plane rows are not 16-byte aligned, and 96)."""
     moduli = primes.coeff_modulus_from_bits(1024, list(bits))
     limbs = modular.LimbConstants(moduli, dev)
-    n = 256
+    cpu = modular.LimbConstants(moduli, "cpu")
     sv = residues(moduli, (D, S), n, dev, seed=P + S)
-    db = residues(moduli, (P, D), n, dev, seed=D).transpose(1, 2).contiguous()
+    d_total = j_begin + D + (2 if j_begin else 0)
+    db = residues(moduli, (P, d_total), n, dev, seed=D).transpose(1, 2).contiguous()
     hi, lo = scan_kernel.split_planes(db, moduli)
     assert (hi is None) == (max(bits) <= 32)
+    hi_cpu = None if hi is None else hi.cpu()
     variant = "pir_scan_wide." + ("u32" if hi is None else "hi")
     before = kernels.SCAN_WIDE.variant_launches.get(variant, 0)
-    got = scan_kernel.contract_dim_wide_auto(sv, hi, lo, limbs)  # 46-bit: 3 chunks
+    if j_begin:
+        got = scan_kernel.contract_dim_raw_wide(sv, hi, lo, limbs, j_begin)
+        want = scan_kernel.contract_wide_plain(sv.cpu(), hi_cpu, lo.cpu(), cpu.table, j_begin)
+    else:
+        got = scan_kernel.contract_dim_wide_auto(sv, hi, lo, limbs)  # 46-bit: 3 chunks
+        want = scan_kernel.contract_dim_wide_auto(sv.cpu(), hi_cpu, lo.cpu(), cpu)
     torch.cuda.synchronize()
     assert kernels.SCAN_WIDE.variant_launches[variant] > before
-    want = scan_kernel.contract_dim_wide_auto(
-        sv.cpu(), None if hi is None else hi.cpu(), lo.cpu(), modular.LimbConstants(moduli, "cpu")
-    )
     assert torch.equal(got.cpu(), want)
 
 

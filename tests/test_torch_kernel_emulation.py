@@ -1,14 +1,16 @@
-"""Kernels A (csrc/ntt.cu) and B (csrc/scan.cu) run on the CPU: the CUDA
-sources themselves, compiled by g++ against a small emulation of the CUDA
-runtime (one std::thread per CUDA thread, a std::barrier for
-__syncthreads, a byte buffer for the block's shared memory; the PTX
-carry chains and cp.async copies replaced by C equivalents), held bit for
-bit to the plain versions at every radix and row split their plans can
-choose, and kernel A at every ring up to N=32768 (its top-stage pass and
-sub-blocks above N=8192) on growing and reducing chains.
+"""Kernels A (csrc/ntt.cu), B (csrc/scan.cu) and C (csrc/scan_wide.cu) run
+on the CPU: the CUDA sources themselves, their csrc/*.cuh headers inlined,
+compiled by g++ against a small emulation of the CUDA runtime (one
+std::thread per CUDA thread, a std::barrier for __syncthreads, a byte
+buffer for the block's shared memory; the PTX carry chains and cp.async
+copies replaced by C equivalents), held bit for bit to the plain versions
+at every radix and row split their plans can choose, kernel A at every ring
+up to N=32768 (its top-stage pass and sub-blocks above N=8192) on growing
+and reducing chains, and kernel C at every edge of scan_wide_plan's layout.
 
 What this shows is the kernels' index arithmetic, twiddle choice,
-exchange layout, lazy-reduction bounds and row-split sums; it says nothing
+exchange layout, lazy-reduction bounds, row-split sums and kernel C's ring
+of staged rows; it says nothing
 of speed, and the card's own compiler and the PTX pieces are checked only
 by tests/test_torch_cuda.py on the card.  The compile itself checks kernel
 A's passes: a static_assert in csrc/ntt.cu holds every instantiation's
@@ -132,7 +134,8 @@ def emulation_source(name: str) -> str:
     """csrc/<name>.cu with its launches, dynamic shared memory and PTX
     turned into the emulation's C++."""
     src = (CSRC / f"{name}.cu").read_text()
-    src = src.replace('#include "modarith.cuh"', f'#include "{CSRC / "modarith.cuh"}"')
+    for header in sorted(CSRC.glob("*.cuh")):  # inlined, so REPLACED reaches their helpers
+        src = src.replace(f'#include "{header.name}"', header.read_text().replace("#pragma once", ""))
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(g_smem.data());", src)
     for fname, body in REPLACED.items():
@@ -158,7 +161,7 @@ def libs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cuda_emulation")
     (d / "cuda_runtime.h").write_text(RUNTIME_H)
     out = {}
-    for name in ("ntt", "scan"):
+    for name in ("ntt", "scan", "scan_wide"):
         (d / f"{name}.cpp").write_text(emulation_source(name))
         so = d / f"lib{name}.so"
         subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w", f"-I{d}",
@@ -169,6 +172,7 @@ def libs(tmp_path_factory):
     out["ntt"].pir_ntt.argtypes = kernels.NTT_ARGS
     out["scan"].pir_scan.argtypes = [P, P, P, P, P, I32, I64, I32, I32, I64, I64, I64, I64,
                                      I32, I32, I32, I32, P]
+    out["scan_wide"].pir_scan_wide.argtypes = kernels.SCAN_WIDE._entry_points["pir_scan_wide"]
     return out
 
 
@@ -314,3 +318,106 @@ def test_kernel_b_emulated_equals_plain(libs, bits, P, D, j_begin, n):
             groups, splits, -(-P // (2 * groups)), -(-n // 128), None)
         assert rc == 0
         assert torch.equal(out, want), splits
+
+
+# (bits, P, D, S, j_begin, n) of kernel C: hi planes of 0, 1 and 2 bytes;
+# S at both of scan_wide_plan's column widths (8, 16), over one, two
+# and three column groups (the last one of a single column at S = 33); P
+# below, at and above the plan's prefix tile (32 or 16 prefixes); D within
+# one stage, over two and around the ring of three stages; rows from
+# j_begin; N = 64, and N = 70 and 96, whose last coefficient tile is ragged
+# (at N = 70 the plane rows are not 16-byte aligned either).
+WIDE_CASES = [
+    ((26, 26), 5, 3, 1, 0, 64), ((34, 36), 64, 40, 2, 1, 64), ((41, 42), 33, 12, 5, 2, 64),
+    ((26, 27), 16, 17, 16, 0, 64), ((36, 36), 17, 9, 32, 3, 64), ((34, 36), 7, 12, 33, 0, 70),
+    ((41, 42), 20, 30, 32, 0, 96), ((30, 30), 9, 11, 2, 5, 70), ((26, 26), 40, 9, 32, 2, 64),
+]
+
+
+def _wide_operands(moduli, P, D, S, j_begin, n):
+    rng = np.random.default_rng(P * D + S)
+    sv = _residues(rng, moduli, (D, S, n), 2)
+    db = _residues(rng, moduli, (P, j_begin + D + 2, n), 1)
+    db[-1, -1, j_begin, -3:] = sv[-1, -1, -1, -3:] = int(moduli[-1]) - 1  # the largest words
+    return sv, *scan_kernel.split_planes(db, moduli)
+
+
+def _emulated_wide(lib, sv, hi, lo, table, j_begin, plan):
+    D, S = sv.shape[0], sv.shape[1]
+    P, L, d_total, n = lo.shape
+    out = torch.zeros((P, S, L, n), dtype=torch.int64)
+    rc = lib.pir_scan_wide(
+        sv.data_ptr(), 0 if hi is None else hi.data_ptr(), lo.data_ptr(), table.data_ptr(),
+        out.data_ptr(), 0 if hi is None else hi.element_size(), P, S, L, d_total, j_begin, D, n,
+        plan.prefixes, plan.columns, plan.rows, plan.stages, plan.shared_bytes, *plan.grid, None)
+    return rc, out
+
+
+@pytest.mark.parametrize("bits,P,D,S,j_begin,n", WIDE_CASES)
+def test_kernel_c_emulated_equals_plain(libs, bits, P, D, S, j_begin, n):
+    """Kernel C on scan_wide_plan's layout, bit-equal to the plain
+    contraction at every edge of the plan."""
+    moduli = primes.coeff_modulus_from_bits(1024, list(bits))
+    table = modular.LimbConstants(moduli, "cpu").table
+    assert D <= scan_kernel.max_raw_chunk(moduli)
+    sv, hi, lo = _wide_operands(moduli, P, D, S, j_begin, n)
+    assert (0 if hi is None else hi.element_size()) == (0 if max(bits) <= 32 else 1 if max(bits) <= 40 else 2)
+    plan = scan_kernel.scan_wide_plan(P, S, len(moduli), n, D,
+                                      0 if hi is None else hi.element_size())
+    rc, out = _emulated_wide(libs["scan_wide"], sv, hi, lo, table, j_begin, plan)
+    assert rc == 0
+    assert torch.equal(out, scan_kernel.contract_wide_plain(sv, hi, lo, table, j_begin))
+
+
+@pytest.mark.parametrize("D", [16, 17])
+def test_kernel_c_exact_at_the_largest_words(libs, D):
+    """30-bit moduli without a hi plane, every word q - 1: the sum of 16
+    rows' products stays below 2^64, that of 17 does not and needs the
+    third word."""
+    moduli = primes.coeff_modulus_from_bits(1024, [30, 30])
+    assert all(q > 2**32 / 17**0.5 + 1 for q in moduli)  # 17 (q - 1)^2 > 2^64
+    table = modular.LimbConstants(moduli, "cpu").table
+    sv, hi, lo = _wide_operands(moduli, 6, D, 5, 0, 64)
+    q = torch.tensor(moduli, dtype=torch.int64)[:, None]
+    sv[:] = q - 1
+    lo[:] = (((q - 1) ^ 0x80000000) - 0x80000000)[:, :, None]  # [L, 1, 1]: u32 bits in int32
+    plan = scan_kernel.scan_wide_plan(6, 5, 2, 64, D, 0)
+    assert hi is None
+    rc, out = _emulated_wide(libs["scan_wide"], sv, hi, lo, table, 0, plan)
+    assert rc == 0
+    assert torch.equal(out, scan_kernel.contract_wide_plain(sv, hi, lo, table))
+    assert torch.equal(out, torch.full_like(out, D))  # (q - 1)^2 = 1 mod q
+
+
+def test_kernel_c_refuses_a_launch_that_does_not_cover_the_work(libs):
+    """A grid short of S, P or N (or of the limbs), a ring larger than the
+    shared memory it is given, a block other than 16 warps of 4 x 4 tiles,
+    or one with more staged pieces a row than threads, is refused before
+    anything runs."""
+    import dataclasses
+
+    moduli = primes.coeff_modulus_from_bits(1024, [26, 27])
+    table = modular.LimbConstants(moduli, "cpu").table
+    sv, hi, lo = _wide_operands(moduli, 17, 4, 32, 0, 64)
+    plan = scan_kernel.scan_wide_plan(17, 32, 2, 64, 4, 0)
+    assert plan.grid == (2, 2, 4) and plan.prefixes == 16
+    for bad in ({"grid": (1, 2, 4)}, {"grid": (2, 1, 4)}, {"grid": (2, 2, 2)}, {"grid": (2, 2, 3)},
+                {"shared_bytes": plan.shared_bytes - 16}, {"shared_bytes": 232448 + 16},
+                {"stages": 5},
+                {"prefixes": 32, "grid": (2, 1, 4), "shared_bytes": 232448},
+                {"prefixes": 64, "columns": 8, "grid": (4, 1, 4), "shared_bytes": 232448}):
+        assert _emulated_wide(libs["scan_wide"], sv, hi, lo, table, 0,
+                              dataclasses.replace(plan, **bad))[0] != 0, bad
+
+
+def test_scan_wide_variants_edit_the_kernel_as_they_say():
+    """pir_tpu_torch/scan_wide_variants.py builds kernel C with parts taken
+    out by text edits of csrc/scan_wide.cu: each edit must find its text in
+    the source exactly once, so that a change of the kernel cannot leave a
+    variant timing something else."""
+    from pir_tpu_torch import scan_wide_variants
+
+    src = (CSRC / "scan_wide.cu").read_text()
+    for name, edits in scan_wide_variants.EDITS.items():
+        out = scan_wide_variants.variant_source(name)
+        assert (out == src) == (not edits), name

@@ -1,6 +1,7 @@
-"""The launch plans of kernels A (register-radix NTT) and B (the scan) on the
-CPU: ops/ntt.py::ntt_plan and ops/scan_kernel.py::scan_plan, whose grids
-the kernels launch as given.
+"""The launch plans of kernels A (register-radix NTT), B (the scan) and C
+(the wide scan) on the CPU: ops/ntt.py::ntt_plan,
+ops/scan_kernel.py::scan_plan and ::scan_wide_plan, whose grids the kernels
+launch as given (and refuse where they do not cover the work).
 
 The blocks of kernel A's plan hold every polynomial (above N=8192 every
 4,096-word sub-block, after a top-stage grid that covers every limb), and
@@ -151,3 +152,56 @@ def test_kernel_times_shapes_follow_the_served_request(n, profile):
         assert cases[f"{label} upper"][3:] == (2 * kt.expansion_ratio(ep), params.dimensions[0], n)
     if n == 16384:
         assert cases["K7 N=16384 inner"][1:] == (ep.ct_modulus, *params.dimensions, n)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 9, 16, 32, 33, 64])
+@pytest.mark.parametrize(
+    "P,L,N,D,hi_bytes",
+    [(162, 2, 4096, 162, 1), (162, 3, 4096, 162, 0), (114, 4, 8192, 114, 2), (114, 6, 8192, 114, 0),
+     (5, 1, 64, 3, 2), (65, 2, 70, 40, 1), (1, 1, 1, 1, 0), (16, 2, 96, 9, 2)],
+)
+def test_scan_wide_plan_covers_columns_prefixes_coefficients_and_limbs(S, P, L, N, D, hi_bytes):
+    """Kernel C's grid covers every column, prefix, coefficient and limb;
+    the column group is its fastest axis (blocks that read the same
+    database slab run side by side), prefix tiles the next; 16 warps of
+    4 x 4 tiles a block, at least 16 prefixes a block, at most one 16-byte
+    piece of a staged row a thread; the ring of stages fits an H100 block's
+    232,448 bytes of shared memory."""
+    plan = scan_kernel.scan_wide_plan(P, S, L, N, D, hi_bytes)
+    cols, prefix_tiles, z = plan.grid
+    assert cols == -(-S // plan.columns) and prefix_tiles == -(-P // plan.prefixes)
+    assert (cols - 1) * plan.columns < S <= cols * plan.columns
+    assert (prefix_tiles - 1) * plan.prefixes < P <= prefix_tiles * plan.prefixes
+    assert z % L == 0 and (z // L - 1) * plan.coeffs < N <= z // L * plan.coeffs
+    tile = scan_kernel.SCAN_WIDE_TILE
+    assert plan.prefixes * plan.columns == tile * tile * scan_kernel.SCAN_WIDE_WARPS
+    assert plan.prefixes >= 16 and plan.columns == (8 if S <= 8 else 16)
+    assert 16 * plan.columns + (8 + 2 * hi_bytes) * plan.prefixes <= 32 * scan_kernel.SCAN_WIDE_WARPS
+    row_bytes = plan.coeffs * (plan.columns * 8 + plan.prefixes * (4 + hi_bytes))
+    assert plan.shared_bytes == plan.stages * plan.rows * row_bytes <= scan_kernel.SHARED_MAX_BYTES
+    assert plan.shared_bytes <= 232448 and 2 <= plan.stages <= 4
+    assert 1 <= plan.rows <= min(scan_kernel.SCAN_WIDE_ROWS, 1 << (D - 1).bit_length())
+
+
+@pytest.mark.parametrize(
+    "label,P,S,L,N,D,hi_bytes,layout",
+    [("K4", 162, 32, 2, 4096, 162, 1, (16, 16, 8, 159744, (2, 11, 256))),
+     ("K4-u32", 162, 32, 3, 4096, 162, 0, (16, 16, 8, 147456, (2, 11, 384))),
+     ("K4 N=8192", 114, 32, 4, 8192, 114, 2, (16, 16, 8, 172032, (2, 8, 1024))),
+     ("K4-u32 N=8192", 114, 32, 6, 8192, 114, 0, (16, 16, 8, 147456, (2, 8, 1536))),
+     ("3 queries", 162, 6, 2, 4096, 162, 1, (32, 8, 8, 172032, (1, 6, 256))),
+     ("1 query, u16", 114, 2, 4, 8192, 114, 2, (32, 8, 8, 196608, (1, 4, 1024)))],
+)
+def test_scan_wide_plan_at_the_request_shapes(label, P, S, L, N, D, hi_bytes, layout):
+    """A 16-lane batch (S = 32): 16 prefixes x 16 columns a block, two
+    column groups, 3 stages of 8 rows; a batch of up to 4 queries 32 x 8."""
+    p = scan_kernel.scan_wide_plan(P, S, L, N, D, hi_bytes)
+    assert (p.prefixes, p.columns, p.rows, p.shared_bytes, p.grid) == layout, label
+    assert p.stages == 3 and p.coeffs == 32
+
+
+def test_scan_wide_plan_refuses_empty_work():
+    with pytest.raises(ValueError, match="empty"):
+        scan_kernel.scan_wide_plan(0, 32, 2, 4096, 162, 1)
+    with pytest.raises(ValueError, match="hi plane"):
+        scan_kernel.scan_wide_plan(162, 32, 2, 4096, 162, 4)

@@ -140,6 +140,24 @@ def test_staged_profile_request_equals_process_request(stack, reply_limbs):
     assert levels and all(ms > 0 for ms in levels)
 
 
+@pytest.mark.parametrize(
+    "name,kernel",
+    [("void (anonymous namespace)::scan_wide_kernel<1>(unsigned long const*, unsigned char", "C"),
+     ("void (anonymous namespace)::scan_kernel<0>(unsigned long const*, unsigned char const*", "B"),
+     ("void (anonymous namespace)::ntt_kernel<12, 3, true>(unsigned long const*", "A"),
+     ("void (anonymous namespace)::ntt_top_kernel<2>(unsigned long const*", "A"),
+     ("void (anonymous namespace)::scan_shoup_kernel(unsigned long const*", "D"),
+     ("void at::native::vectorized_elementwise_kernel<4, at::native::BitwiseAndFunctor", None)],
+)
+def test_profile_names_each_hand_written_kernel(name, kernel):
+    """The device profile sums a request's time in kernels A-D by their
+    device functions' names, and in nothing else."""
+    from pir_tpu_torch import profile_request
+
+    m = profile_request._HAND_KERNEL.search(name)
+    assert (m and profile_request.HAND_KERNELS[m[1]]) == kernel
+
+
 def test_reply_limbs_for_matches_bench_rule():
     from pir_tpu.core.params import create_pir_parameters, generate_encryption_params
 
