@@ -3,7 +3,8 @@ its plain PyTorch version, then serve SealPIR requests at the benchmark
 configuration — single and batched, on SEAL's chain and on the tpu32
 profile, on the planes and on the Shoup-table database, and on meshes of
 ranks that share the card — then in ciphertext-multiplication mode and at
-the rings above N=4096, and check every retrieved item.
+the rings above N=4096, through process_stream, from a checkpoint and on a
+mesh whose ranks load only their shard, and check every retrieved item.
 
     python3 chip_smoke.py               # 2^20 items of 288 B, d=2, N=4096
 
@@ -87,6 +88,39 @@ Phases, each of which raises on failure:
    TPU32_MATRIX N=8192 row (kernel B without a hi plane at N=8192), the same
    database on SEAL's N=8192 chain (planes with a u16 hi plane) and on
    SEAL's N=16384 chain (49-bit primes: the Shoup-table layout, kernel D).
+15. stream serving on phase 6's stamped 2^20-item server: 12 single-query
+   requests at distinct indexes served one by one with process_request,
+   then (after one untimed stream that sets up the streams and their
+   pinned buffers) through process_stream at depth 4 and at depth 6, under
+   torch.cuda.set_sync_debug_mode("error") (a synchronizing call on the
+   request path fails the phase): the three Response sets byte-equal,
+   every item decoded, the in-flight count at the depth; then 4 batched
+   requests of 4 queries streamed at depth 3 (kernel C launched, every
+   item decoded, byte-equal to process_request).  Sequential and streamed
+   queries/s beside the card's name and power limit, and the streams' peak
+   device memory.  Then the failure path: a stream whose third request has
+   no Galois keys yields two Responses equal to the sequential ones and
+   raises ValueError, and the server then serves a new stream correctly;
+16. persistence: a 2^16-item stamped database at the benchmark
+   configuration (cut from 2^20: compressing a 2^20-item checkpoint, ~2.6
+   GB of which 1.7 GB are incompressible NTT words, takes minutes) saved
+   with PirDatabase.save, then loaded into the planes layout and into the
+   Shoup-table layout; one request each, Response byte-equal to the
+   directly built database's, kernels B and D launched; the save and load
+   seconds and the file size;
+17. the shard-loaded mesh: PirDatabase.ingest_shards writes the stamped
+   2^20-item database into 2 shard files, and 4 gloo ranks (db=2 x limb=2
+   on the card, as phase 10) each load only their shard's rows
+   (parallel.distributed.planes_from_shard_rows); every rank's Response
+   equals the single-device server's, K6 launched, and each rank's peak
+   device memory is below every phase-10 rank's (those build the whole
+   database first).
+
+Phase 5 also prints the invariant noise budget of each decomposition
+reply at reply_limbs_for, which must be > 0, and of the inner ciphertexts
+the client recomposes from it (PirClient.reply_noise_budgets; their noise
+does not depend on reply_limbs, and the decoded items show that they
+decrypt).
 
 Bounds (pir_tpu_torch/kernel_times.py): the least time for a kernel's work
 on an H100 SXM — the larger of its bytes (each input read once, each output
@@ -114,6 +148,7 @@ from __future__ import annotations
 
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import time
@@ -134,6 +169,11 @@ CLIENT_SEED = 7
 POOL_ITEMS = 4096  # distinct random items the benchmark data repeats
 BATCH_QUERIES = 18  # one chunk of 16 lanes and a ragged tail of 2
 MESH_TIMEOUT_S = 420
+STREAM_REQUESTS = 12  # phase 15: single-query requests a stream serves
+STREAM_DEPTHS = (4, 6)
+STREAM_BATCHES = 4  # phase 15: batched requests of STREAM_BATCH queries, at depth 3
+STREAM_BATCH = 4
+LOG2_CHECKPOINT_ITEMS = 16  # phase 16's database
 
 
 class KernelRow(NamedTuple):
@@ -148,27 +188,34 @@ class KernelRow(NamedTuple):
 # (tests/test_torch_kernel_table.py holds the table to the source).
 KERNEL_ROWS = (
     KernelRow("scan (K1)", "scan.cu", ("pir_tpu/ops/pallas_scan.py:103",),
-              (("single", "pir_scan.hi"), ("seal8192", "pir_scan.hi")), "K1"),
+              (("single", "pir_scan.hi"), ("seal8192", "pir_scan.hi"),
+               ("stream", "pir_scan.hi"), ("load_planes", "pir_scan.hi")), "K1"),
     KernelRow("ntt (K2)", "ntt.cu", ("pir_tpu/ops/pallas_mxu_ntt.py:252",),
               (("single", "pir_ntt.grow"), ("ctmult_ref", "pir_ntt.grow"),
                ("ctmult_ref", "pir_ntt.reduce"), ("ctmult", "pir_ntt.grow"),
                ("ctmult", "pir_ntt.reduce"), ("tpu32_8192", "pir_ntt.grow"),
-               ("seal8192", "pir_ntt.grow"), ("seal16384", "pir_ntt.grow")), "K2"),
+               ("seal8192", "pir_ntt.grow"), ("seal16384", "pir_ntt.grow"),
+               ("stream", "pir_ntt.grow"), ("stream_batched", "pir_ntt.grow"),
+               ("load_planes", "pir_ntt.grow"), ("load_shoup", "pir_ntt.grow"),
+               ("shard_mesh", "pir_ntt.grow")), "K2"),
     KernelRow("ntt (K3; launches of the N=256 path, numbers of the N=32768 check)", "ntt.cu",
               ("pir_tpu/ops/pallas_ntt.py:147",),
               (("small", "pir_ntt.grow"),), "K3"),
     KernelRow("scan_wide (K4)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:397",),
-              (("batched", "pir_scan_wide.hi"), ("seal8192", "pir_scan_wide.hi")), "K4"),
+              (("batched", "pir_scan_wide.hi"), ("seal8192", "pir_scan_wide.hi"),
+               ("stream_batched", "pir_scan_wide.hi")), "K4"),
     KernelRow("scan_wide u32 (K4-u32)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:422",),
               (("tpu32", "pir_scan_wide.u32"), ("tpu32_8192", "pir_scan_wide.u32")), "K4-u32"),
     KernelRow("scan u32 (K5)", "scan.cu", ("pir_tpu/ops/pallas_scan.py:167",),
               (("tpu32", "pir_scan.u32"), ("tpu32_8192", "pir_scan.u32")), "K5"),
     KernelRow("scan dyn (K6)", "scan.cu",
               ("pir_tpu/ops/pallas_scan.py:204", "pir_tpu/ops/pallas_scan.py:187"),
-              (("mesh", "pir_scan.hi.dyn"), ("mesh32", "pir_scan.u32.dyn")), "K6"),
+              (("mesh", "pir_scan.hi.dyn"), ("mesh32", "pir_scan.u32.dyn"),
+               ("shard_mesh", "pir_scan.hi.dyn")), "K6"),
     KernelRow("scan_shoup (K7)", "scan_shoup.cu", ("pir_tpu/ops/pallas_scan.py:32",),
               (("shoup", "pir_scan_shoup"), ("ctmult_ref", "pir_scan_shoup"),
-               ("ctmult", "pir_scan_shoup"), ("seal16384", "pir_scan_shoup")), "K7"),
+               ("ctmult", "pir_scan_shoup"), ("seal16384", "pir_scan_shoup"),
+               ("load_shoup", "pir_scan_shoup")), "K7"),
 )
 
 # ciphertext-multiplication rows of REFERENCE_MATRIX (tests/test_correctness.py):
@@ -359,6 +406,13 @@ def serve_bench_config(device, log2_items: int):
             raise AssertionError(f"retrieval of item {idx} failed")
     log(f"served 3/3 requests at indexes {indexes}: every item retrieved "
         f"correctly; reply {len(responses[0].reply[0].ct)} ciphertexts")
+    budgets = [client.reply_noise_budgets(resp.reply[0]) for resp in responses]
+    if min(b[0] for b in budgets) <= 0:
+        raise AssertionError(f"a reply at reply_limbs={reply_limbs} has no noise budget left: "
+                             f"{budgets}")
+    log(f"noise budget (bits) of each reply at reply_limbs={reply_limbs}, [its ciphertexts, "
+        f"the inner ciphertexts recomposed from them]: {budgets} (0: under one bit of margin, "
+        f"still decrypting, as every retrieved item shows)")
     log(f"request latency: first {latencies[0]:.2f} ms, then "
         f"{', '.join(f'{x:.2f}' for x in latencies[1:])} ms")
     log(f"kernel launches during the 3 requests: {counts}")
@@ -527,11 +581,14 @@ def serve_shoup(device, params, client, items, planes_server) -> dict:
     return counts
 
 
-def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, limb) -> dict:
+def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, limb,
+               shard_dir=None):
     """One request of len(indexes) queries on a mesh of gloo ranks that all
     run on `device` (one process each, pir_tpu_torch.parallel.mesh_worker):
     every rank's Response must equal the single-device server's and decode.
-    Returns the launch counts summed over the ranks."""
+    With shard_dir (an ingest_shards checkpoint of the items) each rank
+    loads only its own rows.  Returns the launch counts summed over the
+    ranks, and each rank's peak device memory in MiB."""
     import tempfile
 
     import pir_tpu_torch as pt
@@ -544,9 +601,13 @@ def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, l
     want = pt.PirServer(db, params).process_request(request).SerializeToString()
     case = {
         "name": label, "params": wire.pir_params_to_proto(params).SerializeToString(),
-        "items": b"".join(items), "scan_impl": "pallas", "batch": batch, "limb": limb,
+        "scan_impl": "pallas", "batch": batch, "limb": limb,
         "requests": [request.SerializeToString()] * 2,
     }
+    if shard_dir is None:
+        case["items"] = b"".join(items)
+    else:
+        case["shard_dir"] = str(shard_dir)
     job = {"world": world, "backend": "gloo", "devices": [str(device)] * world,
            "timeout_s": MESH_TIMEOUT_S, "cases": [case]}
     t0 = time.perf_counter()
@@ -571,8 +632,177 @@ def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, l
         f"{max(warm):.2f} ms (slowest rank); launches summed over ranks {counts}; "
         f"device memory per rank held after the build (its shard) [{held}] MiB, peak over "
         f"the build and the requests [{peak}] MiB; job {total_s:.2f} s with the ranks' "
-        f"database builds")
+        f"database {'loads' if shard_dir else 'builds'}")
+    return counts, [res[label]["peak_mib"] for res in results]
+
+
+def serve_shard_mesh(device, params, client, items, db, indexes, whole_db_peaks) -> dict:
+    """Phase 17: the stamped items ingested into 2 shard files, then 4 ranks
+    (db=2 x limb=2) that each load only their shard's rows.  Every rank's
+    peak device memory must be below every rank's of the whole-database
+    mesh (`whole_db_peaks`).  Returns the launch counts summed over the
+    ranks."""
+    import tempfile
+
+    import pir_tpu_torch as pt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pt.PirDatabase.ingest_shards(iter(items), params, tmp, 2)
+        sizes = sorted(f.stat().st_size for f in pathlib.Path(tmp).glob("shard_*.npy"))
+        log(f"ingest_shards: {len(items)} stamped items into {len(sizes)} shard files of "
+            f"{[round(x / 2**20, 1) for x in sizes]} MiB in {time.perf_counter() - t0:.2f} s")
+        counts, peaks = serve_mesh(device, "shard-loaded", params, client, items, db, indexes,
+                                   n_db=2, batch=1, limb=2, shard_dir=tmp)
+    if max(peaks) >= min(whole_db_peaks):
+        raise AssertionError(f"shard-loaded ranks peak at {peaks} MiB, not below the "
+                             f"whole-database ranks' {whole_db_peaks} MiB")
+    log(f"shard-loaded ranks' peak device memory {[round(x, 1) for x in peaks]} MiB against "
+        f"{[round(x, 1) for x in whole_db_peaks]} MiB for the ranks that built the whole "
+        f"database (phase 10)")
     return counts
+
+
+def serve_stream(server, client, items, smi: str) -> dict:
+    """Phase 15 on the stamped 2^20-item server.  Returns the launch counts
+    of the depth-6 stream ("stream") and of the batched stream
+    ("stream_batched")."""
+    from pir_tpu_torch import kernels
+    from pir_tpu_torch.proto import payload_pb2 as pb
+
+    n = len(items)
+    indexes = [(k * 87383 + 1001) % n for k in range(STREAM_REQUESTS)]
+    requests = [client.create_request([i]) for i in indexes]
+    server.process_request(requests[0])  # warm: the keys are cached on the device
+    torch.cuda.synchronize()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = [server.process_request(r).SerializeToString() for r in requests]
+    seq_s = time.perf_counter() - t0
+    for idx, resp in zip(indexes, want):
+        check_items(client, [idx], pb.Response.FromString(resp), items, "sequential")
+    rates = [f"sequential {STREAM_REQUESTS / seq_s:.2f} queries/s"]
+    list(server.process_stream(iter(requests), depth=max(STREAM_DEPTHS)))  # the streams' pools
+    counts = {}
+    for depth in STREAM_DEPTHS:
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")  # a synchronizing call on the path raises
+        try:
+            t0 = time.perf_counter()
+            got = [r.SerializeToString()
+                   for r in server.process_stream(iter(requests), depth=depth)]
+            dt = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts = kernels.variant_launch_counts()
+        if got != want:
+            raise AssertionError(f"streamed Responses at depth {depth} differ from sequential")
+        stats = server.stream_stats
+        if stats["max_in_flight"] != depth:
+            raise AssertionError(f"depth {depth}: at most {stats['max_in_flight']} in flight")
+        rates.append(f"streamed depth {depth} {STREAM_REQUESTS / dt:.2f} queries/s "
+                     f"(most reply copies pending {stats['max_device_pending']})")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    require(counts, ("pir_ntt.grow", "pir_scan.hi"), "stream")
+    log(f"stream: {STREAM_REQUESTS} single-query requests at {indexes}, Responses byte-equal "
+        f"sequential / depth {STREAM_DEPTHS[0]} / depth {STREAM_DEPTHS[1]}, every stamped item "
+        f"retrieved, in-flight count at the depth; {'; '.join(rates)} ({smi}); peak device "
+        f"memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} above the {base_mb:.1f} held); "
+        f"depth-{STREAM_DEPTHS[1]} launches {counts}")
+
+    groups = [[(k * 65599 + 17) % n for k in range(b * STREAM_BATCH, (b + 1) * STREAM_BATCH)]
+              for b in range(STREAM_BATCHES)]
+    batched = [client.create_request(g) for g in groups]
+    want_b = [server.process_request(r).SerializeToString() for r in batched]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got_b = [r.SerializeToString() for r in server.process_stream(iter(batched), depth=3)]
+    dt = time.perf_counter() - t0
+    counts_b = kernels.variant_launch_counts()
+    if got_b != want_b:
+        raise AssertionError("batched streamed Responses differ from process_request's")
+    for g, resp in zip(groups, got_b):
+        check_items(client, g, pb.Response.FromString(resp), items, "batched stream")
+    require(counts_b, ("pir_ntt.grow", "pir_scan_wide.hi"), "stream_batched")
+    log(f"batched stream: {STREAM_BATCHES} requests of {STREAM_BATCH} queries at depth 3, "
+        f"byte-equal to process_request, every item retrieved; "
+        f"{STREAM_BATCHES * STREAM_BATCH / dt:.2f} queries/s ({smi}); launches {counts_b}")
+
+    bad = pb.Request()
+    bad.CopyFrom(requests[2])
+    bad.galois_keys = b""
+    got = []
+    try:
+        for resp in server.process_stream(iter([requests[0], requests[1], bad, requests[3]]),
+                                          depth=3):
+            got.append(resp.SerializeToString())
+    except ValueError as e:
+        failure = e
+    else:
+        raise AssertionError("a stream with a request without Galois keys did not raise")
+    if got != want[:2]:
+        raise AssertionError(f"the failing stream yielded {len(got)} Responses, not the 2 before it")
+    again = [r.SerializeToString() for r in server.process_stream(iter(requests[:6]), depth=4)]
+    if again != want[:6]:
+        raise AssertionError("the server's next stream after a failure differs from sequential")
+    log(f"stream failure path: 2 Responses equal to sequential, then ValueError({failure}); "
+        f"the next stream of 6 byte-equal to sequential")
+    return {"stream": counts, "stream_batched": counts_b}
+
+
+def serve_checkpoint(device) -> dict:
+    """Phase 16: save a 2^16-item stamped database, load it into both
+    layouts, one request each.  Returns each load's launch counts
+    ("load_planes", "load_shoup")."""
+    import tempfile
+
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels
+
+    db_size = 1 << LOG2_CHECKPOINT_ITEMS
+    params = pt.create_pir_parameters(
+        db_size, ITEM_SIZE, DIMENSIONS, pt.generate_encryption_params(POLY_DEGREE, PLAIN_BITS))
+    rng = np.random.default_rng(DB_SEED)
+    pool = [rng.integers(0, 256, ITEM_SIZE, dtype=np.uint8).tobytes() for _ in range(POOL_ITEMS)]
+    items = stamped_items([pool[i % POOL_ITEMS] for i in range(db_size)])
+    db = pt.PirDatabase.create(items, params, device=device)
+    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device="cpu")
+    reply_limbs = pt.reply_limbs_for(params)
+    indexes = [db_size // 3 + 5, db_size - 2]
+    request = client.create_request(indexes)
+    want = pt.PirServer(db, params, reply_limbs=reply_limbs).process_request(request)
+    check_items(client, indexes, want, items, "checkpoint source")
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "db.npz"
+        t0 = time.perf_counter()
+        db.save(path)
+        save_s = time.perf_counter() - t0
+        del db
+        torch.cuda.empty_cache()
+        lines = []
+        for label, scan_impl, variant in (("load_planes", "pallas", "pir_scan.hi"),
+                                          ("load_shoup", "xla", "pir_scan_shoup")):
+            t0 = time.perf_counter()
+            loaded = pt.PirDatabase.load(path, params, scan_impl=scan_impl, device=device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            server = pt.PirServer(loaded, params, reply_limbs=reply_limbs)
+            kernels.reset_launch_counts()
+            got = server.process_request(request)
+            paths[label] = kernels.variant_launch_counts()
+            if got.SerializeToString() != want.SerializeToString():
+                raise AssertionError(f"{label}: Response differs from the directly built database's")
+            require(paths[label], ("pir_ntt.grow", variant), label)
+            lines.append(f"{label} {load_s:.2f} s (launches {paths[label]})")
+            del server, loaded
+            torch.cuda.empty_cache()
+        size_mb = path.stat().st_size / 2**20
+    log(f"checkpoint: {db_size} stamped items ({params.num_pt} plaintexts, dims "
+        f"{params.dimensions}): save {save_s:.2f} s, {size_mb:.1f} MiB; "
+        f"{'; '.join(lines)}; each Response byte-equal to the directly built database's")
+    return paths
 
 
 def seeded_items(count: int, size: int, seed: int = DB_SEED) -> list:
@@ -789,16 +1019,23 @@ def main() -> int:
     indexes = [(k * 58271 + 5) % len(stamped) for k in range(BATCH_QUERIES - 1)] + [len(stamped) - 1]
     batched = serve_batched(server, client, stamped, indexes, "SEAL chain")
     require(batched, ("pir_ntt.grow", "pir_scan_wide.hi", "pir_scan.hi"), "batched")
+    streams = serve_stream(server, client, stamped, smi.stdout.strip())
     shoup_counts = serve_shoup(device, params, client, stamped, server)
-    mesh = serve_mesh(device, "SEAL chain", params, client, stamped, server.db,
-                      [len(stamped) // 5, len(stamped) - 3], n_db=2, batch=1, limb=2)
+    mesh_indexes = [len(stamped) // 5, len(stamped) - 3]
+    mesh, whole_db_peaks = serve_mesh(device, "SEAL chain", params, client, stamped, server.db,
+                                      mesh_indexes, n_db=2, batch=1, limb=2)
     require(mesh, ("pir_ntt.grow", "pir_scan.hi.dyn"), "SEAL-chain mesh")
+    shard_mesh = serve_shard_mesh(device, params, client, stamped, server.db, mesh_indexes,
+                                  whole_db_peaks)
+    require(shard_mesh, ("pir_ntt.grow", "pir_scan.hi.dyn"), "shard-loaded mesh")
     del server, stamped
+    torch.cuda.empty_cache()
+    checkpoint = serve_checkpoint(device)
     torch.cuda.empty_cache()
     tpu32, (params32, db32, client32, items32) = serve_tpu32(device)
     require(tpu32, ("pir_ntt.grow", "pir_scan_wide.u32", "pir_scan.u32"), "tpu32")
-    mesh32 = serve_mesh(device, "tpu32", params32, client32, items32, db32,
-                        [17, len(items32) - 5], n_db=1, batch=1, limb=3)
+    mesh32, _ = serve_mesh(device, "tpu32", params32, client32, items32, db32,
+                           [17, len(items32) - 5], n_db=1, batch=1, limb=3)
     require(mesh32, ("pir_ntt.grow", "pir_scan.u32.dyn"), "tpu32 mesh")
     del db32, items32
     torch.cuda.empty_cache()
@@ -808,7 +1045,8 @@ def main() -> int:
 
     paths = {"single": single, "small": small, "batched": batched, "tpu32": tpu32,
              "mesh": mesh, "mesh32": mesh32, "shoup": shoup_counts,
-             "ctmult_ref": ctmult_ref, "ctmult": ctmult, **large}
+             "ctmult_ref": ctmult_ref, "ctmult": ctmult, **large, **streams,
+             "shard_mesh": shard_mesh, **checkpoint}
     checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup}
     for row in KERNEL_ROWS:  # every (path, variant) a row counts was launched
         for path, variant in row.launches:

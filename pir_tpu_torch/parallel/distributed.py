@@ -19,6 +19,19 @@ Usage on every rank::
     mesh = distributed.global_mesh(batch=1, limb=2)
     server = PirServer(db, params, mesh=mesh)      # every rank, same db
     response = server.process_request(request)     # every rank, same request
+
+A rank can instead load only its own rows (the shard files of
+``PirDatabase.ingest_shards``) and build only its block of the planes::
+
+    db = PirDatabase(params, scan_impl="pallas")
+    shard = mesh.coord("db")
+    r0, r1 = shard_row_ranges(params, mesh.size("db"))[shard]   # r1 > r0 here
+    rows = PirDatabase.load_shard_rows(shard_dir, shard)[: r1 - r0]
+    db.set_rank_planes(planes_from_shard_rows(params, db.ctx, rows, mesh, r0))
+    server = PirServer(db, params, mesh=mesh)
+
+(``mesh_worker``'s ``"shard_dir"`` case also serves a shard past the last
+plaintext, which holds padding only.)
 """
 
 from __future__ import annotations
@@ -30,8 +43,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pir_tpu_torch.ops.modular import resolve_device
+from pir_tpu_torch.ops.modular import resolve_device, tensor_u64
 from pir_tpu_torch.parallel import sharded
+from pir_tpu_torch.pir import database
 
 
 def _device_identity(device: torch.device) -> str:
@@ -115,3 +129,43 @@ def replicate_to_mesh(x, mesh: sharded.Mesh, device=None) -> torch.Tensor:
         t = t.clone()
     dist.broadcast(t, src=0)
     return t.to(target)
+
+
+def planes_from_shard_rows(params, ctx, local_pts, mesh: sharded.Mesh, row_start: int):
+    """This rank's block of the db_planes operand from its own plaintext
+    rows only: (hi, lo) [prefix_local, L_local, inner, N], its D0 block and,
+    on a limb axis, its limbs — what ``make_sharded_pipeline`` takes with
+    ``local_planes=True`` (``PirDatabase.set_rank_planes``).
+
+    local_pts: u64 [rows, N], the contiguous plaintext rows of this rank's
+    db block, starting at global row `row_start` (rows past params.num_pt
+    are zeros and may be left out): ``PirDatabase.load_shard_rows`` of
+    shard ``mesh.coord("db")`` of an ``ingest_shards`` checkpoint with
+    ``mesh.size("db")`` shards.  The rows go through the NTT (of this
+    rank's limbs only) a few prefixes at a time."""
+    n_db = mesh.size("db")
+    inner = params.dimensions[-1]
+    rows = database.shard_rows(params, n_db)
+    if rows % inner:
+        raise ValueError("a rank's rows must align to the inner dimension")
+    expected = mesh.coord("db") * rows
+    if row_start != expected:
+        raise ValueError(
+            f"row_start {row_start} is not this rank's range (expected {expected})"
+        )
+    if local_pts.shape[0] > rows:
+        raise ValueError("more local rows than this rank's range")
+    l_local = ctx.L // mesh.size("limb")
+    lo = mesh.coord("limb") * l_local
+    ntt = ctx.ntt_q.limb_range(lo, lo + l_local)
+    step = database.NTT_PREFIXES * inner
+
+    def steps():
+        for r0 in range(0, rows, step):
+            chunk = np.zeros((min(step, rows - r0), ctx.n), dtype=np.uint64)
+            have = local_pts[r0 : r0 + step]
+            chunk[: have.shape[0]] = have
+            pt = tensor_u64(chunk, ctx.device)
+            yield r0, ntt.forward(pt[:, None, :].expand(-1, l_local, ctx.n))
+
+    return database.rows_to_planes(ctx, l_local, inner, rows, steps())

@@ -14,7 +14,12 @@ with one torch thread.  A case is a dict:
   "batch", "limb": the mesh axes (db takes the remaining ranks);
 * "requests": serialized ``Request`` bytes, each served with
   ``process_request`` (and, with "batched": True, once more with
-  ``process_request_batched``).
+  ``process_request_batched``);
+* "shard_dir" (instead of "items"): a ``PirDatabase.ingest_shards``
+  checkpoint with one shard per db coordinate; each rank loads only its
+  shard's rows (``load_shard_rows``) and builds only its block of the
+  planes (``parallel.distributed.planes_from_shard_rows``), so no rank
+  ever holds the whole database.
 
 Every rank runs every case in order (SPMD) and reports, besides its
 Responses, launch counts and latencies, the device memory it holds once its
@@ -46,20 +51,15 @@ def _serve_case(case: dict, device) -> dict:
     from pir_tpu_torch import kernels
     from pir_tpu_torch.parallel import sharded
     from pir_tpu_torch.pir import wire
-    from pir_tpu_torch.pir.database import PirDatabase
     from pir_tpu_torch.pir.server import PirServer
     from pir_tpu_torch.proto import payload_pb2 as pb
 
     params = wire.pir_params_from_proto(pb.PIRParameters.FromString(case["params"]))
-    size = params.bytes_per_item
-    blob = case["items"]
-    items = [blob[i * size : (i + 1) * size] for i in range(params.num_items)]
     mesh = sharded.default_mesh(batch=case.get("batch", 1), limb=case.get("limb", 1))
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    db = PirDatabase.create(items, params, scan_impl=case.get("scan_impl", "auto"),
-                            device=device)
+    db = _database(case, params, mesh, device)
     server = PirServer(db, params, reply_limbs=case.get("reply_limbs"), mesh=mesh)
     del db  # the server keeps this rank's shard only
     out = {"responses": [], "batched": [], "counts": [], "ms": [], "held_mib": None,
@@ -83,6 +83,33 @@ def _serve_case(case: dict, device) -> dict:
     if on_card:
         out["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
     return out
+
+
+def _database(case: dict, params, mesh, device):
+    """The whole database from the case's items, or this rank's block of
+    its planes from the case's shard files."""
+    import numpy as np
+
+    from pir_tpu_torch.parallel import distributed
+    from pir_tpu_torch.pir import database
+    from pir_tpu_torch.pir.database import PirDatabase
+
+    if "shard_dir" not in case:
+        size = params.bytes_per_item
+        blob = case["items"]
+        items = [blob[i * size : (i + 1) * size] for i in range(params.num_items)]
+        return PirDatabase.create(items, params, scan_impl=case.get("scan_impl", "auto"),
+                                  device=device)
+    shard = mesh.coord("db")
+    r0, r1 = database.shard_row_ranges(params, mesh.size("db"))[shard]
+    db = PirDatabase(params, scan_impl="pallas", device=device)
+    if r1 > r0:
+        rows = PirDatabase.load_shard_rows(case["shard_dir"], shard)[: r1 - r0]
+    else:  # a shard past the last plaintext holds only padding
+        rows = np.zeros((0, db.ctx.n), np.uint64)
+    row_start = shard * database.shard_rows(params, mesh.size("db"))
+    db.set_rank_planes(distributed.planes_from_shard_rows(params, db.ctx, rows, mesh, row_start))
+    return db
 
 
 def _replicate_check(device) -> bool:

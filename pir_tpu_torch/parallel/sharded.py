@@ -225,6 +225,18 @@ class _LimbShardView:
         return getattr(self._ctx, name)
 
 
+def rank_planes_shape(dims: tuple, n_db: int, l_local: int, n: int) -> tuple:
+    """The shape of one rank's block of the planes: its D0 block (D0
+    zero-padded to a multiple of the db axis) and its limbs."""
+    d0_local = -(-dims[0] // n_db)
+    if len(dims) == 1:
+        return (1, l_local, d0_local, n)
+    middle = 1
+    for d in dims[1:-1]:
+        middle *= d
+    return (d0_local * middle, l_local, dims[-1], n)
+
+
 def make_sharded_pipeline(
     ctx: PirContext,
     dims: tuple,
@@ -234,6 +246,7 @@ def make_sharded_pipeline(
     reply_limbs: "int | None" = None,
     db_planes=None,
     use_ct_mult: bool = False,
+    local_planes: bool = False,
 ):
     """The multi-query pipeline of one rank: (query_cts, galois_keys) ->
     replies, called by every rank of the mesh with the same arguments.
@@ -248,7 +261,9 @@ def make_sharded_pipeline(
     lo) [prefix, L, inner, N], or db_ntt (+ db_shoup) [padded, L, N] — of
     which the pipeline keeps a copy of this rank's db block and limb slice
     only (no view into the whole), so the whole is freed once the caller
-    drops it.
+    drops it.  With local_planes, db_planes already is this rank's block
+    and limb slice (``parallel.distributed.planes_from_shard_rows``) and is
+    taken as it is.
     reply_limbs and use_ct_mult are refused with a limb axis, as in
     pir_tpu; ciphertext-multiplication mode on a mesh is not ported (it
     runs on one device).
@@ -269,7 +284,7 @@ def make_sharded_pipeline(
     if use_ct_mult:
         raise ValueError(
             "ciphertext-multiplication mode on a mesh is not ported yet (ROADMAP "
-            "queue 1: mesh ct-mult on the db/batch axes); serve it on one device"
+            "queue 1, item 2: mesh ct-mult on the db/batch axes); serve it on one device"
         )
     if db_planes is None and db_ntt is None:
         raise ValueError("the pipeline needs db_planes or db_ntt")
@@ -288,7 +303,13 @@ def make_sharded_pipeline(
 
     cx = _LimbShardView(ctx, mesh) if n_limb > 1 else ctx
     planes_local = db_local = shoup_local = None
-    if db_planes is not None:
+    if local_planes:
+        want = rank_planes_shape(dims, n_db, l_local, ctx.n)
+        if db_planes is None or tuple(db_planes[1].shape) != want:
+            got = None if db_planes is None else tuple(db_planes[1].shape)
+            raise ValueError(f"this rank's planes must be {want}, got {got}")
+        planes_local = tuple(db_planes)
+    elif db_planes is not None:
         # d == 1: D0 is the planes' contraction axis ([1, L, D0, N]); d > 1:
         # prefix rows are D0-major, `middle` of them per D0 row
         axis = 2 if len(dims) == 1 else 0

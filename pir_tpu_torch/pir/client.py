@@ -24,7 +24,7 @@ from pir_tpu_torch.core.params import PirParams
 from pir_tpu_torch.ops import decompose
 from pir_tpu_torch.ops.modular import numpy_u64, tensor_u64
 from pir_tpu_torch.pir import database, wire
-from pir_tpu_torch.pir.encoders import StringEncoder
+from pir_tpu_torch.pir.encoders import IntegerEncoder, StringEncoder
 from pir_tpu_torch.proto import payload_pb2 as pb
 from pir_tpu_torch.utils.math import generate_galois_elts, invert_mod, next_power_two
 
@@ -54,6 +54,12 @@ class PirClient:
         self.relin_keys = keys_mod.gen_relin_key(self.ctx, self.sk, self._rng)
         self._galois_bytes = wire.serialize_galois_keys(self.galois_keys)
         self._relin_bytes = wire.serialize_relin_keys(self.relin_keys)
+
+    @classmethod
+    def create(
+        cls, params: PirParams, seed: Optional[int] = None, device=None
+    ) -> "PirClient":
+        return cls(params, seed, device=device)
 
     # ------------------------------------------------------------------
     def create_request(self, indexes: Sequence[int]) -> pb.Request:
@@ -141,6 +147,12 @@ class PirClient:
             for idx, reply in zip(indexes, response.reply)
         ]
 
+    def process_response_ints(self, response: pb.Response) -> list[int]:
+        """Each reply decoded as an integer of an integer database
+        (``IntegerEncoder.decode_int64``)."""
+        enc = IntegerEncoder(self.ctx.n, self.ctx.t)
+        return [enc.decode_int64(self._process_reply(r)) for r in response.reply]
+
     def _process_reply(self, reply: pb.Ciphertexts) -> np.ndarray:
         if self.params.use_ciphertext_multiplication:
             return self._process_reply_ct_mult(reply)
@@ -155,8 +167,29 @@ class PirClient:
             )
         return enc_mod.decrypt(self.ctx, self.sk, tensor_u64(cts[0], self.ctx.device))
 
-    def _process_reply_decomp(self, reply: pb.Ciphertexts) -> np.ndarray:
-        """d rounds of decrypt → digit-recompose."""
+    def reply_noise_budgets(self, reply: pb.Ciphertexts) -> list[int]:
+        """The least invariant noise budget, in bits, of the ciphertexts
+        each decryption round of a reply decrypts: in decomposition mode the
+        reply's own ciphertexts, then each level recomposed from their
+        digits (one entry per dimension); in ciphertext-multiplication mode
+        the one reply ciphertext.  A round at 0 bits may not decrypt."""
+        budgets: list = []
+        if self.params.use_ciphertext_multiplication:
+            cts = wire.load_ciphertexts(reply, self.ctx)
+            budgets.append(self._least_budget(cts))
+        else:
+            self._process_reply_decomp(reply, budgets)
+        return budgets
+
+    def _least_budget(self, cts: np.ndarray) -> int:
+        return min(
+            enc_mod.invariant_noise_budget(self.ctx, self.sk, tensor_u64(ct, self.ctx.device))
+            for ct in cts
+        )
+
+    def _process_reply_decomp(self, reply: pb.Ciphertexts, budgets=None) -> np.ndarray:
+        """d rounds of decrypt → digit-recompose; each round's least noise
+        budget is appended to `budgets` when it is a list."""
         exp_ratio = decompose.expansion_ratio(self.ctx) * 2
         num_dims = len(self.params.dimensions)
         expected = exp_ratio ** (num_dims - 1)
@@ -165,6 +198,8 @@ class PirClient:
             raise ValueError("number of ciphertexts in reply does not match expected")
         pts = None
         for _ in range(num_dims):
+            if budgets is not None:
+                budgets.append(self._least_budget(cts))
             pts = np.stack(
                 [
                     enc_mod.decrypt(self.ctx, self.sk, tensor_u64(cts[i], self.ctx.device))

@@ -1,9 +1,10 @@
 """PirDatabase: encode the items and hold the scan's database operands.
 
 Port of ``pir_tpu/pir/database.py``: populate from byte-strings
-(``StringEncoder`` packing, items_per_plaintext per plaintext), zero-pad to
-the hypercube, transform every plaintext to NTT form and keep it on the
-device in one of ``pir_tpu``'s two layouts:
+(``StringEncoder`` packing, items_per_plaintext per plaintext) or integers
+(``IntegerEncoder``, one per plaintext), zero-pad to the hypercube,
+transform every plaintext to NTT form and keep it on the device in one of
+``pir_tpu``'s two layouts:
 
 * ``scan_impl="pallas"`` — inner-dimension-grouped [prefix, L, inner, N]
   (hi, lo) planes, 5 bytes a coefficient at SEAL's chain, read by kernels B
@@ -17,10 +18,20 @@ device in one of ``pir_tpu``'s two layouts:
 A ciphertext-multiplication database is always held in the Shoup-table
 layout, as ``pir_tpu`` holds it (its inner scan is kernel D's; its upper
 dimensions multiply ciphertexts, not digit plaintexts).
+
+Persistence is ``pir_tpu``'s, file for file: :meth:`PirDatabase.save` /
+:meth:`PirDatabase.load` write and read the same ``.npz`` checkpoint
+(``db_pts``, the NTT form ``db_ntt`` u64 [padded, L, N], ``num_items``), and
+:meth:`PirDatabase.ingest_shards` streams items into the same per-shard
+``shard_NNN.npy`` plaintext files and ``meta.json``, which
+:meth:`PirDatabase.load_shard_rows` (one mesh rank's rows) and
+:meth:`PirDatabase.load_shards` (the whole database) read back.
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,11 +41,11 @@ from pir_tpu_torch.bfv import evaluator
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.core.params import PirParams
 from pir_tpu_torch.ops import modular, scan, scan_kernel
-from pir_tpu_torch.ops.modular import tensor_u64
-from pir_tpu_torch.pir.encoders import StringEncoder
+from pir_tpu_torch.ops.modular import numpy_u64, tensor_u64
+from pir_tpu_torch.pir.encoders import IntegerEncoder, StringEncoder
 
 _PACK_ROWS = 2048  # plaintexts per step of the vectorized packer
-_NTT_PREFIXES = 16  # prefix rows per NTT/plane-split step in _finalize
+NTT_PREFIXES = 16  # prefix rows a step of the NTT / plane split and of its undoing
 
 
 def pack_items(
@@ -96,6 +107,8 @@ class PirDatabase:
         # scan_impl "xla": int64 [padded, L, N] NTT form + Shoup companions
         self.db_ntt: Optional[torch.Tensor] = None
         self.db_ntt_shoup: Optional[torch.Tensor] = None
+        # db_planes hold one mesh rank's block only (set_rank_planes)
+        self.rank_local = False
         if scan_impl == "auto":
             scan_impl = default_scan_impl(self.ctx.ct_moduli)
         if scan_impl not in ("pallas", "xla"):
@@ -108,13 +121,27 @@ class PirDatabase:
     def create(
         cls, rawdb, params: PirParams, scan_impl: str = "auto", device=None
     ) -> "PirDatabase":
+        """A database of byte-strings, or of integers when the first item
+        is an int (``pir_tpu``'s dispatch)."""
         db = cls(params, scan_impl=scan_impl, device=device)
-        db.populate_strings(rawdb)
+        if len(rawdb) and isinstance(rawdb[0], (int, np.integer)):
+            db.populate_ints(rawdb)
+        else:
+            db.populate_strings(rawdb)
         return db
 
     @property
     def _use_planes(self) -> bool:
         return self.scan_impl == "pallas" and not self.params.use_ciphertext_multiplication
+
+    def set_rank_planes(self, planes) -> None:
+        """Hold only one mesh rank's block of the (hi, lo) planes
+        (``parallel.distributed.planes_from_shard_rows``): a database that
+        only a mesh server (``PirServer(mesh=...)``) serves."""
+        if not self._use_planes:
+            raise ValueError("rank planes need the planes layout (scan_impl='pallas')")
+        self.db_planes = tuple(planes)
+        self.rank_local = True
 
     def scan_operands(self) -> dict:
         """The database in its layout, as the scans take it."""
@@ -133,6 +160,8 @@ class PirDatabase:
             raise ValueError("selection vector size does not match dimensions")
         if self.db_planes is None and self.db_ntt is None:
             raise ValueError("database not populated")
+        if self.rank_local:
+            raise ValueError("a mesh rank's block of the database is served by its mesh")
         if p.use_ciphertext_multiplication:
             if relin_key is None and len(p.dimensions) > 1:
                 raise ValueError(
@@ -186,12 +215,29 @@ class PirDatabase:
                 pts[i] = enc.encode_many(chunk)
         self._finalize(pts)
 
+    def populate_ints(self, rawdb: Sequence[int]) -> None:
+        """One integer a plaintext, SEAL's base-2 ``IntegerEncoder``."""
+        p = self.params
+        if len(rawdb) != p.num_items:
+            raise ValueError(
+                f"database size {len(rawdb)} does not match params value "
+                f"{p.num_items}"
+            )
+        enc = IntegerEncoder(self.ctx.n, self.ctx.t)
+        pts = np.zeros((p.num_pt, self.ctx.n), dtype=np.uint64)
+        for i, v in enumerate(rawdb):
+            pts[i] = enc.encode(int(v))
+        self._finalize(pts)
+
+    def _row_step(self) -> int:
+        return NTT_PREFIXES * self.params.dimensions[-1]
+
     def _ntt_rows(self, pts: np.ndarray):
         """(row0, int64 NTT form [rows, L, N]) for the zero-padded hypercube,
-        _NTT_PREFIXES prefix rows at a time (the whole NTT-form database is
+        NTT_PREFIXES prefix rows at a time (the whole NTT-form database is
         never a temporary)."""
         ctx = self.ctx
-        step = _NTT_PREFIXES * self.params.dimensions[-1]
+        step = self._row_step()
         for r0 in range(0, self.padded_size, step):
             r1 = min(self.padded_size, r0 + step)
             rows = np.zeros((r1 - r0, ctx.n), dtype=np.uint64)
@@ -199,40 +245,241 @@ class PirDatabase:
             rows[: have.shape[0]] = have
             yield r0, evaluator.plaintext_to_ntt(ctx, tensor_u64(rows, self.device))
 
+    def _stored_rows(self, db_ntt: np.ndarray):
+        """The same steps read from a stored NTT form u64 [padded, L, N]."""
+        step = self._row_step()
+        for r0 in range(0, self.padded_size, step):
+            yield r0, tensor_u64(db_ntt[r0 : r0 + step], self.device)
+
     def _finalize(self, pts: np.ndarray) -> None:
         """Plaintexts u64[num_pt, N] -> the layout's NTT-form operands on
         the device."""
-        ctx = self.ctx
         self.db_pts = pts
+        self._fill(self._ntt_rows(pts))
+
+    def _fill(self, ntt_steps) -> None:
+        """The layout's device operands from (row0, NTT rows) steps that
+        cover the padded hypercube in order."""
+        ctx = self.ctx
         shape = (self.padded_size, ctx.L, ctx.n)
         if not self._use_planes:
             lq = ctx.limbs_q
             self.db_ntt = torch.empty(shape, dtype=torch.int64, device=self.device)
             self.db_ntt_shoup = torch.empty_like(self.db_ntt)
-            for r0, ntt in self._ntt_rows(pts):
+            for r0, ntt in ntt_steps:
                 r1 = r0 + ntt.shape[0]
                 self.db_ntt[r0:r1] = ntt
                 self.db_ntt_shoup[r0:r1] = modular.shoup_precompute_device(
                     ntt, lq.q, lq.ratio_hi, lq.ratio_lo
                 )
             return
+        self.db_planes = rows_to_planes(
+            ctx, ctx.L, self.params.dimensions[-1], self.padded_size, ntt_steps
+        )
+
+    def _host_ntt(self) -> np.ndarray:
+        """The NTT form u64 [padded, L, N] on the host; the planes layout
+        rejoins it a few prefixes at a time (never a second whole copy on
+        the device)."""
+        if not self._use_planes:
+            return numpy_u64(self.db_ntt)
+        ctx = self.ctx
         inner = self.params.dimensions[-1]
-        bits = max(int(q).bit_length() for q in ctx.ct_moduli)
-        shape = (self.padded_size // inner, ctx.L, inner, ctx.n)
-        hi = None
-        if bits > 32:
-            hi = torch.empty(
-                shape, dtype=scan_kernel.hi_plane_dtype(bits=bits), device=self.device
+        hi, lo = self.db_planes
+        out = np.empty((self.padded_size, ctx.L, ctx.n), dtype=np.uint64)
+        for p0 in range(0, lo.shape[0], NTT_PREFIXES):
+            p1 = min(lo.shape[0], p0 + NTT_PREFIXES)
+            words = scan_kernel.join_planes(None if hi is None else hi[p0:p1], lo[p0:p1])
+            out[p0 * inner : p1 * inner] = numpy_u64(words.transpose(1, 2)).reshape(
+                -1, ctx.L, ctx.n
             )
-        lo = torch.empty(shape, dtype=torch.int32, device=self.device)
-        for r0, ntt in self._ntt_rows(pts):
-            p0, p1 = r0 // inner, (r0 + ntt.shape[0]) // inner
-            grouped = ntt.reshape(p1 - p0, inner, ctx.L, ctx.n).transpose(1, 2)
-            h, l = scan_kernel.split_planes(grouped, bits=bits)
-            lo[p0:p1] = l
-            if hi is not None:
-                hi[p0:p1] = h
-        self.db_planes = (hi, lo)
+        return out
+
+    # ------------------------------------------------------------------
+    # persistence: pir_tpu's checkpoint format, both ways
+    def save(self, path) -> None:
+        """Write ``db_pts``, ``db_ntt`` u64 [padded, L, N] and ``num_items``
+        with ``numpy.savez_compressed`` (``pir_tpu``'s keys and dtypes)."""
+        if self.db_pts is None:
+            raise ValueError("database not populated")
+        np.savez_compressed(
+            path,
+            db_pts=self.db_pts,
+            db_ntt=self._host_ntt(),
+            num_items=self.params.num_items,
+        )
+
+    @classmethod
+    def load(
+        cls, path, params: PirParams, scan_impl: str = "auto", device=None
+    ) -> "PirDatabase":
+        """A checkpoint written by :meth:`save` or by ``pir_tpu``'s, into
+        either layout, from the stored NTT form (no NTT is run)."""
+        data = np.load(path)
+        if int(data["num_items"]) != params.num_items:
+            raise ValueError("checkpoint does not match parameters")
+        db = cls(params, scan_impl=scan_impl, device=device)
+        db_ntt = data["db_ntt"]
+        if db_ntt.shape != (db.padded_size, db.ctx.L, db.ctx.n):
+            raise ValueError(
+                f"checkpoint does not match parameters: db_ntt {db_ntt.shape}, "
+                f"expected {(db.padded_size, db.ctx.L, db.ctx.n)}"
+            )
+        db.db_pts = data["db_pts"]
+        db._fill(db._stored_rows(db_ntt))
+        return db
+
+    # ------------------------------------------------------------------
+    # sharded ingest: per-shard plaintext files, pir_tpu's byte for byte
+    def shard_row_ranges(self, n_shards: int) -> "list[tuple[int, int]]":
+        return shard_row_ranges(self.params, n_shards)
+
+    @classmethod
+    def ingest_shards(
+        cls, raw_iter, params: PirParams, out_dir, n_shards: int, chunk_pts: int = 2048
+    ) -> "list[str]":
+        """Stream ``params.num_items`` items of ``params.bytes_per_item``
+        bytes from any iterable into one ``shard_NNN.npy`` u64 [rows, N]
+        plaintext file per db shard (:func:`shard_row_ranges`) and a
+        ``meta.json``, ``chunk_pts`` plaintexts at a time through
+        :func:`pack_items`: the whole database is never in memory.  Returns
+        the shard paths (a shard with no rows gets no file).  The files are
+        ``pir_tpu``'s byte for byte."""
+        out_dir = pathlib.Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        p = params
+        n = p.encryption_params.poly_modulus_degree
+        bits = StringEncoder(n, p.encryption_params.plain_modulus, p.bits_per_coeff).bits_per_coeff
+        ranges = shard_row_ranges(p, n_shards)
+        paths, maps = [], []
+        for s, (r0, r1) in enumerate(ranges):
+            path = out_dir / f"shard_{s:03d}.npy"
+            paths.append(str(path))
+            maps.append(
+                np.lib.format.open_memmap(path, mode="w+", dtype=np.uint64, shape=(r1 - r0, n))
+                if r1 > r0 else None
+            )
+        bytes_per_pt = p.items_per_plaintext * p.bytes_per_item
+        it = iter(raw_iter)
+        row = taken = 0
+        while row < p.num_pt:
+            n_rows = min(chunk_pts, p.num_pt - row)
+            want = n_rows * p.items_per_plaintext
+            items = []
+            while len(items) < want and taken < p.num_items:
+                try:
+                    item = next(it)
+                except StopIteration:
+                    raise ValueError(
+                        f"iterator exhausted after {taken} items, params "
+                        f"say {p.num_items}"
+                    ) from None
+                if len(item) != p.bytes_per_item:
+                    raise ValueError(
+                        f"item {taken} has {len(item)} bytes, expected "
+                        f"{p.bytes_per_item}"
+                    )
+                items.append(bytes(item))
+                taken += 1
+            buffer = b"".join(items)
+            buffer += b"\0" * (n_rows * bytes_per_pt - len(buffer))
+            pts = pack_items(buffer, n_rows, bytes_per_pt, bits, n)
+            for s, (r0, r1) in enumerate(ranges):  # scatter into the shard files
+                lo, hi = max(row, r0), min(row + n_rows, r1)
+                if lo < hi:
+                    maps[s][lo - r0 : hi - r0] = pts[lo - row : hi - row]
+            row += n_rows
+        for m in maps:
+            if m is not None:
+                m.flush()
+        (out_dir / "meta.json").write_text(
+            json.dumps(
+                {
+                    "num_items": p.num_items,
+                    "num_pt": p.num_pt,
+                    "n_shards": n_shards,
+                    "dimensions": list(p.dimensions),
+                    "row_ranges": ranges,
+                }
+            )
+        )
+        return paths
+
+    @classmethod
+    def load_shard_rows(cls, out_dir, shard: int) -> np.ndarray:
+        """One shard's plaintext rows, u64 [rows, N], memory-mapped: what a
+        mesh rank loads (``parallel.distributed.planes_from_shard_rows``)."""
+        return np.load(pathlib.Path(out_dir) / f"shard_{shard:03d}.npy", mmap_mode="r")
+
+    @classmethod
+    def load_shards(
+        cls, out_dir, params: PirParams, scan_impl: str = "auto", device=None
+    ) -> "PirDatabase":
+        """The whole database from its shard files (equal to a direct
+        :meth:`create` of the same items)."""
+        out_dir = pathlib.Path(out_dir)
+        meta = json.loads((out_dir / "meta.json").read_text())
+        if meta["num_items"] != params.num_items or tuple(meta["dimensions"]) != tuple(
+            params.dimensions
+        ):
+            raise ValueError("shard checkpoint does not match parameters")
+        db = cls(params, scan_impl=scan_impl, device=device)
+        pts = np.zeros((params.num_pt, db.ctx.n), dtype=np.uint64)
+        for s, (r0, r1) in enumerate(meta["row_ranges"]):
+            if r1 > r0:
+                pts[r0:r1] = cls.load_shard_rows(out_dir, s)[: r1 - r0]
+        db._finalize(pts)
+        return db
+
+    # ------------------------------------------------------------------
+    def calculate_indices(self, index: int) -> list[int]:
+        return calculate_indices(self.params, index)
+
+    def calculate_item_offset(self, index: int) -> int:
+        return calculate_item_offset(self.params, index)
+
+
+def rows_to_planes(ctx: PirContext, limbs: int, inner: int, rows: int, ntt_steps):
+    """(hi, lo) planes [rows / inner, limbs, inner, N] on ctx's device of
+    `rows` NTT-form rows, filled from (row0, int64 [r, limbs, N]) steps of
+    whole inner groups; the chain's widest modulus sets the planes' form
+    (for every limb, so a rank's limb slice has the whole database's)."""
+    bits = max(int(q).bit_length() for q in ctx.ct_moduli)
+    n = ctx.n
+    shape = (rows // inner, limbs, inner, n)
+    hi = None
+    if bits > 32:
+        hi = torch.empty(shape, dtype=scan_kernel.hi_plane_dtype(bits=bits), device=ctx.device)
+    lo = torch.empty(shape, dtype=torch.int32, device=ctx.device)
+    for r0, ntt in ntt_steps:
+        p0, p1 = r0 // inner, (r0 + ntt.shape[0]) // inner
+        grouped = ntt.reshape(p1 - p0, inner, limbs, n).transpose(1, 2)
+        h, l = scan_kernel.split_planes(grouped, bits=bits)
+        lo[p0:p1] = l
+        if hi is not None:
+            hi[p0:p1] = h
+    return hi, lo
+
+
+def shard_rows(params: PirParams, n_shards: int) -> int:
+    """Plaintext rows of each of `n_shards` db shards (before the last
+    ones are cut at num_pt): the first hypercube dimension zero-padded to a
+    multiple of the shard count and split evenly — the split
+    ``parallel.sharded`` applies on its "db" axis."""
+    block = 1
+    for d in params.dimensions[1:]:
+        block *= d
+    return -(-params.dimensions[0] // n_shards) * block
+
+
+def shard_row_ranges(params: PirParams, n_shards: int) -> "list[tuple[int, int]]":
+    """The plaintext rows [start, end) of each db shard, cut at num_pt:
+    shard s holds exactly db rank s's rows."""
+    rows = shard_rows(params, n_shards)
+    return [
+        (min(s * rows, params.num_pt), min((s + 1) * rows, params.num_pt))
+        for s in range(n_shards)
+    ]
 
 
 # index math — parity with database.cpp:318-342; the client needs it without

@@ -13,6 +13,10 @@ a multi-query request whose query stacks share one shape goes through the
 batched path, in chunks of :meth:`PirServer.batch_lanes` queries; on the
 Shoup-table layout and in ciphertext-multiplication mode it goes query by
 query (the same replies as ``pir_tpu``'s vmapped fallback).
+``process_stream`` serves an iterable of requests with up to ``depth`` in
+flight, each on a CUDA stream of its own (see its docstring).  ``create``
+and ``oblivious_expansion`` are ``pir_tpu``'s constructor and component
+surface.
 
 With ``mesh=`` every request is served by the multi-rank pipeline
 (parallel/sharded.py): every rank of the mesh calls ``process_request``
@@ -23,6 +27,8 @@ from __future__ import annotations
 
 import hashlib
 import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -31,7 +37,14 @@ import torch
 
 from pir_tpu_torch.core.params import PirParams
 from pir_tpu_torch.ops import expand, modswitch, scan
-from pir_tpu_torch.ops.modular import numpy_u64, resolve_device, tensor_u64
+from pir_tpu_torch.ops.modular import (
+    numpy_u64,
+    numpy_u64_async,
+    pinned_int64,
+    resolve_device,
+    tensor_u64,
+    tensor_u64_async,
+)
 from pir_tpu_torch.pir import wire
 from pir_tpu_torch.pir.database import PirDatabase
 from pir_tpu_torch.proto import payload_pb2 as pb
@@ -73,6 +86,71 @@ class MeshReplies(NamedTuple):
     count: int
 
 
+class HostReplies(NamedTuple):
+    """A request's replies on their way to the host: int64 host tensors
+    [count, R, 2, L', N] (pinned on a CUDA server), valid once `done` (a
+    CUDA event, None on the CPU) has completed."""
+
+    done: "torch.cuda.Event | None"
+    replies: list
+
+
+def _host_upload(device):
+    def upload(arr, key):
+        del key
+        return tensor_u64(arr, device)
+
+    return upload
+
+
+_END = object()
+
+
+def _complete(pend: deque) -> pb.Response:
+    """The oldest in-flight request's Response, once its worker and its
+    device work are done (also when the worker failed)."""
+    future, host = pend.popleft()
+    try:
+        return future.result()
+    finally:
+        if host.done is not None:
+            host.done.synchronize()
+
+
+class _StreamSlot:
+    """One in-flight request of :meth:`PirServer.process_stream` on a CUDA
+    server: its stream, the event recorded after its reply copies, and its
+    pinned host buffers (reused by the slot's next request, which starts
+    only after this one was completed)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        # the database and the context's tables were built on the stream
+        # that was current until now: this stream waits for that work once
+        self.stream.wait_stream(torch.cuda.current_stream(device))
+        self.done = torch.cuda.Event()
+        self._pinned: dict = {}
+
+    def _buffer(self, key, shape) -> torch.Tensor:
+        buf = self._pinned.get(key)
+        if buf is None or tuple(buf.shape) != tuple(shape):
+            buf = self._pinned[key] = pinned_int64(shape)
+        return buf
+
+    def upload(self, arr, key) -> torch.Tensor:
+        """Host u64 query array -> the card, non-blocking on this stream."""
+        return tensor_u64_async(arr, self.device, self._buffer(("up", key), arr.shape))
+
+    def download(self, pieces) -> HostReplies:
+        """Enqueue the reply pieces' copies to pinned memory, then the
+        event the worker waits on."""
+        out = [numpy_u64_async(x, self._buffer(("down", i), x.shape))
+               for i, x in enumerate(pieces)]
+        self.done.record(self.stream)
+        return HostReplies(self.done, out)
+
+
 class PirServer:
     def __init__(
         self,
@@ -95,7 +173,11 @@ class PirServer:
         from the same database and calls it with the same requests; the
         replies equal single-device serving's bit for bit.  The server
         keeps only this rank's shard (``self.db`` is None): the whole
-        database is freed when the caller drops its own reference."""
+        database is freed when the caller drops its own reference.  A
+        database that holds only this rank's block of the planes
+        (``PirDatabase.set_rank_planes``, fed by
+        ``parallel.distributed.planes_from_shard_rows``) is served as it
+        is, so no rank ever holds the whole database."""
         if params.num_pt != db.size:
             raise ValueError("database size mismatch")
         if reply_limbs is not None and not (
@@ -122,6 +204,8 @@ class PirServer:
         # Device-resident Galois keys, keyed by a digest of the whole key
         # blobs (clients resend identical keys with every request).
         self._key_cache: dict = {}
+        self._stream_slots: list = []
+        self.stream_stats: dict = {}
         self.mesh = mesh
         self._mesh_pipeline = None
         if mesh is not None:
@@ -132,7 +216,14 @@ class PirServer:
                 db_shoup=db.db_ntt_shoup, reply_limbs=reply_limbs,
                 use_ct_mult=params.use_ciphertext_multiplication,
                 db_planes=db.db_planes if db._use_planes else None,
+                local_planes=db.rank_local,
             )
+        elif db.rank_local:
+            raise ValueError("a database that holds one mesh rank's block needs mesh=")
+
+    @classmethod
+    def create(cls, db: PirDatabase, params: PirParams) -> "PirServer":
+        return cls(db, params)
 
     # ------------------------------------------------------------------
     def _single_device(self) -> None:
@@ -197,10 +288,13 @@ class PirServer:
         budget = int(os.environ.get("PIR_BATCH_MEM_BUDGET", 4 << 30))
         return max(1, min(16, budget // max(1, lane_bytes)))
 
-    def _batched_wide_async(self, all_queries: np.ndarray, galois_keys) -> BatchedReplies:
+    def _batched_wide_async(
+        self, all_queries: np.ndarray, galois_keys, upload=None
+    ) -> BatchedReplies:
         """Enqueue a host [Q, k, 2, L, N] query stack in chunks of
         batch_lanes() queries, the ragged tail padded with the chunk's first
-        query."""
+        query.  upload(array, key) moves a chunk to the device."""
+        upload = upload or _host_upload(self.device)
         lanes = min(self.batch_lanes(), all_queries.shape[0])
         chunks = []
         for start in range(0, all_queries.shape[0], lanes):
@@ -208,7 +302,7 @@ class PirServer:
             count = chunk.shape[0]
             if count != lanes:
                 chunk = np.concatenate([chunk, chunk[:1].repeat(lanes - count, 0)])
-            replies = self.process_batch(tensor_u64(chunk, self.device), galois_keys)
+            replies = self.process_batch(upload(chunk, start), galois_keys)
             chunks.append((replies, count))
         return BatchedReplies(chunks)
 
@@ -227,11 +321,25 @@ class PirServer:
         """(Galois keys {elt: int64[L, 2, Lp, N]}, relinearization key
         int64[L, 2, Lp, N] or None) on the device, cached by the digest of
         both blobs.  Only ciphertext-multiplication mode reads the relin
-        key, so only that mode uploads it."""
+        key, so only that mode uploads it.
+
+        On a card the keys are uploaded on whichever stream first sees them
+        and read on others (process_stream): the current stream waits for
+        the upload's event, and each key tensor records the stream, so an
+        eviction cannot free memory that a stream still reads."""
         digest = self._key_digest(request.galois_keys, request.relin_keys)
         cached = self._key_cache.get(digest)
-        if cached is not None:
-            return cached
+        if cached is None:
+            cached = self._key_cache_entry(request, digest)
+        keys, relin, uploaded = cached
+        if uploaded is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(uploaded)
+            for t in [*keys.values(), *([relin] if relin is not None else [])]:
+                t.record_stream(stream)
+        return keys, relin
+
+    def _key_cache_entry(self, request: pb.Request, digest: bytes) -> tuple:
         galois = wire.deserialize_galois_keys(request.galois_keys, self.device)
         keys = {e: k.data for e, k in galois.keys.items()}
         missing = [e for e in self._expansion_elts if e not in keys]
@@ -240,15 +348,19 @@ class PirServer:
         relin = None
         if self.params.use_ciphertext_multiplication and request.relin_keys:
             relin = wire.deserialize_relin_keys(request.relin_keys, self.device).key.data
+        uploaded = None
+        if self.device.type == "cuda":
+            uploaded = torch.cuda.Event()
+            uploaded.record(torch.cuda.current_stream(self.device))
         if len(self._key_cache) >= _KEY_CACHE_ENTRIES:
             self._key_cache.pop(next(iter(self._key_cache)))
-        self._key_cache[digest] = (keys, relin)
-        return keys, relin
+        entry = self._key_cache[digest] = (keys, relin, uploaded)
+        return entry
 
     def _query_stacks(self, request: pb.Request) -> list:
         return [wire.load_ciphertexts(query, self.ctx) for query in request.query]
 
-    def _process_request_async_mesh(self, galois_keys, stacks):
+    def _process_request_async_mesh(self, galois_keys, stacks, upload):
         from pir_tpu_torch.parallel import sharded
 
         if not stacks:
@@ -259,16 +371,18 @@ class PirServer:
                 "(always true for same-params clients)"
             )
         queries = sharded.pad_axis(np.stack(stacks), 0, self.mesh.size("batch"))
-        replies = self._mesh_pipeline(tensor_u64(queries, self.device), galois_keys)
+        replies = self._mesh_pipeline(upload(queries, 0), galois_keys)
         return MeshReplies(replies, len(stacks))
 
-    def process_request_async(self, request: pb.Request):
+    def process_request_async(self, request: pb.Request, upload=None):
         """Enqueue a request's device work and return a pending handle
         (the replies, still on the device) for :meth:`finalize_response`.
         On the planes layout a multi-query request whose query stacks share
         one shape takes the batched path (pir_tpu's reroute); its replies
         are byte-identical to the per-query path's.  With a mesh, the
-        request goes through the mesh pipeline."""
+        request goes through the mesh pipeline.  upload(array, key) moves a
+        host query array to the device (a blocking copy by default)."""
+        upload = upload or _host_upload(self.device)
         galois_keys, relin_key = self._device_keys(request)
         if (
             self.params.use_ciphertext_multiplication
@@ -281,41 +395,136 @@ class PirServer:
             )
         stacks = self._query_stacks(request)
         if self.mesh is not None:
-            return self._process_request_async_mesh(galois_keys, stacks)
+            return self._process_request_async_mesh(galois_keys, stacks, upload)
         if (
             self.db._use_planes
             and len(stacks) > 1
             and len({s.shape for s in stacks}) == 1
         ):
-            return self._batched_wide_async(np.stack(stacks), galois_keys)
+            return self._batched_wide_async(np.stack(stacks), galois_keys, upload)
         return [
-            self.process_query(tensor_u64(stack, self.device), galois_keys, relin_key)
-            for stack in stacks
+            self.process_query(upload(stack, qi), galois_keys, relin_key)
+            for qi, stack in enumerate(stacks)
         ]
+
+    @staticmethod
+    def _reply_pieces(pending) -> list:
+        """A pending handle's real replies as device tensors [count, R, 2,
+        L', N], in query order."""
+        if isinstance(pending, MeshReplies):
+            return [pending.replies[: pending.count]] if pending.count else []
+        if isinstance(pending, BatchedReplies):
+            return [replies[:count] for replies, count in pending.chunks]
+        return [reply[None] for reply in pending]
 
     def finalize_response(self, pending) -> pb.Response:
         """Copy a process_request_async handle's replies to the host and
         serialize them into a Response.  The handle is a list of per-query
-        replies, a :class:`BatchedReplies` or a :class:`MeshReplies`."""
+        replies, a :class:`BatchedReplies`, a :class:`MeshReplies`, or a
+        :class:`HostReplies` (whose event this waits for; no device work is
+        launched)."""
+        if isinstance(pending, HostReplies):
+            if pending.done is not None:
+                pending.done.synchronize()
+            hosts = [r.numpy().view(np.uint64) for r in pending.replies]
+        else:
+            hosts = [numpy_u64(r) for r in self._reply_pieces(pending)]
         response = pb.Response()
-        if isinstance(pending, MeshReplies):
-            if pending.count:
-                host = numpy_u64(pending.replies[: pending.count])
-                for qi in range(pending.count):
-                    wire.save_ciphertexts(host[qi], response.reply.add())
-            return response
-        if isinstance(pending, BatchedReplies):
-            for replies, count in pending.chunks:
-                host = numpy_u64(replies)
-                for qi in range(count):
-                    wire.save_ciphertexts(host[qi], response.reply.add())
-            return response
-        for reply in pending:
-            wire.save_ciphertexts(numpy_u64(reply), response.reply.add())
+        for host in hosts:
+            for reply in host:
+                wire.save_ciphertexts(reply, response.reply.add())
         return response
 
     def process_request(self, request: pb.Request) -> pb.Response:
         return self.finalize_response(self.process_request_async(request))
+
+    # ------------------------------------------------------------------
+    def process_stream(self, requests, depth: int = 6):
+        """Serve an iterable of Requests with up to `depth` in flight,
+        yielding their Responses in request order, each byte-equal to
+        :meth:`process_request`'s.
+
+        The caller's thread submits each request (:meth:`process_request_async`)
+        and one worker thread completes it (:meth:`finalize_response`); the
+        worker launches nothing, so the kernels' launch counts stay exact.
+        On a card each in-flight request runs on a CUDA stream of its own
+        (a pool of min(depth, requests) streams, kept by the server), its
+        queries uploaded from and its replies copied to pinned host buffers
+        without blocking, and the worker waits on the event recorded after
+        the reply copies, not on the device.  On the CPU the same threads
+        run with no streams.  ``stream_stats`` holds the run's counts:
+        ``max_in_flight`` (the most requests submitted and not yet yielded)
+        and ``max_device_pending`` (the most whose reply copy had not yet
+        completed when another was submitted).
+
+        Failure: the Responses of every request before the failing one are
+        yielded in order, then the error is raised, whether the request
+        failed on submission (e.g. missing Galois keys) or on completion.
+        Requests after it that are already in flight are waited for and
+        their Responses dropped; closing the generator early waits the same
+        way, so no stream work or worker thread outlives it.  (``pir_tpu``'s
+        loop drops the computed Responses when a submission fails.)
+        """
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        return self._stream(requests, depth)
+
+    def _stream_slot(self, n: int, depth: int) -> "_StreamSlot | None":
+        if self.device.type != "cuda":
+            return None
+        while len(self._stream_slots) <= min(n, depth - 1):
+            self._stream_slots.append(_StreamSlot(self.device))
+        return self._stream_slots[n % depth]
+
+    def _submit(self, request: pb.Request, slot) -> HostReplies:
+        if slot is None:
+            pieces = self._reply_pieces(self.process_request_async(request))
+            return HostReplies(None, [x.contiguous() for x in pieces])
+        with torch.cuda.stream(slot.stream):
+            try:
+                pending = self.process_request_async(request, upload=slot.upload)
+                return slot.download(self._reply_pieces(pending))
+            except BaseException:
+                slot.stream.synchronize()  # nothing it enqueued outlives the error
+                raise
+
+    def _stream(self, requests, depth: int):
+        stats = self.stream_stats = {
+            "depth": depth, "requests": 0, "max_in_flight": 0, "max_device_pending": 0,
+        }
+        pend: deque = deque()  # (future of the Response, HostReplies), in order
+        failure = None
+        with ThreadPoolExecutor(1, thread_name_prefix="pir-stream") as worker:
+            try:
+                it = iter(requests)
+                while True:
+                    try:
+                        request = next(it, _END)
+                        if request is _END:
+                            break
+                        host = self._submit(request, self._stream_slot(stats["requests"], depth))
+                    except Exception as e:  # a submission failed: finish the earlier ones
+                        failure = e
+                        break
+                    copying = 0
+                    if host.done is not None:  # reply copies not yet completed
+                        copying = 1 + sum(1 for _, h in pend if not h.done.query())
+                    pend.append((worker.submit(self.finalize_response, host), host))
+                    stats["requests"] += 1
+                    stats["max_in_flight"] = max(stats["max_in_flight"], len(pend))
+                    stats["max_device_pending"] = max(stats["max_device_pending"], copying)
+                    while len(pend) >= depth:
+                        yield _complete(pend)
+                while pend:
+                    yield _complete(pend)
+                if failure is not None:
+                    raise failure
+            finally:
+                while pend:  # after an error or an early close: wait, drop
+                    try:
+                        _complete(pend)
+                    except Exception:
+                        pass
 
     def process_request_batched(self, request: pb.Request) -> pb.Response:
         """Like process_request, with every query (one included) on the
@@ -330,3 +539,16 @@ class PirServer:
         if len({s.shape for s in stacks}) != 1:
             return self.process_request(request)
         return self.finalize_response(self._batched_wide_async(np.stack(stacks), galois_keys))
+
+    # ------------------------------------------------------------------
+    def oblivious_expansion(self, cts, total_items: int, galois_keys) -> torch.Tensor:
+        """pir_tpu's component surface: expand one ciphertext [2, L, N]
+        (expand_single) or a query [k, 2, L, N] (expand_query) into
+        total_items selection ciphertexts with a GaloisKeys object."""
+        gk = {e: k.data.to(self.device) for e, k in galois_keys.keys.items()}
+        if not isinstance(cts, torch.Tensor):
+            cts = tensor_u64(cts, self.device)
+        cts = cts.to(self.device)
+        if cts.dim() == 3:
+            return expand.expand_single(self.ctx, gk, cts, total_items)
+        return expand.expand_query(self.ctx, gk, cts, total_items)

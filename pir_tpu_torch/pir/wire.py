@@ -6,8 +6,8 @@ seeded ciphertexts (c0 plus the 16-byte seed that regenerates the second
 polynomial), Galois/relinearization key blobs and PTPE parameters.  Arrays
 here are host numpy u64; the server moves them to its device.
 
-SEAL 3.5 streams are not decoded yet: a blob that carries one raises
-``ValueError`` (see :data:`SEAL_WIRE_TODO`).
+SEAL 3.5 streams are not decoded yet (ROADMAP.md, queue 1, item 1): a
+blob that carries one raises ``ValueError`` (see :data:`SEAL_WIRE_TODO`).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ _SEEDED_MAGIC = b"PTS1"
 _SEAL_MAGIC = 0xA15E  # SEAL 3.5 serialization header magic (little-endian u16)
 SEAL_WIRE_TODO = (
     "SEAL 3.5 stream payloads are not ported to pir_tpu_torch yet "
-    "(ROADMAP.md, queue 1: SEAL wire)"
+    "(ROADMAP.md, queue 1, item 1: SEAL wire)"
 )
 
 

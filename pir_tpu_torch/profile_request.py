@@ -4,6 +4,7 @@
     python3 -m pir_tpu_torch.profile_request --log2-items 16 --out prof.json
     python3 -m pir_tpu_torch.profile_request --ct-mult          # N=8192 ct-mult
     python3 -m pir_tpu_torch.profile_request --batched 16       # 16-query requests
+    python3 -m pir_tpu_torch.profile_request --stream 6         # process_stream, depth 6
 
 Builds the benchmark configuration (288-byte items, d=2, N=4096, 24-bit
 plain modulus, SEAL's BFVDefault chain, database from seed 42, client seed 7,
@@ -23,6 +24,15 @@ measures warm single-query requests, or with ``--batched Q`` warm
   copies launched, their summed and merged device time, the wall time, the
   busy share (merged device time / wall), the device time by kernel name and
   a request's device time in each hand-written kernel (A-D).
+
+With ``--stream D`` it measures ``process_stream`` at depth D instead of
+the stages (``stream``): ``--windows`` windows of ``--spread`` requests,
+served in turns sequentially and streamed (sequential, streamed, streamed,
+sequential, ...), their queries/s; in the streamed windows the caller
+thread's time a request in submission and the worker thread's time
+waiting for the reply copy and serializing, each against the window's wall
+time a request — the thread whose time a request is nearest the wall time
+sets the pace; and ``profiler`` over one streamed window.
 
 Prints one line per section and, as the last line, the whole result as one
 JSON object, which it also writes to ``--out`` when one is given.
@@ -169,6 +179,68 @@ def device_profile(serve, requests) -> dict:
     }
 
 
+def stream_profile(server, requests, depth: int, windows: int) -> dict:
+    """Sequential and streamed windows in turns, and the streamed windows'
+    per-thread times (caller: submission; worker: waiting on the reply
+    copy's event, then serializing), with the server's stream counts."""
+    from pir_tpu_torch.pir.server import HostReplies
+
+    submit_ms, wait_ms, serialize_ms = [], [], []
+    submit, finalize = server._submit, server.finalize_response
+
+    def timed_submit(request, slot):
+        t0 = time.perf_counter()
+        out = submit(request, slot)
+        submit_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_finalize(pending):
+        if not isinstance(pending, HostReplies):  # process_request's own
+            return finalize(pending)
+        t0 = time.perf_counter()
+        if pending.done is not None:
+            pending.done.synchronize()
+        t1 = time.perf_counter()
+        out = finalize(pending)
+        wait_ms.append((t1 - t0) * 1e3)
+        serialize_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    def window(streamed: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if streamed:
+            got = list(server.process_stream(iter(requests), depth=depth))
+        else:
+            got = [server.process_request(r) for r in requests]
+        dt = time.perf_counter() - t0
+        if len(got) != len(requests):
+            raise AssertionError("a window lost a Response")
+        return len(requests) / dt
+
+    list(server.process_stream(iter(requests), depth=depth))  # builds the streams' pools
+    server._submit, server.finalize_response = timed_submit, timed_finalize
+    seq, streamed = [], []
+    try:
+        for w in range(windows):
+            order = (False, True) if w % 2 == 0 else (True, False)
+            for is_stream in order:
+                (streamed if is_stream else seq).append(window(is_stream))
+        stats = dict(server.stream_stats)
+    finally:
+        del server._submit, server.finalize_response
+    wall_ms = 1e3 / (sum(streamed) / len(streamed))
+    return {
+        "depth": depth, "requests_a_window": len(requests),
+        "sequential_qps": seq, "streamed_qps": streamed,
+        "streamed_wall_ms_a_request": wall_ms,
+        "caller_submit_ms_a_request": sum(submit_ms) / len(submit_ms),
+        "worker_wait_ms_a_request": sum(wait_ms) / len(wait_ms),
+        "worker_serialize_ms_a_request": sum(serialize_ms) / len(serialize_ms),
+        "stream_stats": stats,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2-items", type=int, default=20)
@@ -179,7 +251,12 @@ def main(argv=None) -> int:
                     help="ciphertext-multiplication mode at N=8192")
     ap.add_argument("--batched", type=int, metavar="Q",
                     help="profile process_request_batched requests of Q queries")
+    ap.add_argument("--stream", type=int, metavar="D",
+                    help="profile process_stream at depth D (single-query requests)")
+    ap.add_argument("--windows", type=int, default=4, help="--stream: windows of each kind")
     args = ap.parse_args(argv)
+    if args.stream is not None and (args.stream < 1 or args.ct_mult or args.batched):
+        raise SystemExit("profile_request: --stream takes D >= 1, single-query decomposition")
     if args.batched is not None and (args.batched < 1 or args.ct_mult):
         raise SystemExit("profile_request: --batched takes Q >= 1 queries, in decomposition mode")
     if not torch.cuda.is_available():
@@ -215,6 +292,29 @@ def main(argv=None) -> int:
                 for k in range(n_req)]
     serve = server.process_request_batched if args.batched else server.process_request
     serve(requests[0])  # fills the key cache; builds kernels
+
+    stream = None
+    if args.stream:
+        stream = stream_profile(server, requests[1 : 1 + args.spread], args.stream, args.windows)
+        prof = device_profile(
+            lambda reqs: list(server.process_stream(iter(reqs), depth=args.stream)),
+            [requests[1 : 1 + args.spread]])
+        result = {"card": smi, "items": db_size, "stream": stream, "profiler": prof}
+        print(f"stream depth {args.stream}, windows of {args.spread} requests in turns: "
+              f"sequential {', '.join(f'{x:.2f}' for x in stream['sequential_qps'])} "
+              f"queries/s; streamed {', '.join(f'{x:.2f}' for x in stream['streamed_qps'])}")
+        print(f"streamed, a request: wall {stream['streamed_wall_ms_a_request']:.3f} ms; "
+              f"caller submission {stream['caller_submit_ms_a_request']:.3f} ms; worker wait "
+              f"{stream['worker_wait_ms_a_request']:.3f} ms, serialize "
+              f"{stream['worker_serialize_ms_a_request']:.3f} ms; {stream['stream_stats']}")
+        print(f"profiler, one streamed window: device {prof['device_ms_merged']:.3f} ms "
+              f"(merged) of {prof['wall_ms']:.3f} ms wall, busy share {prof['busy_share']:.3f}")
+        if args.out:
+            out = pathlib.Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(result, indent=1))
+        print(json.dumps(result), flush=True)
+        return 0
 
     stages: dict = {}
     levels = [0.0] * ceil_log2(min(params.dimensions_sum, params.encryption_params.poly_modulus_degree))

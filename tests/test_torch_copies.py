@@ -110,7 +110,8 @@ def test_import_leaves_jax_out():
         " pir_tpu_torch.profile_request, pir_tpu_torch.scan_wide_variants,"
         " pir_tpu_torch.parallel.sharded,"
         " pir_tpu_torch.parallel.distributed, pir_tpu_torch.parallel.mesh_worker,"
-        " chip_smoke;"
+        " pir_tpu_torch.utils.profiling, pir_tpu_torch.examples.basic_pir,"
+        " pir_tpu_torch.examples.streamed_serving, chip_smoke;"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
         "bad = [m for m in sys.modules if m == 'pir_tpu' or m.startswith('pir_tpu.')];"
         "assert not bad, bad"

@@ -429,3 +429,61 @@ def test_nccl_refuses_two_ranks_on_one_card(dev, tmp_path):
     req = pt.PirClient(params, seed=6, device="cpu").create_request([4])
     with pytest.raises(RuntimeError, match="share the card"):
         mesh_worker.run_job(_mesh_job(params, raw, req, "nccl"), tmp_path, 300)
+
+
+@pytest.mark.parametrize("indexes", [[[4], [40], [0], [17], [49], [23]], [[4, 40, 9], [0, 17, 49]]],
+                         ids=["single", "multi"])
+def test_stream_on_card_equals_sequential(dev, indexes):
+    """process_stream at depth 4 on the card: Responses in order, each
+    byte-equal to process_request's, no synchronizing call (the keys are
+    cached by the first process_request), the in-flight count at the depth
+    (or the request count), the kernels launched, no worker left."""
+    import threading
+
+    params = _small_params((34, 36, 37))
+    rng = np.random.default_rng(5)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    client = pt.PirClient(params, seed=6, compress_queries=True, device="cpu")
+    server = pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params)
+    reqs = [client.create_request(ix) for ix in indexes]
+    want = [server.process_request(r).SerializeToString() for r in reqs]
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # nothing on the path may synchronize
+    try:
+        got = [r.SerializeToString() for r in server.process_stream(iter(reqs), depth=4)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = kernels.variant_launch_counts()
+    assert got == want
+    assert server.stream_stats["max_in_flight"] == min(4, len(reqs))
+    assert len(server._stream_slots) == min(4, len(reqs))
+    assert counts["pir_ntt.grow"] > 0
+    assert counts["pir_scan_wide.hi" if len(indexes[0]) > 1 else "pir_scan.hi"] > 0
+    assert not [t for t in threading.enumerate() if t.name.startswith("pir-stream")]
+    for ix, resp in zip(indexes, server.process_stream(iter(reqs), depth=2)):
+        assert client.process_response(ix, resp) == [raw[i] for i in ix]
+
+
+def test_shard_loaded_mesh_of_two_ranks_on_card(dev, tmp_path):
+    """Two gloo ranks (db=2) sharing the card, each loading only its shard
+    of an ingest_shards checkpoint: each rank's Response equals the
+    single-device server's."""
+    from pir_tpu_torch.parallel import mesh_worker
+    from pir_tpu_torch.pir import wire
+
+    params = _small_params((34, 36, 37))
+    rng = np.random.default_rng(7)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    pt.PirDatabase.ingest_shards(iter(raw), params, tmp_path / "shards", 2)
+    client = pt.PirClient(params, seed=6, compress_queries=True, device="cpu")
+    req = client.create_request([4, 40])
+    want = pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params).process_request(req)
+    case = {"name": "mesh", "params": wire.pir_params_to_proto(params).SerializeToString(),
+            "shard_dir": str(tmp_path / "shards"), "scan_impl": "pallas",
+            "requests": [req.SerializeToString()]}
+    job = {"world": 2, "backend": "gloo", "devices": ["cuda:0"] * 2, "timeout_s": 120,
+           "cases": [case]}
+    for r in mesh_worker.run_job(job, tmp_path / "job", 600):
+        assert r["mesh"]["responses"] == [want.SerializeToString()]
+        assert r["mesh"]["counts"][0]["pir_scan.hi"] > 0
+    assert client.process_response([4, 40], want) == [raw[4], raw[40]]

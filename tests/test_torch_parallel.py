@@ -6,12 +6,16 @@ conftest.py) and of the port's single-device server.  Tolerance 0.
 
 Two launches run every case: four ranks (db x batch, db x limb, d=1 over
 db, a mod-switched reply) and two ranks (limb=2 on both layouts, the K6
-single-word and hi-plane cases).  Every wait has a timeout, and a launch
+single-word and hi-plane cases).  In the SHARDED cases no rank builds the
+whole database: each loads only its shard of a PirDatabase.ingest_shards
+checkpoint and builds its block of the planes
+(parallel.distributed.planes_from_shard_rows).  Every wait has a timeout, and a launch
 kills its ranks when one fails or time runs out.  The layouts the mesh
 refuses are checked in this process, on the mesh's shape alone.
 """
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -37,7 +41,11 @@ CASES = {
     "limb2_planes_u32": (2, 2, (26, 27, 28), "pallas", 1, 2, None, [3, 29]),
     "limb2_planes_hi": (2, 2, (26, 34, 36), "pallas", 1, 2, None, [3, 29]),
     "limb2_shoup": (2, 2, (26, 34, 36), "xla", 1, 2, None, [3, 29]),
+    "db2xlimb2_shards": (4, 2, (26, 34, 36), "pallas", 1, 2, None, [3, 29]),
+    "db4_shards_d1": (4, 1, (26, 34, 36), "pallas", 4, 1, None, [0, 17, 29, 5]),
+    "db2_shards_reply1": (2, 2, (30, 30, 32), "pallas", 1, 1, 1, [0, 29]),
 }
+SHARDED = {"db2xlimb2_shards", "db4_shards_d1", "db2_shards_reply1"}
 # name: (limb, reply_limbs, use_ct_mult, message), on L=2
 ERRORS = {
     "limb4_does_not_divide_L": (4, None, False, "must divide"),
@@ -58,18 +66,25 @@ def _request(name):
     return params, raw, client, client.create_request(indexes)
 
 
-def _job(world):
+def _job(world, shard_root):
     cases = []
     for name, (w, d, q_bits, impl, batch, limb, reply_limbs, _) in CASES.items():
         if w != world:
             continue
         params, raw, _, request = _request(name)
-        cases.append({
+        case = {
             "name": name, "params": twire.pir_params_to_proto(params).SerializeToString(),
-            "items": b"".join(raw), "scan_impl": impl, "batch": batch, "limb": limb,
+            "scan_impl": impl, "batch": batch, "limb": limb,
             "reply_limbs": reply_limbs, "requests": [request.SerializeToString()],
             "batched": True,
-        })
+        }
+        if name in SHARDED:
+            case["shard_dir"] = str(shard_root / name)
+            pt.PirDatabase.ingest_shards(iter(raw), params, shard_root / name,
+                                         world // (batch * limb), chunk_pts=2)
+        else:
+            case["items"] = b"".join(raw)
+        cases.append(case)
     return {"world": world, "backend": "gloo", "devices": ["cpu"] * world,
             "timeout_s": 120, "cases": cases}
 
@@ -82,7 +97,8 @@ def launches(tmp_path_factory):
     def get(world):
         if world not in done:
             done[world] = mesh_worker.run_job(
-                _job(world), tmp_path_factory.mktemp(f"mesh{world}"), LAUNCH_TIMEOUT_S
+                _job(world, tmp_path_factory.mktemp(f"shards{world}")),
+                tmp_path_factory.mktemp(f"mesh{world}"), LAUNCH_TIMEOUT_S,
             )
         return done[world]
 
@@ -143,6 +159,56 @@ def test_replicate_to_mesh(launches):
     """Rank 0's array reaches every rank (u64 bits included)."""
     for world in (2, 4):
         assert all(r["replicate_ok"] for r in launches(world))
+
+
+class _MeshCoords(_MeshShape):
+    """A mesh shape and this rank's coordinates on it."""
+
+    def __init__(self, coords, **shape):
+        super().__init__(**shape)
+        self._coords = coords
+
+    def coord(self, axis):
+        return self._coords.get(axis, 0)
+
+
+def test_rank_planes_are_the_whole_planes_block():
+    """planes_from_shard_rows' block, from the rank's rows only, equals the
+    slice of the whole database's planes that the pipeline cuts for that
+    rank (every db and limb coordinate; the last shard padded), and its
+    checks refuse a wrong start, too many rows, and d=1 over several db
+    ranks."""
+    from pir_tpu_torch.parallel import distributed
+    from pir_tpu_torch.pir import database
+
+    params = _params(2, (26, 34, 36))  # L = 2
+    db = pt.PirDatabase.create(generate_test_db(30, 8), params, device="cpu")
+    for n_db, n_limb in ((1, 1), (2, 1), (2, 2), (3, 2)):
+        rows = database.shard_rows(params, n_db)
+        l_local = db.ctx.L // n_limb
+        for c_db, (r0, r1) in enumerate(database.shard_row_ranges(params, n_db)):
+            for c_limb in range(n_limb):
+                mesh = _MeshCoords({"db": c_db, "limb": c_limb}, db=n_db, batch=1, limb=n_limb)
+                got = distributed.planes_from_shard_rows(
+                    params, db.ctx, db.db_pts[r0:r1], mesh, c_db * rows)
+                for g, whole in zip(got, db.db_planes):
+                    want = sharded._block(whole, 0, n_db, n_db, c_db)
+                    assert torch.equal(g, want.narrow(1, c_limb * l_local, l_local))
+    mesh = _MeshCoords({"db": 1}, db=2, batch=1)
+    rows = database.shard_rows(params, 2)
+    with pytest.raises(ValueError, match="row_start"):
+        distributed.planes_from_shard_rows(params, db.ctx, db.db_pts[:1], mesh, 0)
+    with pytest.raises(ValueError, match="more local rows"):
+        distributed.planes_from_shard_rows(
+            params, db.ctx, np.zeros((rows + 1, 64), np.uint64), mesh, rows)
+    d1 = _params(1, (26, 34, 36))
+    with pytest.raises(ValueError, match="inner dimension"):
+        distributed.planes_from_shard_rows(
+            d1, pt.PirDatabase(d1, device="cpu").ctx, np.zeros((0, 64), np.uint64), mesh,
+            database.shard_rows(d1, 2))
+    with pytest.raises(ValueError, match="this rank's planes"):
+        sharded.make_sharded_pipeline(db.ctx, params.dimensions, None, mesh,
+                                      db_planes=db.db_planes, local_planes=True)
 
 
 def test_rank_shards_hold_their_own_storage():
