@@ -28,7 +28,8 @@ Phases, each of which raises on failure:
    and on a chain of 60-bit moduli (above the planes' 48 bits, where its
    sums fold), at phase 13's ct-mult inner scan (N=8192, db and companions
    6.8 GB; the plain version a few prefixes at a time) and at N=16384
-   (a 2^20-item request's inner scan and phase 14's);
+   (a 2^20-item request's inner scan and phase 14's), and at phase 19's
+   rank block of the N=8192 ct-mult inner scan (57 of its 114 prefixes);
 4. a small database (N=256) served on the card and on the CPU (plain
    versions): the Response bytes must be equal, and the card's request must
    have launched kernel A (the K3 row's launches);
@@ -114,7 +115,30 @@ Phases, each of which raises on failure:
    (parallel.distributed.planes_from_shard_rows); every rank's Response
    equals the single-device server's, K6 launched, and each rank's peak
    device memory is below every phase-10 rank's (those build the whole
-   database first).
+   database first);
+18. the SEAL 3.5 wire at the benchmark configuration's shape (2^20 stamped
+   items of 288 B, d=2, N=4096, SEAL's chain, replies at reply_limbs_for) on
+   the reference's legacy re-encode digits (SEAL clients and servers refuse
+   the bench's balanced digits for d > 1) and SEAL's default 20-bit t (at
+   the bench's 24 bits the legacy digits leave the reply no noise budget),
+   wire_format="auto", a
+   PirClient(wire_format="seal"): three single-query SEAL requests (every
+   reply blob a SEAL stream, every item decoded), a batched request of 16
+   SEAL queries (kernel C; each reply byte-equal to its query alone), 6 SEAL
+   requests streamed at depth 4 under set_sync_debug_mode("error")
+   (byte-equal to sequential), and the same query arrays in the native
+   codec (reply arrays equal to the SEAL ones); the first SEAL request's
+   latency, which includes the SEAL key set's load (seeded c1 expanded with
+   SEAL's BLAKE2 PRNG on the host), the warm SEAL and native latencies and
+   both key loads' host seconds;
+19. ciphertext-multiplication mode on meshes of gloo ranks sharing the
+   card, every rank's Response byte-equal to the single-device server's:
+   (b) CT_MULT_REFERENCE_ROWS' N=4096 d=2 row, both its indexes in one
+   request, on db=2 x batch=2 (4 ranks); (a) phase 13's deployment (its
+   server answers a 2-query request, then is freed) on db=2 (2 ranks, each
+   its block of D0 = 57 of 114 rows through kernel D).  Kernel D and
+   kernel A's growing and reducing butterflies must have run; latency
+   (slowest rank) and each rank's held and peak device memory.
 
 Phase 5 also prints the invariant noise budget of each decomposition
 reply at reply_limbs_for, which must be > 0, and of the inner ciphertexts
@@ -174,6 +198,10 @@ STREAM_DEPTHS = (4, 6)
 STREAM_BATCHES = 4  # phase 15: batched requests of STREAM_BATCH queries, at depth 3
 STREAM_BATCH = 4
 LOG2_CHECKPOINT_ITEMS = 16  # phase 16's database
+# phase 18: SEAL's default plain modulus at N=4096 (0xFC001).  With the
+# reference's legacy re-encode digits (5 bits wider than the balanced ones
+# at 24 bits) the bench's 24-bit t leaves a 2^20-item reply no noise budget
+SEAL_PLAIN_BITS = 20
 
 
 class KernelRow(NamedTuple):
@@ -189,7 +217,9 @@ class KernelRow(NamedTuple):
 KERNEL_ROWS = (
     KernelRow("scan (K1)", "scan.cu", ("pir_tpu/ops/pallas_scan.py:103",),
               (("single", "pir_scan.hi"), ("seal8192", "pir_scan.hi"),
-               ("stream", "pir_scan.hi"), ("load_planes", "pir_scan.hi")), "K1"),
+               ("stream", "pir_scan.hi"), ("load_planes", "pir_scan.hi"),
+               ("seal_single", "pir_scan.hi"), ("seal_batched", "pir_scan.hi"),
+               ("seal_stream", "pir_scan.hi")), "K1"),
     KernelRow("ntt (K2)", "ntt.cu", ("pir_tpu/ops/pallas_mxu_ntt.py:252",),
               (("single", "pir_ntt.grow"), ("ctmult_ref", "pir_ntt.grow"),
                ("ctmult_ref", "pir_ntt.reduce"), ("ctmult", "pir_ntt.grow"),
@@ -197,13 +227,17 @@ KERNEL_ROWS = (
                ("seal8192", "pir_ntt.grow"), ("seal16384", "pir_ntt.grow"),
                ("stream", "pir_ntt.grow"), ("stream_batched", "pir_ntt.grow"),
                ("load_planes", "pir_ntt.grow"), ("load_shoup", "pir_ntt.grow"),
-               ("shard_mesh", "pir_ntt.grow")), "K2"),
+               ("shard_mesh", "pir_ntt.grow"), ("seal_single", "pir_ntt.grow"),
+               ("seal_batched", "pir_ntt.grow"), ("seal_stream", "pir_ntt.grow"),
+               ("ctmult_ref_mesh", "pir_ntt.grow"), ("ctmult_ref_mesh", "pir_ntt.reduce"),
+               ("ctmult_mesh", "pir_ntt.grow"), ("ctmult_mesh", "pir_ntt.reduce")), "K2"),
     KernelRow("ntt (K3; launches of the N=256 path, numbers of the N=32768 check)", "ntt.cu",
               ("pir_tpu/ops/pallas_ntt.py:147",),
               (("small", "pir_ntt.grow"),), "K3"),
     KernelRow("scan_wide (K4)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:397",),
               (("batched", "pir_scan_wide.hi"), ("seal8192", "pir_scan_wide.hi"),
-               ("stream_batched", "pir_scan_wide.hi")), "K4"),
+               ("stream_batched", "pir_scan_wide.hi"), ("seal_batched", "pir_scan_wide.hi")),
+              "K4"),
     KernelRow("scan_wide u32 (K4-u32)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:422",),
               (("tpu32", "pir_scan_wide.u32"), ("tpu32_8192", "pir_scan_wide.u32")), "K4-u32"),
     KernelRow("scan u32 (K5)", "scan.cu", ("pir_tpu/ops/pallas_scan.py:167",),
@@ -215,7 +249,8 @@ KERNEL_ROWS = (
     KernelRow("scan_shoup (K7)", "scan_shoup.cu", ("pir_tpu/ops/pallas_scan.py:32",),
               (("shoup", "pir_scan_shoup"), ("ctmult_ref", "pir_scan_shoup"),
                ("ctmult", "pir_scan_shoup"), ("seal16384", "pir_scan_shoup"),
-               ("load_shoup", "pir_scan_shoup")), "K7"),
+               ("load_shoup", "pir_scan_shoup"), ("ctmult_ref_mesh", "pir_scan_shoup"),
+               ("ctmult_mesh", "pir_scan_shoup")), "K7"),
 )
 
 # ciphertext-multiplication rows of REFERENCE_MATRIX (tests/test_correctness.py):
@@ -581,27 +616,25 @@ def serve_shoup(device, params, client, items, planes_server) -> dict:
     return counts
 
 
-def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, limb,
-               shard_dir=None):
-    """One request of len(indexes) queries on a mesh of gloo ranks that all
-    run on `device` (one process each, pir_tpu_torch.parallel.mesh_worker):
-    every rank's Response must equal the single-device server's and decode.
-    With shard_dir (an ingest_shards checkpoint of the items) each rank
-    loads only its own rows.  Returns the launch counts summed over the
-    ranks, and each rank's peak device memory in MiB."""
+def run_mesh(device, label, params, items, request, want, n_db, batch, limb,
+             shard_dir=None, scan_impl="pallas", reply_limbs=None):
+    """Serve `request` twice (first, then warm) on a mesh of gloo ranks that
+    all run on `device` (one process each, pir_tpu_torch.parallel.mesh_worker):
+    every rank's Response must equal `want` (the single-device server's
+    bytes).  With shard_dir (an ingest_shards checkpoint of the
+    items) each rank loads only its own rows.  Logs the latencies (slowest
+    rank) and each rank's held and peak device memory; returns the warm
+    request's launch counts summed over the ranks, and each rank's peak
+    device memory in MiB."""
     import tempfile
 
-    import pir_tpu_torch as pt
     from pir_tpu_torch.parallel import mesh_worker
     from pir_tpu_torch.pir import wire
-    from pir_tpu_torch.proto import payload_pb2 as pb
 
     world = n_db * batch * limb
-    request = client.create_request(indexes)
-    want = pt.PirServer(db, params).process_request(request).SerializeToString()
     case = {
         "name": label, "params": wire.pir_params_to_proto(params).SerializeToString(),
-        "scan_impl": "pallas", "batch": batch, "limb": limb,
+        "scan_impl": scan_impl, "batch": batch, "limb": limb, "reply_limbs": reply_limbs,
         "requests": [request.SerializeToString()] * 2,
     }
     if shard_dir is None:
@@ -620,20 +653,35 @@ def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, l
         if not res["replicate_ok"] or any(r != want for r in got["responses"]):
             raise AssertionError(f"{label} mesh: rank {rank}'s Response differs from single-device")
         add_counts(counts, got["counts"][-1])
-    check_items(client, indexes, pb.Response.FromString(want), items, f"{label} mesh")
     first = [res[label]["ms"][0] for res in results]
     warm = [res[label]["ms"][1] for res in results]
     held = ", ".join(f"{res[label]['held_mib']:.1f}" for res in results)
     peak = ", ".join(f"{res[label]['peak_mib']:.1f}" for res in results)
     log(f"{label} mesh: {world} ranks (db={n_db} x batch={batch} x "
         f"limb={limb}, gloo, co-located on one card — not a multi-GPU figure), request of "
-        f"{len(indexes)} queries: every rank's Response byte-equal to the single-device "
-        f"server's, items retrieved; latency first {max(first):.2f} ms, warm "
+        f"{len(request.query)} queries: every rank's Response byte-equal to the single-device "
+        f"server's; latency first {max(first):.2f} ms, warm "
         f"{max(warm):.2f} ms (slowest rank); launches summed over ranks {counts}; "
         f"device memory per rank held after the build (its shard) [{held}] MiB, peak over "
         f"the build and the requests [{peak}] MiB; job {total_s:.2f} s with the ranks' "
         f"database {'loads' if shard_dir else 'builds'}")
     return counts, [res[label]["peak_mib"] for res in results]
+
+
+def serve_mesh(device, label, params, client, items, db, indexes, n_db, batch, limb,
+               shard_dir=None):
+    """One request of len(indexes) queries on a mesh (run_mesh) against the
+    single-device server of `db`, every item decoded.  Returns the launch
+    counts summed over the ranks, and each rank's peak device memory."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch.proto import payload_pb2 as pb
+
+    request = client.create_request(indexes)
+    want = pt.PirServer(db, params).process_request(request).SerializeToString()
+    out = run_mesh(device, label, params, items, request, want, n_db, batch, limb,
+                   shard_dir=shard_dir)
+    check_items(client, indexes, pb.Response.FromString(want), items, f"{label} mesh")
+    return out
 
 
 def serve_shard_mesh(device, params, client, items, db, indexes, whole_db_peaks) -> dict:
@@ -749,6 +797,140 @@ def serve_stream(server, client, items, smi: str) -> dict:
     log(f"stream failure path: 2 Responses equal to sequential, then ValueError({failure}); "
         f"the next stream of 6 byte-equal to sequential")
     return {"stream": counts, "stream_batched": counts_b}
+
+
+def reply_arrays(response, ctx) -> list:
+    """Every reply of a Response loaded to its u64 ciphertext arrays."""
+    from pir_tpu_torch.pir import wire
+
+    return [wire.load_ciphertexts(reply, ctx) for reply in response.reply]
+
+
+def serve_seal(device, items, smi: str) -> dict:
+    """Phase 18: the SEAL 3.5 wire at the benchmark configuration's shape,
+    on a stamped 2^20-item server with the reference's legacy re-encode
+    digits (a SEAL client and server refuse balanced ones, the bench
+    default, for d > 1) and SEAL's default 20-bit t (SEAL_PLAIN_BITS), and
+    its default wire_format="auto": a SEAL client's single-query, batched and
+    streamed requests, and the same query arrays sent natively.  Returns
+    the launch counts of the single ("seal_single"), batched
+    ("seal_batched") and streamed ("seal_stream") requests."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels
+    from pir_tpu_torch.pir import seal_compat, wire
+    from pir_tpu_torch.proto import payload_pb2 as pb
+
+    n = len(items)
+    seal_params = pt.create_pir_parameters(
+        n, ITEM_SIZE, DIMENSIONS, pt.generate_encryption_params(POLY_DEGREE, SEAL_PLAIN_BITS),
+        reencode_digits="legacy",
+    )
+    t0 = time.perf_counter()
+    db = pt.PirDatabase.create(items, seal_params, device=device)
+    server = pt.PirServer(db, seal_params, reply_limbs=pt.reply_limbs_for(seal_params))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    client = pt.PirClient(seal_params, seed=CLIENT_SEED, device="cpu", wire_format="seal")
+    keygen_s = time.perf_counter() - t0
+    ep = seal_params.encryption_params
+    log(f"SEAL wire: t = {seal_params.encryption_params.plain_modulus:#x}, dims "
+        f"{seal_params.dimensions}, replies at {server.reply_limbs} limb(s); stamped database "
+        f"with legacy digits built in {build_s:.2f} s; SEAL "
+        f"client keys (seeded Galois and relin keys) on the CPU in {keygen_s:.2f} s; Galois "
+        f"key blob {len(client._galois_bytes) / 2**20:.1f} MiB, relin "
+        f"{len(client._relin_bytes) / 2**20:.1f} MiB")
+
+    def check_seal(response, indexes, label):
+        for reply in response.reply:
+            for ct in reply.ct:
+                if not seal_compat.looks_like_seal_stream(ct):
+                    raise AssertionError(f"{label}: a reply blob is not a SEAL stream")
+        check_items(client, indexes, response, items, label)
+
+    indexes = [n // 3 + 1, n // 2 + 7, n - 1]
+    requests = [client.create_request([i]) for i in indexes]
+    kernels.reset_launch_counts()
+    responses, latencies = [], []
+    for req in requests:
+        resp, ms = timed(lambda: server.process_request(req))
+        responses.append(resp)
+        latencies.append(ms)
+    single = kernels.variant_launch_counts()
+    for idx, resp in zip(indexes, responses):
+        check_seal(resp, [idx], "SEAL single-query")
+    require(single, ("pir_ntt.grow", "pir_scan.hi"), "seal_single")
+    budgets = [client.reply_noise_budgets(resp.reply[0]) for resp in responses]
+    if min(b[0] for b in budgets) <= 0:
+        raise AssertionError(f"a SEAL reply has no noise budget left: {budgets}")
+    t0 = time.perf_counter()
+    wire.deserialize_galois_keys(requests[0].galois_keys, "cpu", ep)
+    seal_load_s = time.perf_counter() - t0
+    native_gal = wire.serialize_galois_keys(client.galois_keys)
+    t0 = time.perf_counter()
+    wire.deserialize_galois_keys(native_gal, "cpu")
+    native_load_s = time.perf_counter() - t0
+
+    idx16 = [(k * 40503 + 333) % n for k in range(16)]
+    request16 = client.create_request(idx16)
+    kernels.reset_launch_counts()
+    batched, batch_ms = timed(lambda: server.process_request_batched(request16))
+    counts_b = kernels.variant_launch_counts()
+    check_seal(batched, idx16, "SEAL batched")
+    require(counts_b, ("pir_ntt.grow", "pir_scan_wide.hi", "pir_scan.hi"), "seal_batched")
+    for qi in range(16):
+        one = server.process_request(single_query_request(request16, qi))
+        if one.reply[0].SerializeToString() != batched.reply[qi].SerializeToString():
+            raise AssertionError(f"SEAL batched: query {qi} alone differs from its batched reply")
+
+    stream_idx = [(k * 77773 + 91) % n for k in range(6)]
+    stream_reqs = [client.create_request([i]) for i in stream_idx]
+    want = [server.process_request(r).SerializeToString() for r in stream_reqs]
+    list(server.process_stream(iter(stream_reqs), depth=4))  # the streams' pools
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # a synchronizing call on the path raises
+    try:
+        got, stream_ms = timed(lambda: [r.SerializeToString()
+                                        for r in server.process_stream(iter(stream_reqs), depth=4)])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts_s = kernels.variant_launch_counts()
+    if got != want:
+        raise AssertionError("streamed SEAL Responses differ from sequential")
+    for idx, resp in zip(stream_idx, got):
+        check_seal(pb.Response.FromString(resp), [idx], "SEAL stream")
+    require(counts_s, ("pir_ntt.grow", "pir_scan.hi"), "seal_stream")
+
+    # the same query arrays and keys in the native codec, on the same server
+    native_relin = wire.serialize_relin_keys(client.relin_keys)
+    native_ms = []
+    for req, seal_resp in zip(requests + requests[:1], responses + responses[:1]):
+        nat = pb.Request(galois_keys=native_gal, relin_keys=native_relin)
+        for q in req.query:
+            wire.save_ciphertexts(wire.load_ciphertexts(q, server.ctx), nat.query.add())
+        resp, ms = timed(lambda: server.process_request(nat))
+        native_ms.append(ms)
+        if seal_compat.looks_like_seal_stream(resp.reply[0].ct[0]):
+            raise AssertionError("a native request was answered with SEAL streams")
+        for a, b in zip(reply_arrays(resp, server.ctx), reply_arrays(seal_resp, server.ctx)):
+            if not np.array_equal(a, b):
+                raise AssertionError("native and SEAL replies to the same queries differ")
+    log(f"SEAL wire ({smi}): 3/3 single-query SEAL requests at {indexes}, every reply blob a "
+        f"SEAL stream, every stamped item retrieved; latency first {latencies[0]:.2f} ms (with "
+        f"the key set's load: SEAL Galois keys {seal_load_s:.3f} s on the host, their seeded c1 "
+        f"expanded with SEAL's BLAKE2 PRNG, against {native_load_s:.3f} s for the same keys "
+        f"native), warm {', '.join(f'{x:.2f}' for x in latencies[1:])} ms; native requests of "
+        f"the same query arrays on the same server, warm "
+        f"{', '.join(f'{x:.2f}' for x in native_ms[1:])} ms (first {native_ms[0]:.2f} ms, its "
+        f"key load included), reply arrays equal to the SEAL ones; noise budgets (bits) [reply, "
+        f"recomposed inner] {budgets}; launches {single}")
+    log(f"SEAL wire: batched request of 16 SEAL queries {batch_ms:.2f} ms, each reply byte-equal "
+        f"to its query alone, every item retrieved, launches {counts_b}; 6 SEAL requests streamed "
+        f"at depth 4 in {stream_ms:.2f} ms ({6 / stream_ms * 1e3:.2f} queries/s), byte-equal to "
+        f"sequential, launches {counts_s}")
+    del server, db
+    torch.cuda.empty_cache()
+    return {"seal_single": single, "seal_batched": counts_b, "seal_stream": counts_s}
 
 
 def serve_checkpoint(device) -> dict:
@@ -868,10 +1050,13 @@ def serve_ctmult_reference(device) -> dict:
     return total
 
 
-def serve_ctmult_full(device) -> dict:
+def serve_ctmult_full(device) -> "tuple[dict, dict]":
     """Ciphertext-multiplication mode at real size: 2^20 stamped items of
     288 B, d=2, N=8192, SEAL's chain, the bench's t, replies mod-switched by
-    reply_limbs_for; three requests.  Returns their launch counts."""
+    reply_limbs_for; three requests.  Then phase 19 (a): one request of 2
+    queries on this server, which is freed before a db=2 mesh of 2 gloo
+    ranks serves the same request (each rank byte-equal to it).  Returns
+    the three requests' launch counts and the mesh's."""
     import pir_tpu_torch as pt
     from pir_tpu_torch import kernels
 
@@ -918,9 +1103,49 @@ def serve_ctmult_full(device) -> dict:
         f"peak device memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the "
         f"{base_mb:.1f} MiB held); launches {counts}")
     require(counts, ("pir_ntt.grow", "pir_ntt.reduce", "pir_scan_shoup"), "ct-mult at 2^20 items")
+
+    mesh_indexes = [db_size // 5 + 3, db_size - 2]
+    request = client.create_request(mesh_indexes)
+    want, ms = timed(lambda: server.process_request(request))
+    check_items(client, mesh_indexes, want, items, "ct-mult mesh reference")
+    log(f"ct-mult at 2^20 items: the mesh's request of 2 queries on this single-device server "
+        f"in {ms:.2f} ms")
     del server, db
     torch.cuda.empty_cache()
-    return counts
+    mesh, _ = run_mesh(device, "ct-mult N=8192 2^20 items", params, items, request,
+                       want.SerializeToString(), n_db=2, batch=1, limb=1, scan_impl="auto",
+                       reply_limbs=reply_limbs)
+    require(mesh, ("pir_ntt.grow", "pir_ntt.reduce", "pir_scan_shoup"), "ct-mult mesh")
+    return counts, mesh
+
+
+def serve_ctmult_mesh_reference(device) -> dict:
+    """Phase 19 (b): CT_MULT_REFERENCE_ROWS' N=4096 d=2 row with its two
+    indexes as one request on a db=2 x batch=2 mesh of 4 gloo ranks, each
+    rank byte-equal to the single-device server.  Returns the mesh's launch
+    counts."""
+    import pir_tpu_torch as pt
+
+    n, t_bits, elem, bpc, dbsize, d, indexes = CT_MULT_REFERENCE_ROWS[CT_MULT_CPU_ROW]
+    params = pt.create_pir_parameters(
+        dbsize, elem, d, pt.generate_encryption_params(n, t_bits),
+        use_ciphertext_multiplication=True, bits_per_coeff=bpc,
+    )
+    raw = seeded_items(params.num_items, params.bytes_per_item)
+    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device=device)
+    request = client.create_request(indexes)
+    server = pt.PirServer(pt.PirDatabase.create(raw, params, device=device), params)
+    server.process_request(request)  # the keys cached
+    want, ms = timed(lambda: server.process_request(request))
+    check_items(client, indexes, want, raw, "ct-mult reference-row mesh")
+    log(f"ct-mult N={n} d={d} {dbsize} items: the mesh's request of {len(indexes)} queries on "
+        f"one device, warm, in {ms:.2f} ms")
+    del server
+    torch.cuda.empty_cache()
+    mesh, _ = run_mesh(device, f"ct-mult N={n} d={d} {dbsize} items", params, raw, request,
+                       want.SerializeToString(), n_db=2, batch=2, limb=1, scan_impl="auto")
+    require(mesh, ("pir_ntt.grow", "pir_ntt.reduce", "pir_scan_shoup"), "ct-mult reference mesh")
+    return mesh
 
 
 def large_ring_params(n: int, profile: str):
@@ -1020,6 +1245,7 @@ def main() -> int:
     batched = serve_batched(server, client, stamped, indexes, "SEAL chain")
     require(batched, ("pir_ntt.grow", "pir_scan_wide.hi", "pir_scan.hi"), "batched")
     streams = serve_stream(server, client, stamped, smi.stdout.strip())
+    seal = serve_seal(device, stamped, smi.stdout.strip())
     shoup_counts = serve_shoup(device, params, client, stamped, server)
     mesh_indexes = [len(stamped) // 5, len(stamped) - 3]
     mesh, whole_db_peaks = serve_mesh(device, "SEAL chain", params, client, stamped, server.db,
@@ -1040,13 +1266,15 @@ def main() -> int:
     del db32, items32
     torch.cuda.empty_cache()
     ctmult_ref = serve_ctmult_reference(device)
-    ctmult = serve_ctmult_full(device)
+    ctmult_ref_mesh = serve_ctmult_mesh_reference(device)
+    ctmult, ctmult_mesh = serve_ctmult_full(device)
     large = serve_large_rings(device)
 
     paths = {"single": single, "small": small, "batched": batched, "tpu32": tpu32,
              "mesh": mesh, "mesh32": mesh32, "shoup": shoup_counts,
              "ctmult_ref": ctmult_ref, "ctmult": ctmult, **large, **streams,
-             "shard_mesh": shard_mesh, **checkpoint}
+             "shard_mesh": shard_mesh, **checkpoint, **seal,
+             "ctmult_ref_mesh": ctmult_ref_mesh, "ctmult_mesh": ctmult_mesh}
     checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup}
     for row in KERNEL_ROWS:  # every (path, variant) a row counts was launched
         for path, variant in row.launches:

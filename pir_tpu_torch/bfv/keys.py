@@ -23,6 +23,7 @@ from pir_tpu_torch.bfv import sampling
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import modular
 from pir_tpu_torch.ops.modular import tensor_u64
+from pir_tpu_torch.pir import seal_compat
 
 
 @dataclasses.dataclass
@@ -42,6 +43,10 @@ class PublicKey:
 @dataclasses.dataclass
 class KSwitchKey:
     data: torch.Tensor  # int64[L, 2, Lp, N], NTT form at key level
+    # SEAL stream-PRNG seeds (8 u64 words per component) when the a-polys
+    # were derived from seeds: the key then serializes in SEAL's seeded
+    # form (pir/seal_compat.py).  None otherwise.
+    seeds: "list | None" = None
 
 
 @dataclasses.dataclass
@@ -87,18 +92,26 @@ def gen_kswitch_key(
     sk: SecretKey,
     target_ntt_qp: torch.Tensor,
     rng: np.random.Generator,
+    seeded_wire: bool = False,
 ) -> KSwitchKey:
-    """Key-switching key for a target key given in NTT form over QP."""
+    """Key-switching key for a target key given in NTT form over QP.
+
+    seeded_wire: derive each component's uniform a-poly from a fresh SEAL
+    stream-PRNG seed (seal_compat.sample_poly_uniform, on the host) instead
+    of the rng, and keep the seeds, so that the key serializes in SEAL's
+    seeded form with c1 replaced by its seed.  The L seeds are drawn before
+    the error polynomials, as in ``pir_tpu``."""
     if ctx.special is None:
         raise ValueError(
             "key switching requires a special prime (>=2 coeff moduli)"
         )
-    a_all = tensor_u64(
-        np.stack(
-            [sampling.uniform_rns(rng, ctx.key_moduli, ctx.n) for _ in range(ctx.L)]
-        ),
-        ctx.device,
-    )
+    seeds = None
+    if seeded_wire:
+        seeds = [seal_compat.random_prng_seed(rng) for _ in range(ctx.L)]
+        a_host = [seal_compat.sample_poly_uniform(s, ctx.key_moduli, ctx.n) for s in seeds]
+    else:
+        a_host = [sampling.uniform_rns(rng, ctx.key_moduli, ctx.n) for _ in range(ctx.L)]
+    a_all = tensor_u64(np.stack(a_host), ctx.device)
     e_all = tensor_u64(
         np.stack(
             [
@@ -122,7 +135,7 @@ def gen_kswitch_key(
         bi = b[i].clone()
         bi[i] = modular.add_mod(b[i, i], folded, qi)
         comps.append(torch.stack([bi, a_all[i]]))
-    return KSwitchKey(data=torch.stack(comps))
+    return KSwitchKey(data=torch.stack(comps), seeds=seeds)
 
 
 def _automorph_signed(coeffs: np.ndarray, galois_elt: int) -> np.ndarray:
@@ -135,7 +148,11 @@ def _automorph_signed(coeffs: np.ndarray, galois_elt: int) -> np.ndarray:
 
 
 def gen_galois_keys(
-    ctx: PirContext, sk: SecretKey, elts, rng: np.random.Generator
+    ctx: PirContext,
+    sk: SecretKey,
+    elts,
+    rng: np.random.Generator,
+    seeded_wire: bool = False,
 ) -> GaloisKeys:
     keys = {}
     for elt in elts:
@@ -143,12 +160,15 @@ def gen_galois_keys(
         target = ctx.ntt_qp.forward(
             tensor_u64(sampling.signed_to_rns(s_g, ctx.key_moduli), ctx.device)
         )
-        keys[int(elt)] = gen_kswitch_key(ctx, sk, target, rng)
+        keys[int(elt)] = gen_kswitch_key(ctx, sk, target, rng, seeded_wire=seeded_wire)
     return GaloisKeys(keys=keys)
 
 
 def gen_relin_key(
-    ctx: PirContext, sk: SecretKey, rng: np.random.Generator
+    ctx: PirContext,
+    sk: SecretKey,
+    rng: np.random.Generator,
+    seeded_wire: bool = False,
 ) -> RelinKeys:
     target = ctx.limbs_qp.mul(sk.ntt_qp, sk.ntt_qp)  # s^2 in NTT form
-    return RelinKeys(key=gen_kswitch_key(ctx, sk, target, rng))
+    return RelinKeys(key=gen_kswitch_key(ctx, sk, target, rng, seeded_wire=seeded_wire))

@@ -390,7 +390,8 @@ def shoup_cases() -> "list[tuple[str, tuple, int, int, int]]":
     database (P = D_0 prefixes over D = D_1 rows): N=4096 on SEAL's chain
     and on two 60-bit moduli (only this layout serves them: its u64 sums
     fold every 8 rows); ciphertext-multiplication mode at N=8192 (SEAL's
-    43/44-bit chain, db and companions 6.8 GB); decomposition at N=16384
+    43/44-bit chain, db and companions 6.8 GB), and one rank's block of it
+    on a db=2 mesh (D_0 split over 2 ranks); decomposition at N=16384
     (SEAL's 48/49-bit chain, above the planes' 48 bits)."""
     from pir_tpu_torch.core import primes
 
@@ -401,6 +402,8 @@ def shoup_cases() -> "list[tuple[str, tuple, int, int, int]]":
             ("K7 60-bit inner", tuple(primes.coeff_modulus_from_bits(POLY_DEGREE, [60, 60])),
              *request_dims(seal), POLY_DEGREE),
             ("K7 N=8192 ct-mult inner", ct8192.ct_modulus, *request_dims(ct8192, True), 8192),
+            ("K7 N=8192 ct-mult inner, a db=2 rank's block", ct8192.ct_modulus,
+             -(-request_dims(ct8192, True)[0] // 2), request_dims(ct8192, True)[1], 8192),
             ("K7 N=16384 inner", seal16384.ct_modulus, *request_dims(seal16384), 16384)]
 
 

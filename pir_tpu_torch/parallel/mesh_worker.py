@@ -14,7 +14,10 @@ with one torch thread.  A case is a dict:
   "batch", "limb": the mesh axes (db takes the remaining ranks);
 * "requests": serialized ``Request`` bytes, each served with
   ``process_request`` (and, with "batched": True, once more with
-  ``process_request_batched``);
+  ``process_request_batched``); native or SEAL streams alike.  A
+  ciphertext-multiplication case (its params say so) builds the Shoup-table
+  database (NTT words and companions) whatever its "scan_impl", and its
+  requests carry the relinearization key;
 * "shard_dir" (instead of "items"): a ``PirDatabase.ingest_shards``
   checkpoint with one shard per db coordinate; each rank loads only its
   shard's rows (``load_shard_rows``) and builds only its block of the

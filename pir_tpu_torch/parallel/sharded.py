@@ -10,7 +10,12 @@ as (db, batch, limb) and holds one process group per line of each axis.
   rank owns a contiguous block of database rows (and the matching part of
   the first selection-vector block); the expansion tree is subtree-sharded
   (``expand.expand_query_sharded``: one ``all_gather``) and the partial
-  replies meet in one ``all_reduce`` of reduced residues.
+  replies meet in one ``all_reduce`` of reduced residues.  In
+  ciphertext-multiplication mode each rank runs the whole recursion
+  (kernel D's inner scan, then BEHZ multiply, relinearization and sum per
+  upper dimension) on its rows; every product is relinearized before the
+  sum over its dimension, so the sum of the ranks' reduced partials is
+  single-device serving's reply bit for bit.
 * axis ``"batch"`` — partitions the queries of a request.
 * axis ``"limb"`` — partitions the RNS limbs.  A rank keeps its slice of the
   queries, of the Galois-key rows and of the database, transforms with its
@@ -257,6 +262,13 @@ def make_sharded_pipeline(
     `reply_limbs` when set (replies mod-switched after the cross-rank
     reduction) and L otherwise.
 
+    use_ct_mult: the ciphertext-multiplication recursion instead of digit
+    decomposition, on the Shoup-table layout (db_ntt + db_shoup); the
+    pipeline then takes the relinearization key int64[L, 2, Lp, N] as its
+    third argument (None only for d = 1).  The selection vector stays in
+    coefficient form and its D0 rows are split over "db" as in
+    decomposition mode.
+
     The database is the rank's full copy in either layout — db_planes (hi,
     lo) [prefix, L, inner, N], or db_ntt (+ db_shoup) [padded, L, N] — of
     which the pipeline keeps a copy of this rank's db block and limb slice
@@ -264,9 +276,8 @@ def make_sharded_pipeline(
     drops it.  With local_planes, db_planes already is this rank's block
     and limb slice (``parallel.distributed.planes_from_shard_rows``) and is
     taken as it is.
-    reply_limbs and use_ct_mult are refused with a limb axis, as in
-    pir_tpu; ciphertext-multiplication mode on a mesh is not ported (it
-    runs on one device).
+    reply_limbs and use_ct_mult are refused with a limb axis, and the
+    planes layouts with use_ct_mult, as in pir_tpu.
     """
     n_db = mesh.size("db")
     n_limb = mesh.size("limb")
@@ -281,11 +292,10 @@ def make_sharded_pipeline(
                 "ciphertext-multiplication mode is unsupported with limb "
                 "sharding (BEHZ base extension crosses limbs)"
             )
-    if use_ct_mult:
-        raise ValueError(
-            "ciphertext-multiplication mode on a mesh is not ported yet (ROADMAP "
-            "queue 1, item 2: mesh ct-mult on the db/batch axes); serve it on one device"
-        )
+    if use_ct_mult and (db_planes is not None or local_planes):
+        raise ValueError("db_planes is a decomposition-mode operand")
+    if use_ct_mult and db_shoup is None:
+        raise ValueError("ciphertext-multiplication mode needs the Shoup-table database")
     if db_planes is None and db_ntt is None:
         raise ValueError("the pipeline needs db_planes or db_ntt")
 
@@ -331,18 +341,26 @@ def make_sharded_pipeline(
 
         db_local, shoup_local = local_rows(db_ntt), local_rows(db_shoup)
 
-    def one_query(query, gk):
+    def one_query(query, gk, relin_key):
         if n_db > 1:
             sv = expand.expand_query_sharded(cx, gk, query, dim_sum, mesh, "db")
         else:
             sv = expand.expand_query(cx, gk, query, dim_sum)
-        sv_ntt = cx.ntt_q.forward(sv)
-        sv0_local = _block(sv_ntt[:d0], 0, n_db, n_db, my_db)
-        sv_local = torch.cat([sv0_local, sv_ntt[d0:]], dim=0)
-        partial = scan.database_scan_decomp(
-            cx, local_dims, sv_local, db_planes=planes_local,
-            db_ntt=db_local, db_shoup=shoup_local,
-        )
+        if use_ct_mult:
+            # ct-mult consumes the selection vector in coefficient form
+            sv0_local = _block(sv[:d0], 0, n_db, n_db, my_db)
+            sv_local = torch.cat([sv0_local, sv[d0:]], dim=0)
+            partial = scan.database_scan_ctmult(
+                cx, db_local, shoup_local, local_dims, sv_local, relin_key
+            )
+        else:
+            sv_ntt = cx.ntt_q.forward(sv)
+            sv0_local = _block(sv_ntt[:d0], 0, n_db, n_db, my_db)
+            sv_local = torch.cat([sv0_local, sv_ntt[d0:]], dim=0)
+            partial = scan.database_scan_decomp(
+                cx, local_dims, sv_local, db_planes=planes_local,
+                db_ntt=db_local, db_shoup=shoup_local,
+            )
         # cross-rank homomorphic add: reduced summands, exact in u64
         partial = mesh.all_reduce(partial, "db")
         reply = modular.barrett_reduce_64(partial, cx.limbs_q.q, cx.limbs_q.ratio_hi)
@@ -351,7 +369,6 @@ def make_sharded_pipeline(
         return reply
 
     def pipeline(query_cts, galois_keys, relin_key=None):
-        del relin_key  # decomposition mode takes none
         if query_cts.shape[0] % n_batch:
             raise ValueError(
                 f"{query_cts.shape[0]} queries are not a multiple of the batch axis {n_batch}"
@@ -362,7 +379,7 @@ def make_sharded_pipeline(
         if n_limb > 1:
             mine = mine.narrow(-2, lo, l_local)
             gk = {e: k.narrow(0, lo, l_local) for e, k in galois_keys.items()}
-        replies = torch.stack([one_query(q, gk) for q in mine])
+        replies = torch.stack([one_query(q, gk, relin_key) for q in mine])
         replies = mesh.all_gather(replies, "limb", dim=replies.dim() - 2)
         return mesh.all_gather(replies, "batch", dim=0)
 

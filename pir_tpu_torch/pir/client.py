@@ -8,7 +8,9 @@ decrypt → digit-recompose rounds in decomposition mode, by one decrypt of
 the single reply ciphertext in ciphertext-multiplication mode.  It computes
 on its context's device (the card by default; ``device="cpu"`` keeps it on
 the host).  Keys and queries are drawn from the seeded numpy Generator in
-``pir_tpu``'s order, so the same seed gives the same request bytes.
+``pir_tpu``'s order, so the same seed gives the same request bytes.  With
+``wire_format="seal"`` every bytes field it emits is a SEAL 3.5 stream,
+as the reference's client sends them (pir/cpp/client.cpp:50-54, 136-140).
 """
 
 from __future__ import annotations
@@ -36,24 +38,58 @@ class PirClient:
         seed: Optional[int] = None,
         compress_queries: bool = False,
         device=None,
+        wire_format: str = "native",
     ):
         """compress_queries: serialize query ciphertexts in seeded symmetric
         form (c0 + 16-byte PRG seed, PTS1 codec) — half the upload bytes.
 
         device: where the client's encryption and decryption run (the card
-        by default)."""
+        by default).
+
+        wire_format: "native" (PTP1) or "seal": the query ciphertexts, the
+        Galois and relinearization keys (generated with seeded a-polys, so
+        they go out in SEAL's seeded form) and, through
+        ``wire.pir_params_to_proto(params, "seal")``, the parameters are
+        SEAL 3.5 streams.  SEAL mode sends full ciphertexts: it refuses
+        compress_queries, and, for d > 1 in decomposition mode, balanced
+        re-encode digits, which a reference client cannot recompose."""
+        if wire_format not in ("native", "seal"):
+            raise ValueError(f"unknown wire format {wire_format!r}")
+        if wire_format == "seal" and compress_queries:
+            raise ValueError(
+                "seeded query compression is a native-codec extension; "
+                "SEAL wire mode sends full ciphertexts"
+            )
+        if (
+            wire_format == "seal"
+            and len(params.dimensions) > 1
+            and not params.use_ciphertext_multiplication
+            and params.reencode_mode != 0
+        ):
+            raise ValueError(
+                "SEAL wire mode requires legacy re-encode digits (the "
+                "reference's CiphertextReencoder cannot decode balanced-"
+                'width replies) — create params with reencode_digits="legacy"'
+            )
         self.compress_queries = compress_queries
         self.params = params
         self.ctx = PirContext(params, device)
         self._rng = np.random.default_rng(seed)
+        seeded_wire = wire_format == "seal"
         self.sk = keys_mod.gen_secret_key(self.ctx, self._rng)
         self.pk = keys_mod.gen_public_key(self.ctx, self.sk, self._rng)
         self.galois_keys = keys_mod.gen_galois_keys(
-            self.ctx, self.sk, generate_galois_elts(self.ctx.n), self._rng
+            self.ctx, self.sk, generate_galois_elts(self.ctx.n), self._rng,
+            seeded_wire=seeded_wire,
         )
-        self.relin_keys = keys_mod.gen_relin_key(self.ctx, self.sk, self._rng)
-        self._galois_bytes = wire.serialize_galois_keys(self.galois_keys)
-        self._relin_bytes = wire.serialize_relin_keys(self.relin_keys)
+        self.relin_keys = keys_mod.gen_relin_key(
+            self.ctx, self.sk, self._rng, seeded_wire=seeded_wire
+        )
+        self._seal_ep = params.encryption_params if seeded_wire else None
+        self._galois_bytes = wire.serialize_galois_keys(
+            self.galois_keys, seal_ep=self._seal_ep, n=self.ctx.n
+        )
+        self._relin_bytes = wire.serialize_relin_keys(self.relin_keys, seal_ep=self._seal_ep)
 
     @classmethod
     def create(
@@ -72,7 +108,7 @@ class PirClient:
             req.relin_keys = self._relin_bytes
             return req
         queries = [self._create_query(i) for i in indexes]
-        return wire.save_request(queries, self._galois_bytes, self._relin_bytes)
+        return wire.save_request(queries, self._galois_bytes, self._relin_bytes, self._seal_ep)
 
     def _query_plaintexts(self, desired_index: int) -> list[np.ndarray]:
         """One-hot query plaintexts, hot slots scaled by m⁻¹ mod t, one per

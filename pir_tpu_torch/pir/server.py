@@ -18,6 +18,12 @@ flight, each on a CUDA stream of its own (see its docstring).  ``create``
 and ``oblivious_expansion`` are ``pir_tpu``'s constructor and component
 surface.
 
+Requests and replies cross the wire in the native codec or as SEAL 3.5
+streams (``wire_format``; by default a reply echoes the format its
+request's queries came in, so a reference client gets SEAL streams back).
+A SEAL key set's seeded c1 polynomials are expanded on the host once, when
+the key set enters the device key cache.
+
 With ``mesh=`` every request is served by the multi-rank pipeline
 (parallel/sharded.py): every rank of the mesh calls ``process_request``
 with the same request and gets the same Response.
@@ -45,7 +51,7 @@ from pir_tpu_torch.ops.modular import (
     tensor_u64,
     tensor_u64_async,
 )
-from pir_tpu_torch.pir import wire
+from pir_tpu_torch.pir import seal_compat, wire
 from pir_tpu_torch.pir.database import PirDatabase
 from pir_tpu_torch.proto import payload_pb2 as pb
 from pir_tpu_torch.utils.math import ceil_log2, generate_galois_elts
@@ -69,12 +75,26 @@ def reply_limbs_for(params: PirParams) -> int:
     return limbs
 
 
+# Every pending handle carries `seal_ep`: the encryption parameters the
+# replies are serialized as SEAL streams with, or None for the native codec.
+
+
+class QueryReplies(list):
+    """A request's pending replies, query by query: device tensors
+    int64[R, 2, L', N]."""
+
+    def __init__(self, replies, seal_ep=None):
+        super().__init__(replies)
+        self.seal_ep = seal_ep
+
+
 class BatchedReplies(NamedTuple):
     """A batched request's pending replies: per chunk, the device replies
     int64[lanes, R, 2, L', N] and how many of its lanes are real queries
     (the ragged tail's padding lanes are dropped)."""
 
     chunks: list
+    seal_ep: "object | None" = None
 
 
 class MeshReplies(NamedTuple):
@@ -84,6 +104,7 @@ class MeshReplies(NamedTuple):
 
     replies: torch.Tensor
     count: int
+    seal_ep: "object | None" = None
 
 
 class HostReplies(NamedTuple):
@@ -93,6 +114,7 @@ class HostReplies(NamedTuple):
 
     done: "torch.cuda.Event | None"
     replies: list
+    seal_ep: "object | None" = None
 
 
 def _host_upload(device):
@@ -142,13 +164,13 @@ class _StreamSlot:
         """Host u64 query array -> the card, non-blocking on this stream."""
         return tensor_u64_async(arr, self.device, self._buffer(("up", key), arr.shape))
 
-    def download(self, pieces) -> HostReplies:
+    def download(self, pieces, seal_ep) -> HostReplies:
         """Enqueue the reply pieces' copies to pinned memory, then the
         event the worker waits on."""
         out = [numpy_u64_async(x, self._buffer(("down", i), x.shape))
                for i, x in enumerate(pieces)]
         self.done.record(self.stream)
-        return HostReplies(self.done, out)
+        return HostReplies(self.done, out, seal_ep)
 
 
 class PirServer:
@@ -159,17 +181,24 @@ class PirServer:
         reply_limbs: Optional[int] = None,
         device=None,
         mesh=None,
+        wire_format: str = "auto",
     ):
         """reply_limbs: if set, mod-switch reply ciphertexts down to this
         many RNS limbs before serialization (ops/modswitch.py).  The caller
         must leave enough noise budget (see :func:`reply_limbs_for`).
+
+        wire_format: the replies' codec — "native" (PTP1), "seal" (SEAL 3.5
+        Ciphertext streams, each at the chain level of its limb count), or
+        "auto" (the default): the format the request's query ciphertexts
+        came in.
 
         device: where the server computes; the database's device by
         default, and it must hold the database.
 
         mesh: a parallel.sharded.Mesh — serve every request through the
         multi-rank pipeline: database rows over "db", the request's queries
-        over "batch", RNS limbs over "limb".  Every rank builds its server
+        over "batch", RNS limbs over "limb" (ciphertext-multiplication mode:
+        "db" and "batch" only).  Every rank builds its server
         from the same database and calls it with the same requests; the
         replies equal single-device serving's bit for bit.  The server
         keeps only this rank's shard (``self.db`` is None): the whole
@@ -178,6 +207,8 @@ class PirServer:
         (``PirDatabase.set_rank_planes``, fed by
         ``parallel.distributed.planes_from_shard_rows``) is served as it
         is, so no rank ever holds the whole database."""
+        if wire_format not in ("auto", "native", "seal"):
+            raise ValueError(f"unknown wire format {wire_format!r}")
         if params.num_pt != db.size:
             raise ValueError("database size mismatch")
         if reply_limbs is not None and not (
@@ -195,6 +226,7 @@ class PirServer:
                 "ciphertext-multiplication mode cannot shard the limb "
                 "axis (BEHZ base extension crosses limbs); use db/batch"
             )
+        self.wire_format = wire_format
         self.params = params
         self.db = db if mesh is None else None
         self.ctx = db.ctx
@@ -289,7 +321,7 @@ class PirServer:
         return max(1, min(16, budget // max(1, lane_bytes)))
 
     def _batched_wide_async(
-        self, all_queries: np.ndarray, galois_keys, upload=None
+        self, all_queries: np.ndarray, galois_keys, upload=None, seal_ep=None
     ) -> BatchedReplies:
         """Enqueue a host [Q, k, 2, L, N] query stack in chunks of
         batch_lanes() queries, the ragged tail padded with the chunk's first
@@ -304,7 +336,7 @@ class PirServer:
                 chunk = np.concatenate([chunk, chunk[:1].repeat(lanes - count, 0)])
             replies = self.process_batch(upload(chunk, start), galois_keys)
             chunks.append((replies, count))
-        return BatchedReplies(chunks)
+        return BatchedReplies(chunks, seal_ep)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -340,14 +372,17 @@ class PirServer:
         return keys, relin
 
     def _key_cache_entry(self, request: pb.Request, digest: bytes) -> tuple:
-        galois = wire.deserialize_galois_keys(request.galois_keys, self.device)
+        """Load a request's key blobs (a SEAL key set's seeded c1 polynomials
+        are expanded on the host here, once per key set) and upload them."""
+        ep = self.params.encryption_params
+        galois = wire.deserialize_galois_keys(request.galois_keys, self.device, ep)
         keys = {e: k.data for e, k in galois.keys.items()}
         missing = [e for e in self._expansion_elts if e not in keys]
         if missing:
             raise ValueError(f"request missing galois keys for elements {missing}")
         relin = None
         if self.params.use_ciphertext_multiplication and request.relin_keys:
-            relin = wire.deserialize_relin_keys(request.relin_keys, self.device).key.data
+            relin = wire.deserialize_relin_keys(request.relin_keys, self.device, ep).key.data
         uploaded = None
         if self.device.type == "cuda":
             uploaded = torch.cuda.Event()
@@ -357,22 +392,47 @@ class PirServer:
         entry = self._key_cache[digest] = (keys, relin, uploaded)
         return entry
 
+    def _reply_seal_ep(self, request: pb.Request):
+        """The replies' codec for this request: the encryption parameters to
+        write SEAL streams with, or None for the native codec.  In "auto"
+        mode SEAL iff the request's query ciphertexts are SEAL streams.  A
+        SEAL request against balanced re-encode digits (d > 1, decomposition
+        mode) is refused: a reference client cannot recompose them."""
+        mode = self.wire_format
+        if mode == "auto":
+            is_seal = any(
+                seal_compat.looks_like_seal_stream(q.ct[0]) for q in request.query if len(q.ct)
+            )
+            mode = "seal" if is_seal else "native"
+        if (
+            mode == "seal"
+            and len(self.params.dimensions) > 1
+            and not self.params.use_ciphertext_multiplication
+            and self.params.reencode_mode != 0
+        ):
+            raise ValueError(
+                "SEAL-wire request against balanced re-encode params: a "
+                "reference client cannot recompose balanced-width reply "
+                'digits — build the deployment with reencode_digits="legacy"'
+            )
+        return self.params.encryption_params if mode == "seal" else None
+
     def _query_stacks(self, request: pb.Request) -> list:
         return [wire.load_ciphertexts(query, self.ctx) for query in request.query]
 
-    def _process_request_async_mesh(self, galois_keys, stacks, upload):
+    def _process_request_async_mesh(self, galois_keys, relin_key, stacks, upload, seal_ep):
         from pir_tpu_torch.parallel import sharded
 
         if not stacks:
-            return MeshReplies(None, 0)
+            return MeshReplies(None, 0, seal_ep)
         if len({s.shape for s in stacks}) != 1:
             raise ValueError(
                 "mesh serving requires equal query shapes per request "
                 "(always true for same-params clients)"
             )
         queries = sharded.pad_axis(np.stack(stacks), 0, self.mesh.size("batch"))
-        replies = self._mesh_pipeline(upload(queries, 0), galois_keys)
-        return MeshReplies(replies, len(stacks))
+        replies = self._mesh_pipeline(upload(queries, 0), galois_keys, relin_key)
+        return MeshReplies(replies, len(stacks), seal_ep)
 
     def process_request_async(self, request: pb.Request, upload=None):
         """Enqueue a request's device work and return a pending handle
@@ -381,8 +441,11 @@ class PirServer:
         one shape takes the batched path (pir_tpu's reroute); its replies
         are byte-identical to the per-query path's.  With a mesh, the
         request goes through the mesh pipeline.  upload(array, key) moves a
-        host query array to the device (a blocking copy by default)."""
+        host query array to the device (a blocking copy by default).  The
+        replies' codec (:meth:`_reply_seal_ep`) is settled, or the request
+        refused, before any device work."""
         upload = upload or _host_upload(self.device)
+        seal_ep = self._reply_seal_ep(request)
         galois_keys, relin_key = self._device_keys(request)
         if (
             self.params.use_ciphertext_multiplication
@@ -395,17 +458,20 @@ class PirServer:
             )
         stacks = self._query_stacks(request)
         if self.mesh is not None:
-            return self._process_request_async_mesh(galois_keys, stacks, upload)
+            return self._process_request_async_mesh(
+                galois_keys, relin_key, stacks, upload, seal_ep
+            )
         if (
             self.db._use_planes
             and len(stacks) > 1
             and len({s.shape for s in stacks}) == 1
         ):
-            return self._batched_wide_async(np.stack(stacks), galois_keys, upload)
-        return [
-            self.process_query(upload(stack, qi), galois_keys, relin_key)
-            for qi, stack in enumerate(stacks)
-        ]
+            return self._batched_wide_async(np.stack(stacks), galois_keys, upload, seal_ep)
+        return QueryReplies(
+            [self.process_query(upload(stack, qi), galois_keys, relin_key)
+             for qi, stack in enumerate(stacks)],
+            seal_ep,
+        )
 
     @staticmethod
     def _reply_pieces(pending) -> list:
@@ -419,20 +485,22 @@ class PirServer:
 
     def finalize_response(self, pending) -> pb.Response:
         """Copy a process_request_async handle's replies to the host and
-        serialize them into a Response.  The handle is a list of per-query
-        replies, a :class:`BatchedReplies`, a :class:`MeshReplies`, or a
-        :class:`HostReplies` (whose event this waits for; no device work is
-        launched)."""
+        serialize them into a Response, in the codec the handle carries.
+        The handle is a :class:`QueryReplies` (or a plain list of per-query
+        replies, serialized natively), a :class:`BatchedReplies`, a
+        :class:`MeshReplies`, or a :class:`HostReplies` (whose event this
+        waits for; no device work is launched)."""
         if isinstance(pending, HostReplies):
             if pending.done is not None:
                 pending.done.synchronize()
             hosts = [r.numpy().view(np.uint64) for r in pending.replies]
         else:
             hosts = [numpy_u64(r) for r in self._reply_pieces(pending)]
+        seal_ep = getattr(pending, "seal_ep", None)
         response = pb.Response()
         for host in hosts:
             for reply in host:
-                wire.save_ciphertexts(reply, response.reply.add())
+                wire.save_ciphertexts(reply, response.reply.add(), seal_ep=seal_ep)
         return response
 
     def process_request(self, request: pb.Request) -> pb.Response:
@@ -478,12 +546,13 @@ class PirServer:
 
     def _submit(self, request: pb.Request, slot) -> HostReplies:
         if slot is None:
-            pieces = self._reply_pieces(self.process_request_async(request))
-            return HostReplies(None, [x.contiguous() for x in pieces])
+            pending = self.process_request_async(request)
+            pieces = self._reply_pieces(pending)
+            return HostReplies(None, [x.contiguous() for x in pieces], pending.seal_ep)
         with torch.cuda.stream(slot.stream):
             try:
                 pending = self.process_request_async(request, upload=slot.upload)
-                return slot.download(self._reply_pieces(pending))
+                return slot.download(self._reply_pieces(pending), pending.seal_ep)
             except BaseException:
                 slot.stream.synchronize()  # nothing it enqueued outlives the error
                 raise
@@ -534,11 +603,14 @@ class PirServer:
         pipeline is batched over its "batch" axis) go to process_request."""
         if self.mesh is not None or not self.db._use_planes:
             return self.process_request(request)
+        seal_ep = self._reply_seal_ep(request)
         galois_keys, _ = self._device_keys(request)
         stacks = self._query_stacks(request)
         if len({s.shape for s in stacks}) != 1:
             return self.process_request(request)
-        return self.finalize_response(self._batched_wide_async(np.stack(stacks), galois_keys))
+        return self.finalize_response(
+            self._batched_wide_async(np.stack(stacks), galois_keys, seal_ep=seal_ep)
+        )
 
     # ------------------------------------------------------------------
     def oblivious_expansion(self, cts, total_items: int, galois_keys) -> torch.Tensor:

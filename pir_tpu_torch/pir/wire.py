@@ -1,13 +1,15 @@
 """Wire codec: arrays/keys/params <-> bytes <-> protobuf messages.
 
-Port of the native codecs of ``pir_tpu/pir/wire.py``, byte for byte:
-PTP1 arrays (magic, dtype code, rank, shape, little-endian u64 data), PTS1
+Port of ``pir_tpu/pir/wire.py``, byte for byte.  The native codecs: PTP1
+arrays (magic, dtype code, rank, shape, little-endian u64 data), PTS1
 seeded ciphertexts (c0 plus the 16-byte seed that regenerates the second
-polynomial), Galois/relinearization key blobs and PTPE parameters.  Arrays
-here are host numpy u64; the server moves them to its device.
-
-SEAL 3.5 streams are not decoded yet (ROADMAP.md, queue 1, item 1): a
-blob that carries one raises ``ValueError`` (see :data:`SEAL_WIRE_TODO`).
+polynomial), Galois/relinearization key blobs and PTPE parameters.  The
+SEAL 3.5 streams the reference's clients send (pir/cpp/serialization.h:
+81-138) go through :mod:`pir_tpu_torch.pir.seal_compat`: ciphertexts with
+``seal_ep=``, seeded Galois and relinearization keys (their c1 expanded on
+the host with SEAL's BLAKE2 PRNG when loaded), and SEAL encryption
+parameters; the loaders accept either format.  Arrays here are host numpy
+u64; the key loaders put their tensors on ``device``.
 """
 
 from __future__ import annotations
@@ -20,24 +22,11 @@ import numpy as np
 from pir_tpu_torch.bfv.keys import GaloisKeys, KSwitchKey, RelinKeys
 from pir_tpu_torch.core.params import EncryptionParams, PirParams
 from pir_tpu_torch.ops.modular import numpy_u64, tensor_u64
+from pir_tpu_torch.pir import seal_compat
 from pir_tpu_torch.proto import payload_pb2 as pb
 
 _MAGIC = b"PTP1"
 _SEEDED_MAGIC = b"PTS1"
-_SEAL_MAGIC = 0xA15E  # SEAL 3.5 serialization header magic (little-endian u16)
-SEAL_WIRE_TODO = (
-    "SEAL 3.5 stream payloads are not ported to pir_tpu_torch yet "
-    "(ROADMAP.md, queue 1, item 1: SEAL wire)"
-)
-
-
-def looks_like_seal_stream(b: bytes) -> bool:
-    return len(b) >= 2 and struct.unpack_from("<H", b, 0)[0] == _SEAL_MAGIC
-
-
-def _reject_seal(b: bytes) -> None:
-    if looks_like_seal_stream(b):
-        raise ValueError(SEAL_WIRE_TODO)
 
 
 # ---------------------------------------------------------------------------
@@ -69,14 +58,22 @@ def unpack_array(b: bytes) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def save_ciphertexts(cts, msg: "pb.Ciphertexts | None" = None) -> pb.Ciphertexts:
-    """cts: u64 arrays [size, L, N] (or one stacked [k, size, L, N])."""
+def save_ciphertexts(
+    cts, msg: "pb.Ciphertexts | None" = None, seal_ep: "EncryptionParams | None" = None
+) -> pb.Ciphertexts:
+    """cts: u64 arrays [size, L, N] (or one stacked [k, size, L, N]).
+
+    seal_ep: when given, every entry is a SEAL 3.5 Ciphertext stream at the
+    chain level of its limb count, instead of the native PTP1 codec."""
     out = msg if msg is not None else pb.Ciphertexts()
     arr = np.asarray(cts)
     if arr.ndim == 3:
         arr = arr[None]
     for i in range(arr.shape[0]):
-        out.ct.append(pack_array(arr[i]))
+        if seal_ep is not None:
+            out.ct.append(seal_compat.save_ciphertext(arr[i], seal_ep))
+        else:
+            out.ct.append(pack_array(arr[i]))
     return out
 
 
@@ -101,8 +98,9 @@ def save_seeded_ciphertexts(
 def load_ciphertexts(msg: pb.Ciphertexts, ctx=None) -> np.ndarray:
     """-> u64[k, size, L, N] (all ciphertexts in one proto share a shape).
 
-    Seeded (PTS1) entries are re-expanded to full ciphertexts, which needs
-    the parameter context (`ctx`).
+    Seeded (PTS1) entries are re-expanded to full ciphertexts and SEAL
+    streams are checked against the parameters, which needs the parameter
+    context (`ctx`).
     """
     cts = []
     for b in msg.ct:
@@ -115,8 +113,13 @@ def load_ciphertexts(msg: pb.Ciphertexts, ctx=None) -> np.ndarray:
 
             seed, c0 = b[4:20], unpack_array(b[20:])
             cts.append(np.stack([c0, expand_a_from_seed(ctx, seed)]))
+        elif seal_compat.looks_like_seal_stream(b):
+            if ctx is None:
+                raise ValueError(
+                    "SEAL-stream ciphertext requires a context to validate"
+                )
+            cts.append(seal_compat.load_ciphertext(b, ctx.enc))
         else:
-            _reject_seal(b)
             cts.append(unpack_array(b))
     return np.stack(cts)
 
@@ -126,7 +129,21 @@ def load_ciphertexts(msg: pb.Ciphertexts, ctx=None) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def serialize_galois_keys(gk: GaloisKeys) -> bytes:
+def serialize_galois_keys(
+    gk: GaloisKeys, seal_ep: "EncryptionParams | None" = None, n: "int | None" = None
+) -> bytes:
+    """Native blob, or with seal_ep a SEAL GaloisKeys stream (row
+    (elt - 1) / 2 for element elt, over n rows; seeded where the keys carry
+    their seeds)."""
+    if seal_ep is not None:
+        if n is None:
+            n = seal_ep.poly_modulus_degree
+        arrays = {e: numpy_u64(k.data) for e, k in gk.keys.items()}
+        return seal_compat.save_kswitch_keys(
+            seal_compat.galois_rows_from_dict(arrays, n),
+            seal_ep,
+            seeds=seal_compat.galois_seed_rows(gk.keys, n),
+        )
     elts = sorted(gk.keys)
     blob = struct.pack("<I", len(elts))
     for e in elts:
@@ -135,10 +152,21 @@ def serialize_galois_keys(gk: GaloisKeys) -> bytes:
     return blob
 
 
-def deserialize_galois_keys(b: bytes, device=None) -> GaloisKeys:
+def deserialize_galois_keys(b: bytes, device=None, ep=None) -> GaloisKeys:
+    """A native or SEAL Galois key blob -> keys on `device`.  A SEAL stream
+    needs the encryption parameters `ep`; its seeded c1 polynomials are
+    expanded on the host here."""
     if len(b) < 4:
         raise ValueError("request carries no galois keys")
-    _reject_seal(b)
+    if seal_compat.looks_like_seal_stream(b):
+        if ep is None:
+            raise ValueError(
+                "SEAL-stream galois keys require encryption parameters"
+            )
+        rows = seal_compat.galois_dict_from_rows(seal_compat.load_kswitch_keys(b, ep))
+        return GaloisKeys(
+            keys={e: KSwitchKey(data=tensor_u64(v, device)) for e, v in rows.items()}
+        )
     (count,) = struct.unpack_from("<I", b, 0)
     off = 4
     keys = {}
@@ -150,12 +178,30 @@ def deserialize_galois_keys(b: bytes, device=None) -> GaloisKeys:
     return GaloisKeys(keys=keys)
 
 
-def serialize_relin_keys(rk: RelinKeys) -> bytes:
+def serialize_relin_keys(rk: RelinKeys, seal_ep: "EncryptionParams | None" = None) -> bytes:
+    if seal_ep is not None:
+        data = numpy_u64(rk.key.data)  # [L, 2, Lp, N]
+        seeds = rk.key.seeds
+        return seal_compat.save_kswitch_keys(
+            [[data[i] for i in range(data.shape[0])]],
+            seal_ep,
+            seeds=[list(seeds)] if seeds is not None else None,
+        )
     return pack_array(numpy_u64(rk.key.data))
 
 
-def deserialize_relin_keys(b: bytes, device=None) -> RelinKeys:
-    _reject_seal(b)
+def deserialize_relin_keys(b: bytes, device=None, ep=None) -> RelinKeys:
+    """A native or SEAL relinearization key blob -> the key on `device`
+    (a SEAL stream needs `ep`, as :func:`deserialize_galois_keys`)."""
+    if seal_compat.looks_like_seal_stream(b):
+        if ep is None:
+            raise ValueError(
+                "SEAL-stream relin keys require encryption parameters"
+            )
+        rows = seal_compat.load_kswitch_keys(b, ep)
+        if len(rows) != 1 or not rows[0]:
+            raise ValueError("relin keys stream must carry exactly one row")
+        return RelinKeys(key=KSwitchKey(data=tensor_u64(np.stack(rows[0]), device)))
     return RelinKeys(key=KSwitchKey(data=tensor_u64(unpack_array(b), device)))
 
 
@@ -164,23 +210,39 @@ def deserialize_relin_keys(b: bytes, device=None) -> RelinKeys:
 # ---------------------------------------------------------------------------
 
 
-def serialize_encryption_params(ep: EncryptionParams) -> bytes:
+def serialize_encryption_params(ep: EncryptionParams, seal: bool = False) -> bytes:
+    if seal:
+        return seal_compat.save_encryption_params(ep)
     return b"PTPE" + json.dumps(ep.to_dict(), sort_keys=True).encode()
 
 
 def deserialize_encryption_params(b: bytes) -> EncryptionParams:
-    _reject_seal(b)
     if not b.startswith(b"PTPE"):
         raise ValueError("bad magic in serialized encryption parameters")
     return EncryptionParams.from_dict(json.loads(b[4:].decode()))
 
 
-def pir_params_to_proto(p: PirParams) -> pb.PIRParameters:
+def deserialize_encryption_params_any(b: bytes) -> EncryptionParams:
+    """Accept either the native PTPE encoding or a SEAL 3.5 stream."""
+    if b.startswith(b"PTPE"):
+        return deserialize_encryption_params(b)
+    if seal_compat.looks_like_seal_stream(b):
+        return seal_compat.load_encryption_params(b)
+    raise ValueError("unrecognized encryption-parameters encoding")
+
+
+def pir_params_to_proto(p: PirParams, wire_format: str = "native") -> pb.PIRParameters:
+    """wire_format="seal" serializes the embedded encryption parameters as
+    a SEAL 3.5 stream, which the reference's binary reads."""
+    if wire_format not in ("native", "seal"):
+        raise ValueError(f"unknown wire format {wire_format!r}")
     msg = pb.PIRParameters()
     msg.num_items = p.num_items
     msg.num_pt = p.num_pt
     msg.dimensions.extend(p.dimensions)
-    msg.encryption_parameters = serialize_encryption_params(p.encryption_params)
+    msg.encryption_parameters = serialize_encryption_params(
+        p.encryption_params, seal=wire_format == "seal"
+    )
     msg.bytes_per_item = p.bytes_per_item
     msg.items_per_plaintext = p.items_per_plaintext
     msg.bits_per_coeff = p.bits_per_coeff
@@ -194,7 +256,7 @@ def pir_params_from_proto(msg: pb.PIRParameters) -> PirParams:
         num_items=msg.num_items,
         num_pt=msg.num_pt,
         dimensions=tuple(msg.dimensions),
-        encryption_params=deserialize_encryption_params(msg.encryption_parameters),
+        encryption_params=deserialize_encryption_params_any(msg.encryption_parameters),
         bytes_per_item=msg.bytes_per_item,
         items_per_plaintext=msg.items_per_plaintext,
         bits_per_coeff=msg.bits_per_coeff,
@@ -208,12 +270,13 @@ def pir_params_from_proto(msg: pb.PIRParameters) -> PirParams:
 # ---------------------------------------------------------------------------
 
 
-def save_request(queries, galois_keys_bytes: bytes, relin_keys_bytes: bytes
-                 ) -> pb.Request:
-    """queries: list (per query) of u64[k, size, L, N] ciphertext stacks."""
+def save_request(queries, galois_keys_bytes: bytes, relin_keys_bytes: bytes,
+                 seal_ep: "EncryptionParams | None" = None) -> pb.Request:
+    """queries: list (per query) of u64[k, size, L, N] ciphertext stacks,
+    SEAL streams with seal_ep (as :func:`save_ciphertexts`)."""
     req = pb.Request()
     for q in queries:
-        save_ciphertexts(q, req.query.add())
+        save_ciphertexts(q, req.query.add(), seal_ep=seal_ep)
     req.galois_keys = galois_keys_bytes
     req.relin_keys = relin_keys_bytes
     return req

@@ -122,15 +122,20 @@ def test_wire_codecs_match(clients, params):
 
 
 def test_seal_streams_are_refused(clients):
+    """SEAL streams were refused before the port had the SEAL wire; now the
+    same blobs load to pir_tpu's arrays (a ciphertext) and keys."""
     from pir_tpu.pir import seal_compat
 
     jc, tc = clients
-    blob = seal_compat.save_ciphertext(
-        np.zeros((2, tc.ctx.L, tc.ctx.n), np.uint64), jc.params.encryption_params
-    )
+    ep = jc.params.encryption_params
+    ct = np.arange(2 * tc.ctx.L * tc.ctx.n, dtype=np.uint64).reshape(2, tc.ctx.L, tc.ctx.n) % 97
+    blob = seal_compat.save_ciphertext(ct, ep)
     msg = pb.Ciphertexts()
     msg.ct.append(blob)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        twire.load_ciphertexts(msg, tc.ctx)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        twire.deserialize_galois_keys(blob)
+    got = twire.load_ciphertexts(msg, tc.ctx)
+    assert np.array_equal(got, jwire.load_ciphertexts(msg, jc.ctx))
+    assert np.array_equal(got[0], ct)
+    keys = jwire.serialize_galois_keys(jc.galois_keys, seal_ep=ep)
+    gk = twire.deserialize_galois_keys(keys, "cpu", ep)
+    for e, k in jwire.deserialize_galois_keys(keys, ep).keys.items():
+        assert np.array_equal(numpy_u64(gk[e].data), np.asarray(k.data))

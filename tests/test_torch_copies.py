@@ -29,6 +29,7 @@ COPIED = [
     "core/params.py",
     "pir/encoders.py",
     "bfv/sampling.py",
+    "pir/seal_compat.py",
 ]
 
 
@@ -108,7 +109,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, pir_tpu_torch, pir_tpu_torch.convert, pir_tpu_torch.kernels,"
         " pir_tpu_torch.profile_request, pir_tpu_torch.scan_wide_variants,"
-        " pir_tpu_torch.parallel.sharded,"
+        " pir_tpu_torch.parallel.sharded, pir_tpu_torch.pir.seal_compat,"
         " pir_tpu_torch.parallel.distributed, pir_tpu_torch.parallel.mesh_worker,"
         " pir_tpu_torch.utils.profiling, pir_tpu_torch.examples.basic_pir,"
         " pir_tpu_torch.examples.streamed_serving, chip_smoke;"

@@ -252,7 +252,9 @@ def test_ct_mult_port_client_and_server_with_reply_limbs():
 
 
 def test_ct_mult_refusals(tmp_path):
-    """d > 1 without a relin key in the request; ct-mult on a mesh."""
+    """d > 1 without a relin key in the request is refused, on one device
+    and on a mesh; a mesh serves ct-mult otherwise (a 1-rank mesh answers
+    with the single-device bytes)."""
     import torch.distributed as dist
 
     from pir_tpu_torch.parallel import sharded
@@ -261,15 +263,20 @@ def test_ct_mult_refusals(tmp_path):
     raw = generate_test_db(params.num_items, params.bytes_per_item, seed=1)
     db = pt.PirDatabase.create(raw, params, device="cpu")
     server = pt.PirServer(db, params)
-    req = pt.PirClient(params, seed=2, device="cpu").create_request([4])
+    good = pt.PirClient(params, seed=2, device="cpu").create_request([4])
+    req = pb.Request()
+    req.CopyFrom(good)
     req.relin_keys = b""
     with pytest.raises(ValueError, match="requires relinearization keys in the request"):
         server.process_request(req)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
                             world_size=1, rank=0)
     try:
-        with pytest.raises(ValueError, match="mesh ct-mult on the db/batch axes"):
-            pt.PirServer(db, params, mesh=sharded.Mesh(db=1))
+        mesh_server = pt.PirServer(db, params, mesh=sharded.Mesh(db=1))
+        with pytest.raises(ValueError, match="requires relinearization keys in the request"):
+            mesh_server.process_request(req)
+        want = server.process_request(good).SerializeToString()
+        assert mesh_server.process_request(good).SerializeToString() == want
     finally:
         dist.destroy_process_group()
 

@@ -2,8 +2,9 @@
 its runtime-moduli entry K6), C (the wide scan of batched serving, both
 variants) and D (the Shoup-table scan, K7) on the card against their plain
 PyTorch versions, bit for bit (tolerance 0); the port's server on the card
-(both layouts, and ciphertext-multiplication mode) against the same server
-on the CPU; and a mesh of two gloo ranks sharing the card against the
+(both layouts, ciphertext-multiplication mode, and SEAL-stream requests)
+against the same server on the CPU; and meshes of two gloo ranks sharing
+the card (decomposition and ciphertext-multiplication mode) against the
 single-device server.
 
 These tests need an NVIDIA GPU and carry the ``cuda`` marker; without a card
@@ -487,3 +488,89 @@ def test_shard_loaded_mesh_of_two_ranks_on_card(dev, tmp_path):
         assert r["mesh"]["responses"] == [want.SerializeToString()]
         assert r["mesh"]["counts"][0]["pir_scan.hi"] > 0
     assert client.process_response([4, 40], want) == [raw[4], raw[40]]
+
+
+def _ctmult_params(items=50, dims=2):
+    n = 128
+    ep = pt.EncryptionParams(
+        poly_modulus_degree=n,
+        plain_modulus=primes.get_prime(2 * n, 13),
+        coeff_modulus=tuple(primes.coeff_modulus_from_bits(n, [34, 36, 37])),
+    )
+    return pt.create_pir_parameters(items, 8, dims, ep, use_ciphertext_multiplication=True)
+
+
+def test_seal_request_on_card_matches_cpu(dev):
+    """A SEAL-stream request (full ciphertexts, seeded keys, legacy digits)
+    served on the card: SEAL replies byte-equal to the CPU server's, every
+    item decoded; a batched 3-query SEAL request through kernel C."""
+    from pir_tpu_torch.pir import seal_compat
+
+    n = 128
+    ep = pt.EncryptionParams(
+        poly_modulus_degree=n,
+        plain_modulus=primes.get_prime(2 * n, 13),
+        coeff_modulus=tuple(primes.coeff_modulus_from_bits(n, [34, 36, 37])),
+    )
+    params = pt.create_pir_parameters(50, 8, 2, ep, reencode_digits="legacy")
+    rng = np.random.default_rng(11)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    client = pt.PirClient(params, seed=6, device="cpu", wire_format="seal")
+    card = pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params, reply_limbs=2)
+    cpu = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params, reply_limbs=2)
+    for indexes in ([7], [2, 49, 17]):
+        req = client.create_request(indexes)
+        kernels.reset_launch_counts()
+        on_card = card.process_request_batched(req)
+        counts = kernels.variant_launch_counts()
+        assert on_card.SerializeToString() == cpu.process_request(req).SerializeToString()
+        assert all(seal_compat.looks_like_seal_stream(ct) for r in on_card.reply for ct in r.ct)
+        assert counts["pir_scan_wide.hi"] > 0 and counts["pir_ntt.grow"] > 0
+        assert client.process_response(indexes, on_card) == [raw[i] for i in indexes]
+
+
+def test_ctmult_mesh_of_two_ranks_on_card(dev, tmp_path):
+    """Ciphertext-multiplication mode on a db=2 mesh of two gloo ranks
+    sharing the card (an odd D0: each rank's block through kernel D, the
+    BEHZ NTTs through kernel A's reducing butterflies): each rank's
+    Response equals the single-device server's."""
+    from pir_tpu_torch.parallel import mesh_worker
+    from pir_tpu_torch.pir import wire
+
+    params = _ctmult_params(items=120)
+    assert params.dimensions[0] % 2
+    rng = np.random.default_rng(9)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(120)]
+    client = pt.PirClient(params, seed=6, compress_queries=True, device="cpu")
+    req = client.create_request([4, 119])
+    want = pt.PirServer(pt.PirDatabase.create(raw, params, device=dev), params).process_request(req)
+    case = {"name": "mesh", "params": wire.pir_params_to_proto(params).SerializeToString(),
+            "items": b"".join(raw), "scan_impl": "auto", "batch": 1, "limb": 1,
+            "requests": [req.SerializeToString()]}
+    job = {"world": 2, "backend": "gloo", "devices": ["cuda:0"] * 2, "timeout_s": 120,
+           "cases": [case]}
+    for r in mesh_worker.run_job(job, tmp_path, 600):
+        assert r["mesh"]["responses"] == [want.SerializeToString()]
+        counts = r["mesh"]["counts"][0]
+        assert counts["pir_scan_shoup"] > 0 and counts["pir_ntt.reduce"] > 0
+    assert client.process_response([4, 119], want) == [raw[4], raw[119]]
+
+
+def test_scan_shoup_kernel_at_a_rank_block_matches_plain(dev):
+    """Kernel D at a db=2 rank's block of an odd D0 (the last prefix a
+    zero-padded row block, zero companions): bit-equal to the plain version
+    and exact zeros in the padded prefix."""
+    from pir_tpu_torch.parallel import sharded
+
+    moduli = primes.coeff_modulus_from_bits(1024, [43, 43, 44])
+    limbs = modular.LimbConstants(moduli, dev)
+    d0, d1, n = 7, 12, 256
+    sv = residues(moduli, (d1, 2), n, dev, seed=3)
+    whole = residues(moduli, (d0, d1), n, dev, seed=4)
+    db = sharded._block(whole, 0, 2, 2, 1)  # rows 4..7 of 8: the last one padding
+    shoup = modular.shoup_precompute_device(db, limbs.q, limbs.ratio_hi, limbs.ratio_lo)
+    got = scan_kernel.contract_dim_shoup(sv, db, shoup, limbs)
+    want = scan_kernel.contract_shoup_plain(
+        sv.cpu(), db.cpu(), shoup.cpu(), modular.LimbConstants(moduli, "cpu"))
+    assert torch.equal(got.cpu(), want)
+    assert not got[-1].any()

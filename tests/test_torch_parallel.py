@@ -6,7 +6,9 @@ conftest.py) and of the port's single-device server.  Tolerance 0.
 
 Two launches run every case: four ranks (db x batch, db x limb, d=1 over
 db, a mod-switched reply) and two ranks (limb=2 on both layouts, the K6
-single-word and hi-plane cases).  In the SHARDED cases no rank builds the
+single-word and hi-plane cases).  The same launches serve the
+ciphertext-multiplication cases (CT_MULT) on the db and batch axes, as
+pir_tpu's tests/test_parallel.py does, and one whose D0 is odd.  In the SHARDED cases no rank builds the
 whole database: each loads only its shard of a PirDatabase.ingest_shards
 checkpoint and builds its block of the planes
 (parallel.distributed.planes_from_shard_rows).  Every wait has a timeout, and a launch
@@ -28,6 +30,7 @@ from pir_tpu.testing.params import tiny_pir_params
 import pir_tpu_torch as pt
 from pir_tpu_torch.parallel import mesh_worker, sharded
 from pir_tpu_torch.pir import wire as twire
+from pir_tpu_torch.proto import payload_pb2 as pb
 
 LAUNCH_TIMEOUT_S = 300  # whole launch; each collective gives up after 120 s
 
@@ -46,11 +49,18 @@ CASES = {
     "db2_shards_reply1": (2, 2, (30, 30, 32), "pallas", 1, 1, 1, [0, 29]),
 }
 SHARDED = {"db2xlimb2_shards", "db4_shards_d1", "db2_shards_reply1"}
+# ciphertext-multiplication mode, name: (ranks, d, items, batch, indexes)
+CT_MULT = {
+    "ct_mult_d1_db2xbatch2": (4, 1, 30, 2, [3, 29]),
+    "ct_mult_d2_db2": (2, 2, 30, 1, [3, 29]),
+    "ct_mult_d2_odd_d0_db2": (2, 2, 45, 1, [0, 44]),
+}
 # name: (limb, reply_limbs, use_ct_mult, message), on L=2
 ERRORS = {
     "limb4_does_not_divide_L": (4, None, False, "must divide"),
     "limb2_reply_limbs": (2, 1, False, "reply_limbs"),
     "limb2_ct_mult": (2, None, True, "ciphertext-multiplication"),
+    "ct_mult_db_planes": (1, None, True, "decomposition-mode operand"),
 }
 
 
@@ -66,8 +76,25 @@ def _request(name):
     return params, raw, client, client.create_request(indexes)
 
 
+def _ct_mult_request(name):
+    world, d, items, batch, indexes = CT_MULT[name]
+    params = tiny_pir_params(dbsize=items, bytes_per_item=8, dimensions=d, n=64,
+                             use_ciphertext_multiplication=True)
+    raw = generate_test_db(items, params.bytes_per_item)
+    client = JClient(params, seed=5)
+    return params, raw, client, client.create_request(indexes)
+
+
 def _job(world, shard_root):
     cases = []
+    for name, (w, _, _, batch, _) in CT_MULT.items():
+        if w == world:
+            params, raw, _, request = _ct_mult_request(name)
+            cases.append({
+                "name": name, "params": twire.pir_params_to_proto(params).SerializeToString(),
+                "items": b"".join(raw), "scan_impl": "auto", "batch": batch, "limb": 1,
+                "requests": [request.SerializeToString()], "batched": True,
+            })
     for name, (w, d, q_bits, impl, batch, limb, reply_limbs, _) in CASES.items():
         if w != world:
             continue
@@ -125,6 +152,28 @@ def test_mesh_response_equals_pir_tpu(launches, name):
     assert client.process_response(indexes, single) == [raw[i] for i in indexes]
 
 
+@pytest.mark.parametrize("name", list(CT_MULT))
+def test_mesh_ct_mult_response_equals_pir_tpu(launches, name):
+    """Ciphertext-multiplication mode on the db and batch axes: every rank's
+    Response equals pir_tpu's mesh server's and the port's single-device
+    server's (each rank's block of D0 through kernel D's plain version,
+    the ranks' reduced partials summed)."""
+    world, d, _, batch, indexes = CT_MULT[name]
+    params, raw, client, request = _ct_mult_request(name)
+    assert params.dimensions[0] % 2 or "odd" not in name
+    jmesh = jsharded.default_mesh(devices=jax.devices()[:world], batch=batch)
+    want = JServer(JDB.create(raw, params), params, mesh=jmesh).process_request(request)
+    want = want.SerializeToString()
+    single = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params)
+    assert single.process_request(request).SerializeToString() == want
+    for rank, results in enumerate(launches(world)):
+        got = results[name]
+        assert got["responses"] == [want], f"rank {rank}"
+        assert got["batched"] == [want], f"rank {rank} (process_request_batched)"
+    assert client.process_response(indexes, pb.Response.FromString(want)) == [
+        raw[i] for i in indexes]
+
+
 class _MeshShape:
     """The shape half of a parallel.sharded.Mesh: the pipeline and the
     server refuse these layouts before any rank communicates."""
@@ -148,7 +197,7 @@ def test_mesh_value_errors(name):
             db.ctx, params.dimensions, None, mesh, reply_limbs=reply_limbs,
             db_planes=db.db_planes, use_ct_mult=use_ct_mult,
         )
-    if use_ct_mult:  # the server refuses ct-mult params on a limb axis
+    if use_ct_mult and limb > 1:  # the server refuses ct-mult params on a limb axis
         ct_mult = tiny_pir_params(dbsize=30, bytes_per_item=8, dimensions=2, n=64,
                                   use_ciphertext_multiplication=True)
         with pytest.raises(ValueError, match="limb"):
