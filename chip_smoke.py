@@ -3,8 +3,9 @@ its plain PyTorch version, then serve SealPIR requests at the benchmark
 configuration — single and batched, on SEAL's chain and on the tpu32
 profile, on the planes and on the Shoup-table database, and on meshes of
 ranks that share the card — then in ciphertext-multiplication mode and at
-the rings above N=4096, through process_stream, from a checkpoint and on a
-mesh whose ranks load only their shard, and check every retrieved item.
+the rings above N=4096, through process_stream, from a checkpoint, on a
+mesh whose ranks load only their shard and at N=32768, and check every
+retrieved item.
 
     python3 chip_smoke.py               # 2^20 items of 288 B, d=2, N=4096
 
@@ -12,7 +13,8 @@ Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build kernels A (NTT), B (scan), C (wide scan) and D (Shoup-table scan)
-   from pir_tpu_torch/csrc with nvcc, all at once;
+   from pir_tpu_torch/csrc with nvcc and the native bulk encoder
+   (pir_tpu_torch/native/encoder.cpp) with g++, all at once;
 3. each kernel against its plain version on the card, bit for bit, at the
    shapes the main paths give it, with both times and the bound: A at each
    of the 22 launches of a single-query request (the per-request sums of
@@ -27,9 +29,11 @@ Phases, each of which raises on failure:
    at the inner scan of the Shoup-table database at N=4096, on SEAL's chain
    and on a chain of 60-bit moduli (above the planes' 48 bits, where its
    sums fold), at phase 13's ct-mult inner scan (N=8192, db and companions
-   6.8 GB; the plain version a few prefixes at a time) and at N=16384
-   (a 2^20-item request's inner scan and phase 14's), and at phase 19's
-   rank block of the N=8192 ct-mult inner scan (57 of its 114 prefixes);
+   6.8 GB; the plain version a few prefixes at a time), at N=16384
+   (a 2^20-item request's inner scan and phase 14's) and at N=32768
+   (phase 20's inner scan [57, 57, 15, 32768], db and companions 25.5 GB,
+   every prefix compared, a few at a time), and at phase 19's rank block of
+   the N=8192 ct-mult inner scan (57 of its 114 prefixes);
 4. a small database (N=256) served on the card and on the CPU (plain
    versions): the Response bytes must be equal, and the card's request must
    have launched kernel A (the K3 row's launches);
@@ -72,7 +76,11 @@ Phases, each of which raises on failure:
    it (kernel_times.large_ring_shapes): the first and the last expansion
    level's key-switch NTT at N=8192 (SEAL's chain), 16384 and 32768 (SEAL's
    chains and tpu32), and one bfv_multiply's NTTs over the 60-bit BEHZ
-   base at N=8192;
+   base at N=8192; then at every launch of phase 20's served request
+   (kernel_times.served_ntt_launches: each expansion level's key-switch
+   NTT and INTT in its steps, the selection vector, the inner INTT, the
+   digit plaintexts' NTT and the upper INTT in their steps), with the sum
+   over a request beside its bound;
 12. ciphertext-multiplication mode at the reference's own rows
    (REFERENCE_MATRIX of tests/test_correctness.py: N=4096 d=1 and d=2,
    N=8192 d=2): every item decoded, each reply's invariant noise budget
@@ -138,7 +146,27 @@ Phases, each of which raises on failure:
    server answers a 2-query request, then is freed) on db=2 (2 ranks, each
    its block of D0 = 57 of 114 rows through kernel D).  Kernel D and
    kernel A's growing and reducing butterflies must have run; latency
-   (slowest rank) and each rank's held and peak device memory.
+   (slowest rank) and each rank's held and peak device memory;
+20. a served request at N=32768 (K3's ring on the TPU): 2^20 stamped items
+   of 288 B, d=2 (dims 57 x 57, 3,207 plaintexts), the bench's 24-bit t on
+   SEAL's 55/56-bit chain, so the Shoup-table layout, 25.55 GB of NTT words
+   and companions on the card (not cut); database seed 42, client seed 7
+   on the card, seeded queries, native wire, replies at reply_limbs_for.
+   The items packed by the native encoder and by pack_items (equal), the
+   database built (native pack, NTT and companions) with its set-up peak;
+   client keygen, the Request's bytes (1.9 GB of Galois keys) and its
+   serialize and parse seconds; 3 single-query requests, every item
+   decoded, every reply budget and recomposed inner budget > 0, first and
+   warm latency, a request's peak device memory, and the launches of
+   kernel A (reducing butterflies: 3 x kernel_times.served_ntt_launches'
+   count) and kernel D (one a request); then one more warm request in
+   synchronized stages (profile_request.staged_request), byte-equal;
+21. packed transfer on phase 6's stamped server: the same query arrays
+   served with packed_transfer=True (the default: queries and replies as
+   u32 lo + u8 hi words) and by a server with packed_transfer=False on the
+   same database — 3 single-query, a 16-query batched (kernel C) and 6
+   streamed requests (depth 4, under set_sync_debug_mode("error")) — the
+   Responses byte-equal; each mode's warm latencies.
 
 Phase 5 also prints the invariant noise budget of each decomposition
 reply at reply_limbs_for, which must be > 0, and of the inner ciphertexts
@@ -162,8 +190,9 @@ null for every kernel.
 The line before the last is {"kernels": [...]}, one row per KERNEL_ROWS
 entry (every TPU kernel body of pir_tpu/ops/pallas_*.py): its launches
 summed over the served paths named in the row, its numbers from the named
-check (K3's from N=32768, the top of its range, while its launches are
-the N=256 path's: a check's launches are not counted); the last line is
+check (K3's from phase 20's selection-vector NTT at N=32768, its
+launches the N=256 path's and phase 20's: a check's launches are not
+counted); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero before printing any result.
 """
@@ -219,7 +248,7 @@ KERNEL_ROWS = (
               (("single", "pir_scan.hi"), ("seal8192", "pir_scan.hi"),
                ("stream", "pir_scan.hi"), ("load_planes", "pir_scan.hi"),
                ("seal_single", "pir_scan.hi"), ("seal_batched", "pir_scan.hi"),
-               ("seal_stream", "pir_scan.hi")), "K1"),
+               ("seal_stream", "pir_scan.hi"), ("packed", "pir_scan.hi")), "K1"),
     KernelRow("ntt (K2)", "ntt.cu", ("pir_tpu/ops/pallas_mxu_ntt.py:252",),
               (("single", "pir_ntt.grow"), ("ctmult_ref", "pir_ntt.grow"),
                ("ctmult_ref", "pir_ntt.reduce"), ("ctmult", "pir_ntt.grow"),
@@ -230,13 +259,15 @@ KERNEL_ROWS = (
                ("shard_mesh", "pir_ntt.grow"), ("seal_single", "pir_ntt.grow"),
                ("seal_batched", "pir_ntt.grow"), ("seal_stream", "pir_ntt.grow"),
                ("ctmult_ref_mesh", "pir_ntt.grow"), ("ctmult_ref_mesh", "pir_ntt.reduce"),
-               ("ctmult_mesh", "pir_ntt.grow"), ("ctmult_mesh", "pir_ntt.reduce")), "K2"),
-    KernelRow("ntt (K3; launches of the N=256 path, numbers of the N=32768 check)", "ntt.cu",
+               ("ctmult_mesh", "pir_ntt.grow"), ("ctmult_mesh", "pir_ntt.reduce"),
+               ("packed", "pir_ntt.grow")), "K2"),
+    KernelRow("ntt (K3; the N=256 and the served N=32768 paths)", "ntt.cu",
               ("pir_tpu/ops/pallas_ntt.py:147",),
-              (("small", "pir_ntt.grow"),), "K3"),
+              (("small", "pir_ntt.grow"), ("n32768", "pir_ntt.reduce")), "K3"),
     KernelRow("scan_wide (K4)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:397",),
               (("batched", "pir_scan_wide.hi"), ("seal8192", "pir_scan_wide.hi"),
-               ("stream_batched", "pir_scan_wide.hi"), ("seal_batched", "pir_scan_wide.hi")),
+               ("stream_batched", "pir_scan_wide.hi"), ("seal_batched", "pir_scan_wide.hi"),
+               ("packed", "pir_scan_wide.hi")),
               "K4"),
     KernelRow("scan_wide u32 (K4-u32)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:422",),
               (("tpu32", "pir_scan_wide.u32"), ("tpu32_8192", "pir_scan_wide.u32")), "K4-u32"),
@@ -250,7 +281,7 @@ KERNEL_ROWS = (
               (("shoup", "pir_scan_shoup"), ("ctmult_ref", "pir_scan_shoup"),
                ("ctmult", "pir_scan_shoup"), ("seal16384", "pir_scan_shoup"),
                ("load_shoup", "pir_scan_shoup"), ("ctmult_ref_mesh", "pir_scan_shoup"),
-               ("ctmult_mesh", "pir_scan_shoup")), "K7"),
+               ("ctmult_mesh", "pir_scan_shoup"), ("n32768", "pir_scan_shoup")), "K7"),
 )
 
 # ciphertext-multiplication rows of REFERENCE_MATRIX (tests/test_correctness.py):
@@ -308,17 +339,24 @@ def check_ntt(device, gen) -> dict:
             for r in rows if (r["label"], r["inverse"]) in heads}
 
 
-def check_ntt_large(device, gen) -> dict:
-    """Kernel A above N=4096 (kernel_times.time_ntt_large): every shape
-    bit-equal to the plain version, forward and inverse, timed with its
-    bound.  Returns the K3 headline: N=32768's first expansion level,
-    [15, 16, 32768] forward on SEAL's chain."""
-    head = ("N=32768 seal expansion 0", False)
-    rows = kt.time_ntt_large(device, gen, plain={head})
-    for r in rows:
+def check_ntt_large(device, gen) -> "tuple[dict, int]":
+    """Kernel A above N=4096 (kernel_times.time_ntt_large) and at every
+    launch of phase 20's served request (kernel_times.time_ntt_served):
+    every shape bit-equal to the plain version, timed with its bound, and
+    the served request's sums.  Returns the K3 headline, the served
+    selection vector's NTT [228, 15, 32768] on SEAL's chain, and the
+    served request's launch count."""
+    head = ("selection vector", False)
+    rows = kt.time_ntt_large(device, gen)
+    served = kt.time_ntt_served(device, gen, plain={head})
+    for r in rows + served:
         log(kt.ntt_line(r))
-    return {"K3": next({k: r[k] for k in NUMBERS} for r in rows
-                       if (r["label"], r["inverse"]) == head)}
+    launches, ms, bound_ms = kt.served_sums(served)
+    log(f"kernel A over the {launches} launches of one N={kt.SERVED_N} request: sum of times "
+        f"{ms:.4f} ms, sum of bounds {bound_ms:.4f} ms ({bound_ms / ms:.1%} of bound)")
+    name = f"N={kt.SERVED_N} served {head[0]}"
+    return {"K3": next({k: r[k] for k in NUMBERS} for r in served
+                       if (r["label"], r["inverse"]) == (name, head[1]))}, launches
 
 
 def check_scan(device, gen) -> dict:
@@ -799,6 +837,164 @@ def serve_stream(server, client, items, smi: str) -> dict:
     return {"stream": counts, "stream_batched": counts_b}
 
 
+def serve_packed(server, client, items, smi: str) -> dict:
+    """Phase 21: the stamped server (packed_transfer=True) and a server
+    with packed_transfer=False on the same database serve the same single,
+    batched and streamed requests, in turns; the Responses must be equal.
+    Returns the packed server's launch counts ("packed")."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels
+    from pir_tpu_torch.proto import payload_pb2 as pb
+
+    if server._hi_dtype is None:
+        raise AssertionError("the bench server does not pack its transfers")
+    unpacked = pt.PirServer(server.db, server.params, reply_limbs=server.reply_limbs,
+                            packed_transfer=False)
+    n = len(items)
+    single_idx = [(k * 69997 + 123) % n for k in range(3)]
+    singles = [client.create_request([i]) for i in single_idx]
+    idx16 = [(k * 52711 + 29) % n for k in range(16)]
+    batch = client.create_request(idx16)
+    stream_idx = [(k * 31337 + 5) % n for k in range(6)]
+    streamed = [client.create_request([i]) for i in stream_idx]
+    for srv in (server, unpacked):  # keys cached, the streams' pinned buffers made
+        srv.process_request(singles[0])
+        list(srv.process_stream(iter(streamed), depth=4))
+
+    def stream(srv):
+        torch.cuda.set_sync_debug_mode("error")  # a synchronizing call on the path raises
+        try:
+            return [r.SerializeToString() for r in srv.process_stream(iter(streamed), depth=4)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    runs = {"single": lambda srv: [srv.process_request(r).SerializeToString() for r in singles],
+            "batched": lambda srv: srv.process_request_batched(batch).SerializeToString(),
+            "streamed": stream}
+    counts, ms, outs = {}, {}, {}
+    for kind, run in runs.items():
+        got = {}
+        for label, srv in (("packed", server), ("unpacked", unpacked),
+                           ("unpacked", unpacked), ("packed", server)):
+            kernels.reset_launch_counts()
+            out, t = timed(lambda: run(srv))
+            if label == "packed":
+                add_counts(counts, kernels.variant_launch_counts())
+            ms.setdefault((kind, label), []).append(t)
+            if got.setdefault(label, out) != out:
+                raise AssertionError(f"{kind}: the {label} server's two runs differ")
+        if got["packed"] != got["unpacked"]:
+            raise AssertionError(f"{kind}: packed and unpacked Responses differ")
+        outs[kind] = got["packed"]
+    for kind, idx, blobs in (("single", single_idx, outs["single"]),
+                             ("streamed", stream_idx, outs["streamed"])):
+        for i, blob in zip(idx, blobs):
+            check_items(client, [i], pb.Response.FromString(blob), items, f"packed {kind}")
+    check_items(client, idx16, pb.Response.FromString(outs["batched"]), items, "packed batched")
+    require(counts, ("pir_ntt.grow", "pir_scan.hi", "pir_scan_wide.hi"), "packed")
+    lines = [f"{kind} {label} {', '.join(f'{x:.2f}' for x in ms[kind, label])} ms"
+             for kind in runs for label in ("packed", "unpacked")]
+    log(f"packed transfer (u32 lo + {np.dtype(server._hi_dtype).name} hi words) against "
+        f"u64 words on the stamped server ({smi}): 3 single-query, a 16-query batched and 6 "
+        f"streamed requests (depth 4, sync debug \"error\"), Responses byte-equal, run in turns "
+        f"packed, unpacked, unpacked, packed; {'; '.join(lines)}; packed launches {counts}")
+    return {"packed": counts}
+
+
+def serve_n32768(device) -> dict:
+    """Phase 20: 3 single-query requests at N=32768 on the 2^20-item
+    database (the Shoup-table layout).  Returns their launch counts
+    ("n32768") and kernel A's launches in them."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernels, native
+    from pir_tpu_torch.pir import database
+    from pir_tpu_torch.pir.encoders import StringEncoder
+    from pir_tpu_torch.profile_request import staged_request
+    from pir_tpu_torch.proto import payload_pb2 as pb
+
+    n = kt.SERVED_N
+    db_size = 1 << LOG2_ITEMS
+    params = pt.create_pir_parameters(db_size, ITEM_SIZE, DIMENSIONS,
+                                      pt.generate_encryption_params(n, PLAIN_BITS))
+    rng = np.random.default_rng(DB_SEED)
+    pool = [rng.integers(0, 256, ITEM_SIZE, dtype=np.uint8).tobytes() for _ in range(POOL_ITEMS)]
+    items = stamped_items([pool[i % POOL_ITEMS] for i in range(db_size)])
+    bytes_per_pt = params.items_per_plaintext * ITEM_SIZE
+    buffer = b"".join(items) + b"\0" * (params.num_pt * bytes_per_pt - db_size * ITEM_SIZE)
+    bits = StringEncoder(n, params.encryption_params.plain_modulus,
+                         params.bits_per_coeff).bits_per_coeff
+    pts, native_s = timed(lambda: native.pack_db(buffer, params.num_pt, bytes_per_pt, bits, n))
+    plain, plain_s = timed(lambda: database.pack_items(buffer, params.num_pt, bytes_per_pt, bits, n))
+    if not np.array_equal(pts, plain):
+        raise AssertionError("the native encoder and pack_items pack different plaintexts")
+    del buffer, pts, plain
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    db = pt.PirDatabase.create(items, params, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    setup_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if db.db_ntt is None:
+        raise AssertionError("the N=32768 database is not in the Shoup-table layout")
+    gb = (db.db_ntt.numel() + db.db_ntt_shoup.numel()) * 8 / 1e9
+    log(f"N={n} database: {db_size} stamped items of {ITEM_SIZE} B, ct moduli "
+        f"{[q.bit_length() for q in params.encryption_params.ct_modulus]} bits, dims "
+        f"{params.dimensions}, {params.num_pt} plaintexts; packed by the native encoder in "
+        f"{native_s / 1e3:.3f} s, by pack_items in {plain_s / 1e3:.3f} s (equal); "
+        f"PirDatabase.create (native pack, NTT, companions) {build_s:.2f} s; db_ntt + "
+        f"db_ntt_shoup {gb:.2f} GB on {device}; set-up peak {setup_peak:.2f} GB above the "
+        f"{base / 1e9:.2f} GB held")
+
+    client, keygen_ms = timed(lambda: pt.PirClient(params, seed=CLIENT_SEED,
+                                                   compress_queries=True, device=device))
+    reply_limbs = pt.reply_limbs_for(params)
+    server = pt.PirServer(db, params, reply_limbs=reply_limbs)
+    indexes = [db_size // 3, 7, db_size - 1]
+    requests = [client.create_request([i]) for i in indexes]
+    blob, ser_ms = timed(requests[0].SerializeToString)
+    requests[0], parse_ms = timed(lambda: pb.Request.FromString(blob))
+    log(f"N={n} client: keys on {device} in {keygen_ms / 1e3:.2f} s; Request {len(blob)} bytes "
+        f"(Galois keys {len(requests[0].galois_keys)}, relin {len(requests[0].relin_keys)}); "
+        f"serialize {ser_ms / 1e3:.3f} s, parse {parse_ms / 1e3:.3f} s")
+    del blob
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    responses, latencies = [], []
+    for req in requests:
+        resp, ms = timed(lambda: server.process_request(req))
+        responses.append(resp)
+        latencies.append(ms)
+    counts = kernels.variant_launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    budgets = [client.reply_noise_budgets(resp.reply[0]) for resp in responses]
+    for idx, resp in zip(indexes, responses):
+        check_items(client, [idx], resp, items, f"N={n}")
+    if min(min(b) for b in budgets) <= 0:
+        raise AssertionError(f"an N={n} reply or recomposed inner ciphertext has no noise "
+                             f"budget left: {budgets}")
+    log(f"N={n}: 3/3 requests at {indexes} retrieved their stamped item; replies at "
+        f"{reply_limbs} limb(s), {len(responses[0].reply[0].ct)} ciphertexts; noise budgets "
+        f"(bits) [reply, recomposed inner] {budgets}; latency first {latencies[0]:.2f} ms, warm "
+        f"{', '.join(f'{x:.2f}' for x in latencies[1:])} ms; a request's peak device memory "
+        f"{peak:.2f} GB above the {base / 1e9:.2f} GB held; launches {counts}")
+    require(counts, ("pir_ntt.reduce", "pir_scan_shoup"), f"N={n}")
+    stages, levels = {}, [0.0] * 16
+    staged = staged_request(server, requests[1], stages, levels)
+    if staged.SerializeToString() != responses[1].SerializeToString():
+        raise AssertionError(f"N={n}: the staged request's Response differs")
+    log(f"N={n}: a warm request in synchronized stages (profile_request.staged_request, "
+        f"Response byte-equal): {', '.join(f'{k} {v:.2f} ms' for k, v in stages.items())}; "
+        f"expansion levels {', '.join(f'{x:.2f}' for x in levels if x)} ms")
+    del server, db, client
+    torch.cuda.empty_cache()
+    return {"n32768": counts}
+
+
 def reply_arrays(response, ctx) -> list:
     """Every reply of a Response loaded to its u64 ciphertext arrays."""
     from pir_tpu_torch.pir import wire
@@ -1193,15 +1389,19 @@ def serve_large_rings(device) -> dict:
 
 
 def build_kernels() -> None:
-    """nvcc for every kernel source at once."""
+    """nvcc for every kernel source and g++ for the native encoder, all at
+    once."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from pir_tpu_torch import kernels
+    from pir_tpu_torch import kernels, native
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels.REGISTRY)) as ex:
+    with ThreadPoolExecutor(len(kernels.REGISTRY) + 1) as ex:
+        encoder = ex.submit(native.available)
         list(ex.map(lambda k: k.lib(), kernels.REGISTRY.values()))
-    log(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s (in parallel)")
+        encoder.result()
+    log(f"kernels and the native encoder ({native.build().name}) built/loaded in "
+        f"{time.perf_counter() - t0:.2f} s (in parallel)")
     for k in kernels.REGISTRY.values():
         log(f"kernel {k.name}: {k.library_path().name} ({k.build_seconds:.2f} s)")
         for line in k.build_log.splitlines():
@@ -1236,7 +1436,7 @@ def main() -> int:
     scan = check_scan(device, gen)
     wide = check_scan_wide(device, gen)
     shoup = check_scan_shoup(device, gen)
-    ntt_large = check_ntt_large(device, gen)
+    ntt_large, served_launches = check_ntt_large(device, gen)
     small = check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
     server, stamped = check_full_size_indexing(device, params, client, raw)
@@ -1245,6 +1445,7 @@ def main() -> int:
     batched = serve_batched(server, client, stamped, indexes, "SEAL chain")
     require(batched, ("pir_ntt.grow", "pir_scan_wide.hi", "pir_scan.hi"), "batched")
     streams = serve_stream(server, client, stamped, smi.stdout.strip())
+    packed = serve_packed(server, client, stamped, smi.stdout.strip())
     seal = serve_seal(device, stamped, smi.stdout.strip())
     shoup_counts = serve_shoup(device, params, client, stamped, server)
     mesh_indexes = [len(stamped) // 5, len(stamped) - 3]
@@ -1269,12 +1470,19 @@ def main() -> int:
     ctmult_ref_mesh = serve_ctmult_mesh_reference(device)
     ctmult, ctmult_mesh = serve_ctmult_full(device)
     large = serve_large_rings(device)
+    n32768 = serve_n32768(device)
+    want = {"pir_ntt.reduce": 3 * served_launches, "pir_scan_shoup": 3}
+    got = {k: n32768["n32768"].get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"N={kt.SERVED_N}: launches {got}, kernel_times.served_ntt_launches "
+                             f"and one kernel D a request say {want}")
 
     paths = {"single": single, "small": small, "batched": batched, "tpu32": tpu32,
              "mesh": mesh, "mesh32": mesh32, "shoup": shoup_counts,
              "ctmult_ref": ctmult_ref, "ctmult": ctmult, **large, **streams,
              "shard_mesh": shard_mesh, **checkpoint, **seal,
-             "ctmult_ref_mesh": ctmult_ref_mesh, "ctmult_mesh": ctmult_mesh}
+             "ctmult_ref_mesh": ctmult_ref_mesh, "ctmult_mesh": ctmult_mesh, **packed,
+             **n32768}
     checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup}
     for row in KERNEL_ROWS:  # every (path, variant) a row counts was launched
         for path, variant in row.launches:

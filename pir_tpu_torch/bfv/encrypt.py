@@ -54,6 +54,12 @@ def encrypt(
     return torch.stack([c0, c1])
 
 
+def encrypt_zero(
+    ctx: PirContext, pk: PublicKey, rng: np.random.Generator
+) -> torch.Tensor:
+    return encrypt(ctx, pk, np.zeros(ctx.n, dtype=np.uint64), rng)
+
+
 def expand_a_from_seed(ctx: PirContext, seed: bytes) -> np.ndarray:
     """Deterministic uniform ring element u64[L, N] (coeff form) from a
     16-byte seed.  Shared by the encryptor and anyone re-expanding a seeded

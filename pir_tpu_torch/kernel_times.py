@@ -4,10 +4,11 @@ gives them (2^20 items of 288 B, d=2, N=4096, SEAL's chain; the tpu32
 profile and one rank of the meshes for kernel B's other cases; a batched
 request of 16 queries for kernel C), and at the rings above N=4096
 (:func:`large_ring_shapes`, :func:`scan_cases`, :func:`wide_cases`,
-:func:`shoup_cases`), each checked bit-equal to its plain version first.
-``chip_smoke.py`` makes its checks of the four kernels through
-:func:`time_ntt`, :func:`time_ntt_large`, :func:`time_scan`,
-:func:`time_wide` and :func:`time_shoup`.
+:func:`shoup_cases`), and kernel A at every launch of a served request at
+N=32768 (:func:`served_ntt_launches`), each checked bit-equal to its plain
+version first.  ``chip_smoke.py`` makes its checks of the four kernels
+through :func:`time_ntt`, :func:`time_ntt_large`, :func:`time_ntt_served`,
+:func:`time_scan`, :func:`time_wide` and :func:`time_shoup`.
 
     python3 pir_tpu_torch/kernel_times.py --out chiprun_out/times.json
     python3 pir_tpu_torch/kernel_times.py --root build/parent --label parent
@@ -259,6 +260,89 @@ def time_ntt_large(device, gen, plain=(), reps: int = 20) -> "list[dict]":
     return rows
 
 
+SERVED_N = 32768  # the ring whose whole served request kernel A is timed at
+
+
+def served_ntt_launches(n: int = SERVED_N) -> "list[tuple[str, str, int, bool, int]]":
+    """(label, chain, batch, inverse, launches) of every kernel A launch of
+    one single-query 2^20-item request at ring n on SEAL's chain (the
+    Shoup-table layout), as the server issues them: per expansion level j
+    the key switch's NTT over QP on [rows, L, Lp, N] digits and INTT on
+    [rows, 2, Lp, N], its 2^j ciphertexts in steps of
+    keyswitch.SWITCH_CHUNK_BYTES; the selection vector's NTT; the inner
+    scan's INTT; then per ops.scan.upper_step_columns digit columns the
+    digit plaintexts' NTT and the upper scan's INTT."""
+    from pir_tpu_torch.ops import keyswitch
+    from pir_tpu_torch.ops import scan as scan_mod
+    from pir_tpu_torch.utils.math import ceil_log2
+
+    ep = encryption_params("seal", n)
+    L, Lp = len(ep.ct_modulus), len(ep.coeff_modulus)
+    d0, d1 = request_dims(ep)
+    counts: dict = {}
+
+    def add(label, chain, batch, inverse):
+        key = (label, chain, batch, inverse)
+        counts[key] = counts.get(key, 0) + 1
+
+    step = max(1, keyswitch.SWITCH_CHUNK_BYTES // (L * 2 * Lp * n * 8))
+    for j in range(ceil_log2(min(d0 + d1, n))):
+        for r0 in range(0, 1 << j, step):
+            rows = min(step, (1 << j) - r0)
+            add(f"expansion {j} digits", "qp", rows * L, False)
+            add(f"expansion {j} INTT", "qp", rows * 2, True)
+    add("selection vector", "q", (d0 + d1) * 2, False)
+    add("inner-scan INTT", "q", d0 * 2, True)
+    new_c = 2 * expansion_ratio(ep)
+    cols = scan_mod.upper_step_columns(d0, L, n)
+    for c0 in range(0, new_c, cols):
+        k = min(cols, new_c - c0)
+        add("digit plaintexts", "q", k * d0, False)
+        add("upper-scan INTT", "q", k * 2, True)
+    return [(*key, c) for key, c in counts.items()]
+
+
+def time_ntt_served(device, gen, plain=(), reps: int = 5) -> "list[dict]":
+    """Kernel A at served_ntt_launches(): bit-equal to the plain version
+    (a quarter GB of input at a time), then timed; each row carries its
+    launches a request.  The plain version is timed at the (label,
+    inverse) pairs in `plain`."""
+    import torch
+
+    from pir_tpu_torch.ops.ntt import NttTables, grows, ntt_cuda, ntt_plain
+
+    ep = encryption_params("seal", SERVED_N)
+    tables = {"qp": NttTables(ep.coeff_modulus, SERVED_N, device)}
+    tables["q"] = tables["qp"].slice(len(ep.ct_modulus))
+    rows = []
+    for label, chain, batch, inverse, launches in served_ntt_launches():
+        t = tables[chain]
+        x = random_residues(t.moduli, (batch,), SERVED_N, device, gen)
+        got = ntt_cuda(t, x, inverse)
+        err = max_abs_err_plain(t, x, got, inverse)
+        if err:
+            raise AssertionError(f"kernel A differs from plain at {label} {tuple(x.shape)}: {err}")
+        del got
+        grow = grows(t.moduli, SERVED_N)
+        row = {"label": f"N={SERVED_N} served {label}", "shape": list(x.shape),
+               "inverse": inverse, "max_abs_err": err, "grow": grow, "launches": launches,
+               "ms": device_ms(lambda: ntt_cuda(t, x, inverse), reps),
+               **ntt_bound(x, SERVED_N, len(t.moduli), grow)}
+        if (label, inverse) in plain:
+            row["plain_ms"] = device_ms(lambda: ntt_plain(t, x, inverse), 1)
+        rows.append(row)
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def served_sums(rows) -> "tuple[int, float, float]":
+    """Launches, Σ time and Σ bound of kernel A over one served request
+    (time_ntt_served's rows, each weighted by its launches)."""
+    return (sum(r["launches"] for r in rows), sum(r["ms"] * r["launches"] for r in rows),
+            sum(r["bound_ms"] * r["launches"] for r in rows))
+
+
 def request_sums(ntt_rows) -> "tuple[float, float]":
     """Σ time and Σ bound of kernel A over one request's 22 launches."""
     request = [r for r in ntt_rows if r["label"] != "N=256"]
@@ -392,19 +476,23 @@ def shoup_cases() -> "list[tuple[str, tuple, int, int, int]]":
     fold every 8 rows); ciphertext-multiplication mode at N=8192 (SEAL's
     43/44-bit chain, db and companions 6.8 GB), and one rank's block of it
     on a db=2 mesh (D_0 split over 2 ranks); decomposition at N=16384
-    (SEAL's 48/49-bit chain, above the planes' 48 bits)."""
+    (SEAL's 48/49-bit chain, above the planes' 48 bits) and at N=32768
+    (SEAL's 55/56-bit chain, db and companions 25.5 GB: the plain version
+    compares every prefix, a few at a time)."""
     from pir_tpu_torch.core import primes
 
     seal = encryption_params()
     ct8192 = encryption_params("seal", 8192)
     seal16384 = encryption_params("seal", 16384)
+    seal32768 = encryption_params("seal", 32768)
     return [("K7 inner", seal.ct_modulus, *request_dims(seal), POLY_DEGREE),
             ("K7 60-bit inner", tuple(primes.coeff_modulus_from_bits(POLY_DEGREE, [60, 60])),
              *request_dims(seal), POLY_DEGREE),
             ("K7 N=8192 ct-mult inner", ct8192.ct_modulus, *request_dims(ct8192, True), 8192),
             ("K7 N=8192 ct-mult inner, a db=2 rank's block", ct8192.ct_modulus,
              -(-request_dims(ct8192, True)[0] // 2), request_dims(ct8192, True)[1], 8192),
-            ("K7 N=16384 inner", seal16384.ct_modulus, *request_dims(seal16384), 16384)]
+            ("K7 N=16384 inner", seal16384.ct_modulus, *request_dims(seal16384), 16384),
+            ("K7 N=32768 inner", seal32768.ct_modulus, *request_dims(seal32768), 32768)]
 
 
 def shoup_bound(sv, db, out) -> dict:
@@ -452,6 +540,8 @@ def time_shoup(device, gen, cases=None, plain: bool = False, reps: int = 10) -> 
 
 def ntt_line(r) -> str:
     checks = "bit-equal to plain" + ("" if "grow" in r else ", round trip exact")
+    if "launches" in r:
+        checks += f", {r['launches']} launch(es) a request"
     butterflies = "" if "grow" not in r else (" (growing)" if r["grow"] else " (reducing)")
     return (f"kernel A {r['label']} {r['shape']} {'inverse' if r['inverse'] else 'forward'}"
             f"{butterflies}: {checks} (max_abs_err {r['max_abs_err']}); "
@@ -515,18 +605,22 @@ def main(argv=None) -> int:
                 print(f"[{args.label}] {k.name} ptxas: {line.strip()}", flush=True)
     ntt = time_ntt(device, gen)
     large = time_ntt_large(device, gen)
+    served = time_ntt_served(device, gen)
     scan = time_scan(device, gen)
     wide = time_wide(device, gen)
     shoup = time_shoup(device, gen)
     request_ms, request_bound_ms = request_sums(ntt)
     result = {"label": args.label, "package": pir_tpu_torch.__file__, "card": card,
-              "ntt": ntt, "ntt_large": large, "scan": scan, "wide": wide, "shoup": shoup,
+              "ntt": ntt, "ntt_large": large, "ntt_served": served, "scan": scan, "wide": wide, "shoup": shoup,
               "ntt_request_ms": request_ms, "ntt_request_bound_ms": request_bound_ms}
-    for line in ([ntt_line(r) for r in ntt + large] + [scan_line(r) for r in scan]
+    for line in ([ntt_line(r) for r in ntt + large + served] + [scan_line(r) for r in scan]
                  + [wide_line(r) for r in wide] + [shoup_line(r) for r in shoup]):
         print(f"[{args.label}] {line}", flush=True)
     print(f"[{args.label}] kernel A over one request's 22 launches: "
           f"{request_ms:.4f} ms (bound {request_bound_ms:.4f}); {card}")
+    launches, served_ms, served_bound_ms = served_sums(served)
+    print(f"[{args.label}] kernel A over one N={SERVED_N} request's {launches} launches: "
+          f"{served_ms:.4f} ms (bound {served_bound_ms:.4f}); {card}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -1,6 +1,7 @@
 """Oblivious query expansion (Angel et al., SealPIR).
 
-Port of ``expand_level``, ``expand_single``, ``expand_query`` and their
+Port of ``expand_level``, ``expand_single``, ``expand_query``, their
+batched forms ``expand_single_batch`` / ``expand_query_batch`` and their
 mesh forms ``expand_single_sharded`` / ``expand_query_sharded`` of
 ``pir_tpu/ops/expand.py``.  Turns one ciphertext encrypting a packed
 one-hot polynomial into m ciphertexts, the k-th encrypting coefficient k
@@ -83,6 +84,46 @@ def expand_query(
         outs.append(expand_single(ctx, galois_keys, cts[i], count))
         remaining -= n
     return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+
+
+def expand_single_batch(
+    ctx: PirContext, galois_keys, cts: torch.Tensor, num_items: int
+) -> torch.Tensor:
+    """Expand Q independent ciphertexts int64[Q, 2, L, N] into
+    int64[Q, num_items, 2, L, N]: one doubling tree per query, all queries
+    sharing each level's key switch.  Each lane equals expand_single on its
+    ciphertext bit for bit (the same ops; the doubling axis carries a
+    leading query axis)."""
+    if num_items > ctx.n:
+        raise ValueError("cannot expand more items from a CT than poly degree")
+    x = cts[:, None]  # [Q, 1, 2, L, N]
+    if num_items == 0:
+        return x[:, :0]
+    for j in range(ceil_log2(num_items)):
+        x = expand_level(ctx, galois_keys, x, j, axis=1)
+    assert x.shape[1] == next_power_two(num_items)
+    return x[:, :num_items]
+
+
+def expand_query_batch(
+    ctx: PirContext, galois_keys, cts: torch.Tensor, total_items: int
+) -> torch.Tensor:
+    """Expand Q same-shape queries int64[Q, num_cts, 2, L, N] into
+    int64[Q, total_items, 2, L, N] (the batched twin of expand_query)."""
+    n = ctx.n
+    if cts.shape[1] != total_items // n + 1:
+        raise ValueError(
+            "number of ciphertexts doesn't match number of items for "
+            "oblivious expansion"
+        )
+    outs = []
+    remaining = total_items
+    for i in range(cts.shape[1]):
+        count = min(n, remaining)
+        if count > 0:
+            outs.append(expand_single_batch(ctx, galois_keys, cts[:, i], count))
+        remaining -= n
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
 def expand_single_sharded(

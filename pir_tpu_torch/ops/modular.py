@@ -57,28 +57,11 @@ def numpy_u64(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().contiguous().numpy().view(np.uint64)
 
 
-def pinned_int64(shape) -> torch.Tensor:
-    """A page-locked host int64 tensor: the staging buffer of
-    :func:`tensor_u64_async` and :func:`numpy_u64_async`.  Allocating one
-    may synchronize the card, so callers keep and reuse them."""
-    return torch.empty(tuple(shape), dtype=torch.int64, pin_memory=True)
-
-
-def tensor_u64_async(x, device, staging: torch.Tensor) -> torch.Tensor:
-    """u64 array -> int64 tensor on the card, through the pinned `staging`
-    tensor (x's shape): a non-blocking copy on the current stream, so the
-    host goes on at once.  `staging` must not be rewritten before the
-    stream has run the copy."""
-    staging.numpy()[...] = np.asarray(x, dtype=np.uint64).view(np.int64)
-    return staging.to(device, non_blocking=True)
-
-
-def numpy_u64_async(x: torch.Tensor, staging: torch.Tensor) -> torch.Tensor:
-    """Enqueue a non-blocking copy of card tensor x into the pinned
-    `staging` tensor (x's shape) on the current stream and return it: its
-    bits are valid once an event recorded after this call has completed
-    (``staging.numpy().view(np.uint64)``)."""
-    return staging.copy_(x.detach(), non_blocking=True)
+def pinned(shape, dtype=torch.int64) -> torch.Tensor:
+    """A page-locked host tensor: a staging buffer of the non-blocking
+    copies between the host and the card.  Allocating one may synchronize
+    the card, so callers keep and reuse them."""
+    return torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
 
 
 def shr(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -33,6 +33,18 @@ from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import decompose, modular, scan_kernel
 from pir_tpu_torch.ops.keyswitch import relinearize
 
+# Lifted NTT-form digit plaintexts of one query an upper-level step holds.
+# A whole level's are 2·ER·L times its lower ciphertexts (20.2 GB at
+# N=32768 on SEAL's chain), and the plain contraction's temporaries are 36
+# times a step's (``memory_peaks.py`` on an NVIDIA H100 80GB HBM3).
+UPPER_STEP_BYTES = 1 << 30
+
+
+def upper_step_columns(rows: int, L: int, n: int) -> int:
+    """(lower-ct, digit) columns an upper-level step takes: each is `rows`
+    (prefix·dim) digit plaintexts lifted to L limbs of n words."""
+    return max(1, UPPER_STEP_BYTES // (rows * L * n * 8))
+
 
 def _ct_moduli_bits(ctx: PirContext) -> int:
     """Max bit width of the ciphertext moduli.  Uses the full chain
@@ -99,6 +111,40 @@ def items_to_planes(ctx: PirContext, items_ntt: torch.Tensor):
     return scan_kernel.split_planes(t, bits=_ct_moduli_bits(ctx))
 
 
+def _upper_level(ctx: PirContext, result, prefix: int, dim: int, contract) -> torch.Tensor:
+    """One upper dimension of the decomposition-mode scan.
+
+    result: int64[..., prefix·dim, C, 2, L, N] coefficient form (any
+    leading batch axes).  Each lower ciphertext is decomposed into digit
+    plaintexts; the (lower-ct, digit) columns, flattened C-order like the
+    reference's ``for ct in lower_result: for pt in Encode(ct)``, form the
+    newC axis.  upper_step_columns() columns at a time are lifted to L
+    limbs, NTT'd and handed to ``contract`` as int64[..., prefix·k, dim, L, N] NTT-form
+    items, which returns their NTT-form contraction [..., prefix·k, 2, L,
+    N] over `dim`.  The contraction is linear in those columns, so the
+    steps give the same words as one pass.  Returns int64[..., prefix,
+    newC, 2, L, N] coefficient form.
+    """
+    L, n = ctx.L, ctx.n
+    lead = result.shape[:-5]
+    # a limb-shard view swaps in the all-gathering decomposition
+    # (parallel/sharded.py): digits live per limb, but every digit
+    # plaintext must reach every limb for the next contraction
+    decompose_fn = getattr(ctx, "decompose_fn", None) or (lambda x: decompose.decompose_ct(ctx, x))
+    pts = decompose_fn(result)  # [..., prefix·dim, C, 2·ER, N]
+    pts = pts.reshape(*lead, prefix, dim, -1, n)  # [..., prefix, dim, newC, N]
+    new_c = pts.shape[-2]
+    step = upper_step_columns(prefix * dim, L, n)
+    out = torch.empty((*lead, prefix, new_c, 2, L, n), dtype=torch.int64, device=result.device)
+    for c0 in range(0, new_c, step):
+        c1 = min(new_c, c0 + step)
+        digits = pts[..., c0:c1, :].transpose(-3, -2)  # [..., prefix, k, dim, N]
+        items = ctx.ntt_q.forward(digits[..., None, :].expand(*digits.shape[:-1], L, n))
+        res = contract(items.reshape(*lead, prefix * (c1 - c0), dim, L, n))
+        out[..., c0:c1, :, :, :] = ctx.ntt_q.inverse(res).reshape(*lead, prefix, c1 - c0, 2, L, n)
+    return out
+
+
 def database_scan_decomp(
     ctx: PirContext,
     dims: tuple,
@@ -154,32 +200,13 @@ def database_scan_decomp(
         # result: [prefix*dim, C, 2, L, N] (C=1 at the first upper level)
         if result.dim() == 4:
             result = result[:, None]
-        C = result.shape[1]
-        # a limb-shard view swaps in the all-gathering decomposition
-        # (parallel/sharded.py): digits live per limb, but every digit
-        # plaintext must reach every limb for the next contraction
-        decompose_fn = getattr(ctx, "decompose_fn", None)
-        if decompose_fn is not None:
-            pts = decompose_fn(result)
-        else:
-            pts = decompose.decompose_ct(ctx, result)  # [prefix*dim, C, 2*ER, N]
-        pts_ntt = ctx.ntt_q.forward(
-            pts[..., None, :].expand(*pts.shape[:-1], ctx.L, ctx.n)
-        )  # [prefix*dim, C, 2*ER, L, N]
-        # flatten (lower-ct, digit) C-order, like the reference's
-        # `for ct in lower_result: for pt in Encode(ct)`
-        newC = C * pts_ntt.shape[2]
-        items = pts_ntt.reshape(prefix, dim, newC, ctx.L, ctx.n)
-        # contract over `dim` for each of the newC digit plaintexts:
-        # (prefix, newC) jointly form the prefix axis.
-        items_flat = items.transpose(1, 2).reshape(prefix * newC, dim, ctx.L, ctx.n)
-        if db_planes is not None:
-            ih, il = items_to_planes(ctx, items_flat)
-            res = contract_dim_planes(ctx, sv_lvl, ih, il)
-        else:
-            res = contract_dim(ctx, sv_lvl, items_flat)  # [prefix*newC, 2, L, N]
-        res = ctx.ntt_q.inverse(res)
-        result = res.reshape(prefix, newC, 2, ctx.L, ctx.n)
+
+        def contract(items, sv_lvl=sv_lvl):  # [prefix*k, dim, L, N]
+            if db_planes is not None:
+                return contract_dim_planes(ctx, sv_lvl, *items_to_planes(ctx, items))
+            return contract_dim(ctx, sv_lvl, items)
+
+        result = _upper_level(ctx, result, prefix, dim, contract)
 
     # top level: prefix == 1; C axis may be absent for d == 1
     if result.dim() == 4:
@@ -225,21 +252,13 @@ def database_scan_decomp_batched(
         prefix //= dim
         if result.dim() == 5:
             result = result[:, :, None]  # [B, prefix*dim, C, 2, L, N]
-        C = result.shape[2]
-        pts = decompose.decompose_ct(ctx, result)
-        pts_ntt = ctx.ntt_q.forward(
-            pts[..., None, :].expand(*pts.shape[:-1], L, n)
-        )  # [B, prefix*dim, C, 2*ER, L, N]
-        newC = C * pts_ntt.shape[3]
-        items = pts_ntt.reshape(B, prefix, dim, newC, L, n)
-        items_flat = items.transpose(2, 3).reshape(B, prefix * newC, dim, L, n)
-        outs = []
-        for b in range(B):
-            sv_lvl = sv_ntt_b[b, offsets[level] : offsets[level] + dim]
-            ih, il = items_to_planes(ctx, items_flat[b])
-            outs.append(contract_dim_planes(ctx, sv_lvl, ih, il))
-        res = ctx.ntt_q.inverse(torch.stack(outs))  # [B, prefix*newC, 2, L, N]
-        result = res.reshape(B, prefix, newC, 2, L, n)
+        sv_lvl = sv_ntt_b[:, offsets[level] : offsets[level] + dim]
+
+        def contract(items, sv_lvl=sv_lvl):  # [B, prefix*k, dim, L, N]
+            return torch.stack([contract_dim_planes(ctx, sv_lvl[b], *items_to_planes(ctx, items[b]))
+                                for b in range(B)])
+
+        result = _upper_level(ctx, result, prefix, dim, contract)
 
     if result.dim() == 5:
         result = result[:, :, None]

@@ -11,6 +11,8 @@ with one torch thread.  A case is a dict:
 * "name"; "params": serialized ``PIRParameters`` bytes; "items": the
   items' bytes back to back (``params.bytes_per_item`` each);
   "scan_impl" ("pallas" | "xla" | "auto"); "reply_limbs" (int or None);
+  "packed_transfer" (the server's, True by default: each rank moves its
+  query and reply arrays as packed (lo, hi) pairs);
   "batch", "limb": the mesh axes (db takes the remaining ranks);
 * "requests": serialized ``Request`` bytes, each served with
   ``process_request`` (and, with "batched": True, once more with
@@ -63,7 +65,8 @@ def _serve_case(case: dict, device) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     db = _database(case, params, mesh, device)
-    server = PirServer(db, params, reply_limbs=case.get("reply_limbs"), mesh=mesh)
+    server = PirServer(db, params, reply_limbs=case.get("reply_limbs"),
+                       packed_transfer=case.get("packed_transfer", True), mesh=mesh)
     del db  # the server keeps this rank's shard only
     out = {"responses": [], "batched": [], "counts": [], "ms": [], "held_mib": None,
            "peak_mib": None}

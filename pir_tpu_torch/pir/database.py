@@ -19,6 +19,10 @@ A ciphertext-multiplication database is always held in the Shoup-table
 layout, as ``pir_tpu`` holds it (its inner scan is kernel D's; its upper
 dimensions multiply ciphertexts, not digit plaintexts).
 
+Uniform items are packed into plaintexts by the native bulk encoder
+(``pir_tpu_torch/native``, built with g++ at first use), as ``pir_tpu``
+packs them, except at the widths it cannot pack exactly (:func:`pack_rows`).
+
 Persistence is ``pir_tpu``'s, file for file: :meth:`PirDatabase.save` /
 :meth:`PirDatabase.load` write and read the same ``.npz`` checkpoint
 (``db_pts``, the NTT form ``db_ntt`` u64 [padded, L, N], ``num_items``), and
@@ -37,6 +41,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from pir_tpu_torch import native
 from pir_tpu_torch.bfv import evaluator
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.core.params import PirParams
@@ -46,6 +51,7 @@ from pir_tpu_torch.pir.encoders import IntegerEncoder, StringEncoder
 
 _PACK_ROWS = 2048  # plaintexts per step of the vectorized packer
 NTT_PREFIXES = 16  # prefix rows a step of the NTT / plane split and of its undoing
+SHOUP_STEP_BYTES = 256 << 20  # NTT words a step of the companions' computation
 
 
 def pack_items(
@@ -84,6 +90,17 @@ def pack_items(
         bits = (win << off) | (nxt >> (np.uint64(8) - off))
         out[r0:r1, :num_coeff] = bits >> np.uint64(64 - bits_per_coeff)
     return out
+
+
+def pack_rows(
+    buffer: bytes, num_pt: int, bytes_per_pt: int, bits_per_coeff: int, n: int
+) -> np.ndarray:
+    """The database's packer: the native encoder, or :func:`pack_items` at
+    a width the native encoder cannot pack exactly (``native.exact``).
+    Both give the reference's plaintexts."""
+    if native.exact(bits_per_coeff):
+        return native.pack_db(buffer, num_pt, bytes_per_pt, bits_per_coeff, n)
+    return pack_items(buffer, num_pt, bytes_per_pt, bits_per_coeff, n)
 
 
 def default_scan_impl(moduli) -> str:
@@ -203,7 +220,7 @@ class PirDatabase:
             bytes_per_pt = p.items_per_plaintext * p.bytes_per_item
             buffer = b"".join(bytes(item) for item in rawdb)
             buffer += b"\0" * (p.num_pt * bytes_per_pt - len(buffer))
-            pts = pack_items(
+            pts = pack_rows(
                 buffer, p.num_pt, bytes_per_pt, enc.bits_per_coeff, self.ctx.n
             )
         else:
@@ -266,12 +283,16 @@ class PirDatabase:
             lq = ctx.limbs_q
             self.db_ntt = torch.empty(shape, dtype=torch.int64, device=self.device)
             self.db_ntt_shoup = torch.empty_like(self.db_ntt)
+            # the companions' temporaries are several times their input:
+            # SHOUP_STEP_BYTES of NTT words at a time
+            sub = max(1, SHOUP_STEP_BYTES // (ctx.L * ctx.n * 8))
             for r0, ntt in ntt_steps:
-                r1 = r0 + ntt.shape[0]
-                self.db_ntt[r0:r1] = ntt
-                self.db_ntt_shoup[r0:r1] = modular.shoup_precompute_device(
-                    ntt, lq.q, lq.ratio_hi, lq.ratio_lo
-                )
+                self.db_ntt[r0 : r0 + ntt.shape[0]] = ntt
+                for s0 in range(0, ntt.shape[0], sub):
+                    s1 = min(ntt.shape[0], s0 + sub)
+                    self.db_ntt_shoup[r0 + s0 : r0 + s1] = modular.shoup_precompute_device(
+                        ntt[s0:s1], lq.q, lq.ratio_hi, lq.ratio_lo
+                    )
             return
         self.db_planes = rows_to_planes(
             ctx, ctx.L, self.params.dimensions[-1], self.padded_size, ntt_steps
@@ -342,7 +363,7 @@ class PirDatabase:
         bytes from any iterable into one ``shard_NNN.npy`` u64 [rows, N]
         plaintext file per db shard (:func:`shard_row_ranges`) and a
         ``meta.json``, ``chunk_pts`` plaintexts at a time through
-        :func:`pack_items`: the whole database is never in memory.  Returns
+        :func:`pack_rows`: the whole database is never in memory.  Returns
         the shard paths (a shard with no rows gets no file).  The files are
         ``pir_tpu``'s byte for byte."""
         out_dir = pathlib.Path(out_dir)
@@ -383,7 +404,7 @@ class PirDatabase:
                 taken += 1
             buffer = b"".join(items)
             buffer += b"\0" * (n_rows * bytes_per_pt - len(buffer))
-            pts = pack_items(buffer, n_rows, bytes_per_pt, bits, n)
+            pts = pack_rows(buffer, n_rows, bytes_per_pt, bits, n)
             for s, (r0, r1) in enumerate(ranges):  # scatter into the shard files
                 lo, hi = max(row, r0), min(row + n_rows, r1)
                 if lo < hi:

@@ -18,7 +18,10 @@ flight, each on a CUDA stream of its own (see its docstring).  ``create``
 and ``oblivious_expansion`` are ``pir_tpu``'s constructor and component
 surface.
 
-Requests and replies cross the wire in the native codec or as SEAL 3.5
+Query and reply arrays cross the host link as (u32 lo, u8/u16 hi) pairs
+(``packed_transfer``, ``pir_tpu``'s default; ops/packing.py) wherever every
+ciphertext modulus is at most 48 bits, else as u64 words.  Requests and
+replies cross the wire in the native codec or as SEAL 3.5
 streams (``wire_format``; by default a reply echoes the format its
 request's queries came in, so a reference client gets SEAL streams back).
 A SEAL key set's seeded c1 polynomials are expanded on the host once, when
@@ -42,19 +45,12 @@ import numpy as np
 import torch
 
 from pir_tpu_torch.core.params import PirParams
-from pir_tpu_torch.ops import expand, modswitch, scan
-from pir_tpu_torch.ops.modular import (
-    numpy_u64,
-    numpy_u64_async,
-    pinned_int64,
-    resolve_device,
-    tensor_u64,
-    tensor_u64_async,
-)
+from pir_tpu_torch.ops import expand, modswitch, packing, scan
+from pir_tpu_torch.ops.modular import pinned, resolve_device, tensor_u64
 from pir_tpu_torch.pir import seal_compat, wire
 from pir_tpu_torch.pir.database import PirDatabase
 from pir_tpu_torch.proto import payload_pb2 as pb
-from pir_tpu_torch.utils.math import ceil_log2, generate_galois_elts
+from pir_tpu_torch.utils.math import generate_galois_elts
 
 _KEY_CACHE_ENTRIES = 8
 _REPLY_MARGIN_BITS = 12
@@ -108,19 +104,46 @@ class MeshReplies(NamedTuple):
 
 
 class HostReplies(NamedTuple):
-    """A request's replies on their way to the host: int64 host tensors
-    [count, R, 2, L', N] (pinned on a CUDA server), valid once `done` (a
-    CUDA event, None on the CPU) has completed."""
+    """A request's replies on their way to the host: per piece [count, R,
+    2, L', N] the host tensors of its words (:func:`_host_words`; pinned on
+    a CUDA server), valid once `done` (a CUDA event, None on the CPU) has
+    completed."""
 
     done: "torch.cuda.Event | None"
     replies: list
     seal_ep: "object | None" = None
 
 
-def _host_upload(device):
+# Query and reply arrays cross the host link as a tuple of parts: (u32 lo,
+# u8/u16 hi) with packed transfer, else (u64 words,); on the host numpy
+# arrays, on the device their storage tensors (ops/packing.py).
+
+
+def _host_parts(arr, hi_dtype) -> tuple:
+    """A host u64 array as the parts that cross the link (always copies)."""
+    if hi_dtype is None:
+        return (np.array(arr, dtype=np.uint64),)
+    return packing.split_host(arr, hi_dtype)
+
+
+def _device_words(parts) -> torch.Tensor:
+    """Parts on the device -> int64 words."""
+    return parts[0] if len(parts) == 1 else packing.join_device(*parts)
+
+
+def _host_words(parts) -> np.ndarray:
+    """Parts on the host -> u64 words."""
+    words = [packing.from_storage(t) for t in parts]
+    return words[0] if len(words) == 1 else packing.join_host(*words)
+
+
+def _host_upload(device, hi_dtype):
+    """upload(array, key): a host u64 array -> int64 words on `device` (a
+    blocking copy)."""
+
     def upload(arr, key):
         del key
-        return tensor_u64(arr, device)
+        return _device_words([packing.to_storage(p).to(device) for p in _host_parts(arr, hi_dtype)])
 
     return upload
 
@@ -143,10 +166,12 @@ class _StreamSlot:
     """One in-flight request of :meth:`PirServer.process_stream` on a CUDA
     server: its stream, the event recorded after its reply copies, and its
     pinned host buffers (reused by the slot's next request, which starts
-    only after this one was completed)."""
+    only after this one was completed), one for each part that crosses the
+    link."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, hi_dtype=None):
         self.device = device
+        self.hi_dtype = hi_dtype
         self.stream = torch.cuda.Stream(device)
         # the database and the context's tables were built on the stream
         # that was current until now: this stream waits for that work once
@@ -154,21 +179,28 @@ class _StreamSlot:
         self.done = torch.cuda.Event()
         self._pinned: dict = {}
 
-    def _buffer(self, key, shape) -> torch.Tensor:
+    def _buffer(self, key, shape, dtype=torch.int64) -> torch.Tensor:
         buf = self._pinned.get(key)
-        if buf is None or tuple(buf.shape) != tuple(shape):
-            buf = self._pinned[key] = pinned_int64(shape)
+        if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+            buf = self._pinned[key] = pinned(shape, dtype)
         return buf
 
     def upload(self, arr, key) -> torch.Tensor:
         """Host u64 query array -> the card, non-blocking on this stream."""
-        return tensor_u64_async(arr, self.device, self._buffer(("up", key), arr.shape))
+        parts = []
+        for i, part in enumerate(_host_parts(arr, self.hi_dtype)):
+            buf = self._buffer(("up", key, i), part.shape, packing.storage_dtype(part.dtype))
+            packing.from_storage(buf)[...] = part
+            parts.append(buf.to(self.device, non_blocking=True))
+        return _device_words(parts)
 
     def download(self, pieces, seal_ep) -> HostReplies:
-        """Enqueue the reply pieces' copies to pinned memory, then the
+        """Enqueue the copies of the reply pieces' parts (a tuple of device
+        tensors each, :meth:`PirServer._packed`) to pinned memory, then the
         event the worker waits on."""
-        out = [numpy_u64_async(x, self._buffer(("down", i), x.shape))
-               for i, x in enumerate(pieces)]
+        out = [tuple(self._buffer(("down", i, k), t.shape, t.dtype).copy_(t, non_blocking=True)
+                     for k, t in enumerate(parts))
+               for i, parts in enumerate(pieces)]
         self.done.record(self.stream)
         return HostReplies(self.done, out, seal_ep)
 
@@ -179,6 +211,7 @@ class PirServer:
         db: PirDatabase,
         params: PirParams,
         reply_limbs: Optional[int] = None,
+        packed_transfer: bool = True,
         device=None,
         mesh=None,
         wire_format: str = "auto",
@@ -186,6 +219,12 @@ class PirServer:
         """reply_limbs: if set, mod-switch reply ciphertexts down to this
         many RNS limbs before serialization (ops/modswitch.py).  The caller
         must leave enough noise budget (see :func:`reply_limbs_for`).
+
+        packed_transfer: move query and reply arrays across the host link
+        as (u32 lo, u8/u16 hi) pairs instead of u64 words (ops/packing.py),
+        on every path: single, batched, streamed and mesh requests.  Above
+        48-bit moduli the words move as u64 either way.  The Responses are
+        the same bytes.
 
         wire_format: the replies' codec — "native" (PTP1), "seal" (SEAL 3.5
         Ciphertext streams, each at the chain level of its limb count), or
@@ -232,6 +271,10 @@ class PirServer:
         self.ctx = db.ctx
         self.device = db.device
         self.reply_limbs = reply_limbs
+        self._hi_dtype = (
+            packing.hi_dtype_for(self.ctx.ct_moduli) if packed_transfer else None
+        )
+        self._upload = _host_upload(self.device, self._hi_dtype)
         self._expansion_elts = tuple(generate_galois_elts(self.ctx.n))
         # Device-resident Galois keys, keyed by a digest of the whole key
         # blobs (clients resend identical keys with every request).
@@ -287,19 +330,7 @@ class PirServer:
         if not self.db._use_planes:
             raise ValueError("the batched scan reads the planes layout (scan_impl='pallas')")
         ctx = self.ctx
-        n = ctx.n
-        outs = []
-        remaining = self.params.dimensions_sum
-        for i in range(query_cts.shape[1]):
-            count = min(n, remaining)
-            remaining -= n
-            if count == 0:
-                continue
-            x = query_cts[:, i][:, None]
-            for j in range(ceil_log2(count)):
-                x = expand.expand_level(ctx, galois_keys, x, j, axis=1)
-            outs.append(x[:, :count])
-        sv = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+        sv = expand.expand_query_batch(ctx, galois_keys, query_cts, self.params.dimensions_sum)
         sv_ntt = ctx.ntt_q.forward(sv)
         reply = scan.database_scan_decomp_batched(
             ctx, self.params.dimensions, sv_ntt, self.db.db_planes
@@ -326,7 +357,7 @@ class PirServer:
         """Enqueue a host [Q, k, 2, L, N] query stack in chunks of
         batch_lanes() queries, the ragged tail padded with the chunk's first
         query.  upload(array, key) moves a chunk to the device."""
-        upload = upload or _host_upload(self.device)
+        upload = upload or self._upload
         lanes = min(self.batch_lanes(), all_queries.shape[0])
         chunks = []
         for start in range(0, all_queries.shape[0], lanes):
@@ -444,7 +475,7 @@ class PirServer:
         host query array to the device (a blocking copy by default).  The
         replies' codec (:meth:`_reply_seal_ep`) is settled, or the request
         refused, before any device work."""
-        upload = upload or _host_upload(self.device)
+        upload = upload or self._upload
         seal_ep = self._reply_seal_ep(request)
         galois_keys, relin_key = self._device_keys(request)
         if (
@@ -483,6 +514,13 @@ class PirServer:
             return [replies[:count] for replies, count in pending.chunks]
         return [reply[None] for reply in pending]
 
+    def _packed(self, x: torch.Tensor) -> tuple:
+        """A reply piece's parts as they cross to the host: its packed (lo,
+        hi) storage pair, or its int64 words."""
+        if self._hi_dtype is None:
+            return (x.contiguous(),)
+        return packing.split_device(x, self._hi_dtype)
+
     def finalize_response(self, pending) -> pb.Response:
         """Copy a process_request_async handle's replies to the host and
         serialize them into a Response, in the codec the handle carries.
@@ -493,9 +531,10 @@ class PirServer:
         if isinstance(pending, HostReplies):
             if pending.done is not None:
                 pending.done.synchronize()
-            hosts = [r.numpy().view(np.uint64) for r in pending.replies]
+            hosts = [_host_words(r) for r in pending.replies]
         else:
-            hosts = [numpy_u64(r) for r in self._reply_pieces(pending)]
+            hosts = [_host_words([t.cpu() for t in self._packed(r)])
+                     for r in self._reply_pieces(pending)]
         seal_ep = getattr(pending, "seal_ep", None)
         response = pb.Response()
         for host in hosts:
@@ -541,18 +580,19 @@ class PirServer:
         if self.device.type != "cuda":
             return None
         while len(self._stream_slots) <= min(n, depth - 1):
-            self._stream_slots.append(_StreamSlot(self.device))
+            self._stream_slots.append(_StreamSlot(self.device, self._hi_dtype))
         return self._stream_slots[n % depth]
 
     def _submit(self, request: pb.Request, slot) -> HostReplies:
         if slot is None:
             pending = self.process_request_async(request)
             pieces = self._reply_pieces(pending)
-            return HostReplies(None, [x.contiguous() for x in pieces], pending.seal_ep)
+            return HostReplies(None, [self._packed(x) for x in pieces], pending.seal_ep)
         with torch.cuda.stream(slot.stream):
             try:
                 pending = self.process_request_async(request, upload=slot.upload)
-                return slot.download(self._reply_pieces(pending), pending.seal_ep)
+                pieces = [self._packed(x) for x in self._reply_pieces(pending)]
+                return slot.download(pieces, pending.seal_ep)
             except BaseException:
                 slot.stream.synchronize()  # nothing it enqueued outlives the error
                 raise

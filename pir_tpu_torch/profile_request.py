@@ -53,7 +53,6 @@ import torch
 
 import pir_tpu_torch as pt
 from pir_tpu_torch.ops import expand, modswitch, scan
-from pir_tpu_torch.ops.modular import tensor_u64
 from pir_tpu_torch.pir import wire
 from pir_tpu_torch.utils.math import ceil_log2
 
@@ -96,7 +95,7 @@ def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
     ctx = server.ctx
     clock = _Laps(stages, server.device)
     keys, relin_key = server._device_keys(request)
-    cts = tensor_u64(wire.load_ciphertexts(request.query[0], ctx), server.device)
+    cts = server._upload(wire.load_ciphertexts(request.query[0], ctx), 0)
     clock.lap("load query + keys")
     outs = []
     remaining = server.params.dimensions_sum

@@ -7,6 +7,7 @@ tests hold each copy to its original — textually (up to the package name)
 and by behaviour.
 """
 
+import ast
 import pathlib
 import subprocess
 import sys
@@ -38,6 +39,27 @@ def test_copy_matches_original_source(path):
     original = (REPO / "pir_tpu" / path).read_text()
     copy = (REPO / "pir_tpu_torch" / path).read_text()
     assert copy == original.replace("pir_tpu.", "pir_tpu_torch.")
+
+
+def test_native_encoder_source_is_a_byte_copy():
+    original = (REPO / "pir_tpu" / "native" / "encoder.cpp").read_bytes()
+    assert (REPO / "pir_tpu_torch" / "native" / "encoder.cpp").read_bytes() == original
+
+
+def _function_source(path: pathlib.Path, name: str) -> str:
+    text = path.read_text()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(text, node)
+
+
+@pytest.mark.parametrize("name", ["hi_dtype_for", "split_host", "join_host"])
+def test_packing_host_function_matches_original(name):
+    """ops/packing.py's original imports jax.numpy, so the port copies its
+    host functions, not the file."""
+    path = pathlib.Path("ops") / "packing.py"
+    assert _function_source(REPO / "pir_tpu_torch" / path, name) == _function_source(
+        REPO / "pir_tpu" / path, name)
 
 
 def test_proto_copy_matches_original():
@@ -112,6 +134,7 @@ def test_import_leaves_jax_out():
         " pir_tpu_torch.parallel.sharded, pir_tpu_torch.pir.seal_compat,"
         " pir_tpu_torch.parallel.distributed, pir_tpu_torch.parallel.mesh_worker,"
         " pir_tpu_torch.utils.profiling, pir_tpu_torch.examples.basic_pir,"
+        " pir_tpu_torch.native, pir_tpu_torch.ops.packing, pir_tpu_torch.memory_peaks,"
         " pir_tpu_torch.examples.streamed_serving, chip_smoke;"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
         "bad = [m for m in sys.modules if m == 'pir_tpu' or m.startswith('pir_tpu.')];"

@@ -574,3 +574,56 @@ def test_scan_shoup_kernel_at_a_rank_block_matches_plain(dev):
         sv.cpu(), db.cpu(), shoup.cpu(), modular.LimbConstants(moduli, "cpu"))
     assert torch.equal(got.cpu(), want)
     assert not got[-1].any()
+
+
+def test_scan_shoup_kernel_at_n32768_inner_scan_matches_plain(dev):
+    """Kernel D at the served N=32768 inner scan, sv [57, 2, 15, 32768]
+    against db and companions [57, 57, 15, 32768] (25.5 GB) on SEAL's
+    55-bit chain: every output prefix equal to the plain version's, which
+    runs on the card a few prefixes at a time."""
+    from pir_tpu_torch import kernel_times as kt
+
+    (_, moduli, P, D, n), = [c for c in kt.shoup_cases() if c[0] == "K7 N=32768 inner"]
+    assert (P, D, len(moduli), n) == (57, 57, 15, 32768)
+    limbs = modular.LimbConstants(moduli, dev)
+    sv = residues(moduli, (D, 2), n, dev, seed=1)
+    db = torch.empty((P, D, len(moduli), n), dtype=torch.int64, device=dev)
+    shoup = torch.empty_like(db)
+    for p in range(P):
+        db[p] = residues(moduli, (D,), n, dev, seed=100 + p)
+        shoup[p] = modular.shoup_precompute_device(db[p], limbs.q, limbs.ratio_hi, limbs.ratio_lo)
+    before = kernels.SCAN_SHOUP.launches
+    got = scan_kernel.contract_dim_shoup(sv, db, shoup, limbs)
+    torch.cuda.synchronize()
+    assert kernels.SCAN_SHOUP.launches == before + 1
+    for p0 in range(0, P, 8):
+        want = scan_kernel.contract_shoup_plain(sv, db[p0 : p0 + 8], shoup[p0 : p0 + 8], limbs)
+        assert torch.equal(got[p0 : p0 + 8], want), f"prefixes {p0}.."
+
+
+@pytest.mark.parametrize("bits", [(30, 30, 32), (34, 36, 37), (42, 44, 46)],
+                         ids=["q32", "q36", "q44"])
+def test_packed_and_unpacked_responses_equal_on_card(dev, bits):
+    """packed_transfer=True (u32 lo + u8/u16 hi words) and False on the
+    card: single, multi-query (the batched reroute, kernel C) and streamed
+    requests give the same Response bytes as each other and as the CPU
+    server; the stream runs under sync debug "error" either way."""
+    params = _small_params(bits)
+    rng = np.random.default_rng(9)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    client = pt.PirClient(params, seed=2, compress_queries=True, device="cpu")
+    reqs = [client.create_request(ix) for ix in ([4], [40, 0, 17], [49])]
+    cpu = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params, reply_limbs=1)
+    want = [cpu.process_request(r).SerializeToString() for r in reqs]
+    db = pt.PirDatabase.create(raw, params, device=dev)
+    for packed in (True, False):
+        server = pt.PirServer(db, params, reply_limbs=1, packed_transfer=packed)
+        assert (server._hi_dtype is not None) == packed
+        assert [server.process_request(r).SerializeToString() for r in reqs] == want
+        list(server.process_stream(iter(reqs), depth=3))  # the streams' pinned buffers
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [r.SerializeToString() for r in server.process_stream(iter(reqs), depth=3)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert got == want

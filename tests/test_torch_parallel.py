@@ -13,7 +13,10 @@ whole database: each loads only its shard of a PirDatabase.ingest_shards
 checkpoint and builds its block of the planes
 (parallel.distributed.planes_from_shard_rows).  Every wait has a timeout, and a launch
 kills its ranks when one fails or time runs out.  The layouts the mesh
-refuses are checked in this process, on the mesh's shape alone.
+refuses are checked in this process, on the mesh's shape alone.  Every
+rank moves its query and reply arrays packed (the server's default
+packed_transfer) except in the UNPACKED cases, held to pir_tpu's mesh
+server with packed_transfer=False.
 """
 
 import jax
@@ -47,8 +50,11 @@ CASES = {
     "db2xlimb2_shards": (4, 2, (26, 34, 36), "pallas", 1, 2, None, [3, 29]),
     "db4_shards_d1": (4, 1, (26, 34, 36), "pallas", 4, 1, None, [0, 17, 29, 5]),
     "db2_shards_reply1": (2, 2, (30, 30, 32), "pallas", 1, 1, 1, [0, 29]),
+    "db2_planes_unpacked": (2, 2, (34, 36, 42), "pallas", 1, 1, None, [3, 29]),
+    "db2xbatch2_unpacked": (4, 2, (26, 34, 36), "pallas", 2, 1, None, [3, 17, 29]),
 }
 SHARDED = {"db2xlimb2_shards", "db4_shards_d1", "db2_shards_reply1"}
+UNPACKED = {"db2_planes_unpacked", "db2xbatch2_unpacked"}
 # ciphertext-multiplication mode, name: (ranks, d, items, batch, indexes)
 CT_MULT = {
     "ct_mult_d1_db2xbatch2": (4, 1, 30, 2, [3, 29]),
@@ -103,7 +109,7 @@ def _job(world, shard_root):
             "name": name, "params": twire.pir_params_to_proto(params).SerializeToString(),
             "scan_impl": impl, "batch": batch, "limb": limb,
             "reply_limbs": reply_limbs, "requests": [request.SerializeToString()],
-            "batched": True,
+            "batched": True, "packed_transfer": name not in UNPACKED,
         }
         if name in SHARDED:
             case["shard_dir"] = str(shard_root / name)
@@ -138,11 +144,13 @@ def test_mesh_response_equals_pir_tpu(launches, name):
     params, raw, client, request = _request(name)
     jdb = JDB.create(raw, params, scan_impl=impl)
     jmesh = jsharded.default_mesh(devices=jax.devices()[:world], batch=batch, limb=limb)
-    want = JServer(jdb, params, reply_limbs=reply_limbs, mesh=jmesh).process_request(request)
+    packed = name not in UNPACKED
+    want = JServer(jdb, params, reply_limbs=reply_limbs, packed_transfer=packed,
+                   mesh=jmesh).process_request(request)
     want = want.SerializeToString()
     single = pt.PirServer(
         pt.PirDatabase.create(raw, params, scan_impl=impl, device="cpu"), params,
-        reply_limbs=reply_limbs,
+        reply_limbs=reply_limbs, packed_transfer=packed,
     ).process_request(request)
     assert single.SerializeToString() == want
     for rank, results in enumerate(launches(world)):
