@@ -80,7 +80,10 @@ Phases, each of which raises on failure:
    (kernel_times.served_ntt_launches: each expansion level's key-switch
    NTT and INTT in its steps, the selection vector, the inner INTT, the
    digit plaintexts' NTT and the upper INTT in their steps), with the sum
-   over a request beside its bound;
+   over a request beside its bound.  Every row gives its time, bound and
+   share of the bound; at N=16384 and 32768, where kernel A holds a limb in
+   one thread-block cluster, also the cluster's CTAs and how many clusters
+   the card holds at once (a cluster that cannot be resident fails);
 12. ciphertext-multiplication mode at the reference's own rows
    (REFERENCE_MATRIX of tests/test_correctness.py: N=4096 d=1 and d=2,
    N=8192 d=2): every item decoded, each reply's invariant noise budget

@@ -227,10 +227,25 @@ def max_abs_err_plain(tables, x, got, inverse: bool) -> int:
                for i in range(0, x.shape[0], step))
 
 
+def cluster_fields(n: int, inverse: bool, grow: bool) -> dict:
+    """Above N=8192: kernel A's CTAs a cluster and how many of its clusters
+    the card holds at once (ops.ntt.max_active_clusters, which raises where
+    a cluster cannot be resident); nothing for a tree whose kernel A has no
+    clusters (``--root`` of a commit before them)."""
+    from pir_tpu_torch.ops import ntt as ntt_mod
+
+    if n <= ntt_mod.BLOCK_MAX_N or not hasattr(ntt_mod, "max_active_clusters"):
+        return {}
+    return {"cluster_ctas": ntt_mod.ntt_plan(n, 1).cluster_ctas,
+            "clusters_resident": ntt_mod.max_active_clusters(n, inverse, grow)}
+
+
 def time_ntt_large(device, gen, plain=(), reps: int = 20) -> "list[dict]":
     """Kernel A at large_ring_shapes(), forward and inverse: bit-equal to
     the plain version, then timed (the plain version too at the (label,
-    inverse) pairs in `plain`, on the whole shape)."""
+    inverse) pairs in `plain`, on the whole shape); above N=8192 each row
+    also carries its cluster's CTAs and the clusters the card holds at
+    once (cluster_fields)."""
     import torch
 
     from pir_tpu_torch.ops.ntt import grows, ntt_cuda, ntt_plain
@@ -251,7 +266,7 @@ def time_ntt_large(device, gen, plain=(), reps: int = 20) -> "list[dict]":
             row = {"label": label, "shape": list(x.shape), "inverse": inverse,
                    "max_abs_err": err, "grow": grow,
                    "ms": device_ms(lambda: ntt_cuda(t, x, inverse), 3 if big else reps),
-                   **ntt_bound(x, n, len(t.moduli), grow)}
+                   **ntt_bound(x, n, len(t.moduli), grow), **cluster_fields(n, inverse, grow)}
             if (label, inverse) in plain:
                 row["plain_ms"] = device_ms(lambda: ntt_plain(t, x, inverse), 1)
             rows.append(row)
@@ -305,8 +320,8 @@ def served_ntt_launches(n: int = SERVED_N) -> "list[tuple[str, str, int, bool, i
 def time_ntt_served(device, gen, plain=(), reps: int = 5) -> "list[dict]":
     """Kernel A at served_ntt_launches(): bit-equal to the plain version
     (a quarter GB of input at a time), then timed; each row carries its
-    launches a request.  The plain version is timed at the (label,
-    inverse) pairs in `plain`."""
+    launches a request and cluster_fields.  The plain version is timed at
+    the (label, inverse) pairs in `plain`."""
     import torch
 
     from pir_tpu_torch.ops.ntt import NttTables, grows, ntt_cuda, ntt_plain
@@ -327,7 +342,8 @@ def time_ntt_served(device, gen, plain=(), reps: int = 5) -> "list[dict]":
         row = {"label": f"N={SERVED_N} served {label}", "shape": list(x.shape),
                "inverse": inverse, "max_abs_err": err, "grow": grow, "launches": launches,
                "ms": device_ms(lambda: ntt_cuda(t, x, inverse), reps),
-               **ntt_bound(x, SERVED_N, len(t.moduli), grow)}
+               **ntt_bound(x, SERVED_N, len(t.moduli), grow),
+               **cluster_fields(SERVED_N, inverse, grow)}
         if (label, inverse) in plain:
             row["plain_ms"] = device_ms(lambda: ntt_plain(t, x, inverse), 1)
         rows.append(row)
@@ -543,10 +559,13 @@ def ntt_line(r) -> str:
     if "launches" in r:
         checks += f", {r['launches']} launch(es) a request"
     butterflies = "" if "grow" not in r else (" (growing)" if r["grow"] else " (reducing)")
+    clusters = ("" if "cluster_ctas" not in r else
+                f"; clusters of {r['cluster_ctas']} CTAs, {r['clusters_resident']} resident")
     return (f"kernel A {r['label']} {r['shape']} {'inverse' if r['inverse'] else 'forward'}"
             f"{butterflies}: {checks} (max_abs_err {r['max_abs_err']}); "
             f"{r['ms']:.4f} ms" + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
-            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound){clusters}")
 
 
 def scan_line(r) -> str:

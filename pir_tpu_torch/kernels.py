@@ -141,12 +141,13 @@ def stream_handle(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# in, out, scratch, batch, limbs, log_n, inverse, radix_bits, polys_per_block,
-# blocks, top_bits, top_threads, top_blocks, grow, tw, tw_shoup, consts,
-# n_inv, n_inv_shoup, stream
-NTT_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I64, _I32, _I32, _I64, _I32,
-            _P, _P, _P, _P, _P, _P]
-NTT = CudaKernel("ntt", "ntt.cu", {"pir_ntt": NTT_ARGS})
+# in, out, batch, limbs, log_n, inverse, radix_bits, polys_per_block, blocks,
+# cluster_ctas, grow, tw, tw_shoup, consts, n_inv, n_inv_shoup, stream
+NTT_ARGS = [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I64, _I32, _I32, _P, _P, _P, _P, _P, _P]
+# log_n, inverse, grow, int* clusters: how many of a split ring's clusters
+# the card holds at once
+NTT = CudaKernel("ntt", "ntt.cu", {"pir_ntt": NTT_ARGS, "pir_ntt_max_active_clusters":
+                                   [_I32, _I32, _I32, ctypes.POINTER(_I32)]})
 # sv, db_hi, db_lo, consts, out, hi_bytes, P, S, L, d_total, j_begin, D, N, stream
 _SCAN_ARGS = [_P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _P]
 # kernel B's: the same, then prefix_groups, row_splits, prefix_tiles,

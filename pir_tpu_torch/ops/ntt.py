@@ -18,6 +18,7 @@ is the reference the kernel is tested against.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,38 +32,47 @@ from pir_tpu_torch.ops.modular import tensor_u64
 KERNEL_MIN_N = 64
 KERNEL_MAX_N = 32768
 BLOCK_MAX_N = 8192  # one limb of 8-byte words (+1/16 padding) in 68 KB of shared memory
-SUB_BLOCK_N = 4096  # above BLOCK_MAX_N: the top stages, then sub-blocks of this many words
+SUB_BLOCK_N = 4096  # above BLOCK_MAX_N: a cluster's CTA holds a sub-block of this many words
 BLOCK_THREADS = 256  # threads per block where one polynomial takes fewer
-TOP_THREADS = 256  # threads per block of the top stages' kernel
 MIN_POLY_THREADS = 64  # at least two warps a polynomial
 GROW_MAX_BITS = 50  # below 2^50 kernel A's words may grow: reduced once, at the end
 
 
 @dataclass(frozen=True)
 class NttPlan:
-    """Kernel A's launch: each block-kernel unit of 2^(log_n - top_bits)
-    words — a polynomial limb, or one of the 2^top_bits sub-blocks of a limb
-    above BLOCK_MAX_N — is held by ``threads_per_poly`` threads with
-    2^radix_bits words in registers each, ``polys_per_block`` units to a
-    block, in a grid of ``blocks``.  Where top_bits > 0 the top stages run
-    first (forward) or last (inverse) as their own kernel, ``top_blocks``
-    blocks of ``top_threads`` threads, each thread 2^top_bits words."""
+    """Kernel A's launch: a grid of ``blocks`` blocks (CTAs), in clusters of
+    ``cluster_ctas``.  Up to BLOCK_MAX_N each block holds
+    ``polys_per_block`` polynomial limbs, each by ``threads_per_poly``
+    threads with 2^radix_bits words in registers (``cluster_ctas`` 1).
+    Above it one cluster of ``cluster_ctas`` = N / SUB_BLOCK_N CTAs holds a
+    limb, each CTA a SUB_BLOCK_N-word sub-block (one polynomial's worth of
+    threads and shared memory), so ``clusters`` is the polynomial count."""
 
     log_n: int
     radix_bits: int
     polys_per_block: int
     blocks: int
-    top_bits: int = 0
-    top_threads: int = 0
-    top_blocks: int = 0
+    cluster_ctas: int = 1
+
+    @property
+    def clusters(self) -> int:
+        return self.blocks // self.cluster_ctas
 
     @property
     def threads_per_poly(self) -> int:
-        return (1 << (self.log_n - self.top_bits)) >> self.radix_bits
+        """Threads of one block's polynomial (above BLOCK_MAX_N, of one CTA's
+        sub-block)."""
+        return ((1 << self.log_n) // self.cluster_ctas) >> self.radix_bits
 
     @property
     def threads_per_block(self) -> int:
         return self.polys_per_block * self.threads_per_poly
+
+    @property
+    def shared_bytes(self) -> int:
+        """A block's shared memory: its words, one pad word in 16."""
+        words = (1 << self.log_n) // self.cluster_ctas
+        return self.polys_per_block * (words + words // 16) * 8
 
 
 def ntt_plan(n: int, polys: int) -> NttPlan:
@@ -72,25 +82,36 @@ def ntt_plan(n: int, polys: int) -> NttPlan:
     unless a polynomial would then get fewer than MIN_POLY_THREADS threads
     (N < 512), where 4 words a thread spread the work over twice the
     threads.  Up to BLOCK_MAX_N a limb is one block's (N=8192: 1,024
-    threads); above it the top log2(N / SUB_BLOCK_N) stages are one pass
-    through device memory and each SUB_BLOCK_N-word sub-block is transformed
-    as an N=4096 limb is."""
+    threads); above it one cluster of N / SUB_BLOCK_N CTAs (4 at N=16384, 8
+    at 32768) holds a limb, each CTA a SUB_BLOCK_N-word sub-block laid out as
+    an N=4096 limb."""
     log_n = n.bit_length() - 1
     if n != 1 << log_n or not (KERNEL_MIN_N <= n <= KERNEL_MAX_N):
         raise ValueError(f"kernel A handles powers of two {KERNEL_MIN_N} <= N <= {KERNEL_MAX_N}, got N={n}")
     if polys < 1:
         raise ValueError(f"no polynomials to transform ({polys})")
-    top_bits = 0 if n <= BLOCK_MAX_N else log_n - (SUB_BLOCK_N.bit_length() - 1)
-    units = polys << top_bits
-    unit_n = n >> top_bits
-    radix_bits = 3 if unit_n >> 3 >= MIN_POLY_THREADS else 2
-    per_poly = unit_n >> radix_bits
-    per_block = min(max(1, BLOCK_THREADS // per_poly), units)
-    if not top_bits:
-        return NttPlan(log_n, radix_bits, per_block, -(-units // per_block))
-    # the top stages' kernel: one thread per SUB_BLOCK_N-th of a limb
-    return NttPlan(log_n, radix_bits, per_block, -(-units // per_block), top_bits,
-                   TOP_THREADS, polys * unit_n // TOP_THREADS)
+    if n > BLOCK_MAX_N:
+        ctas = n // SUB_BLOCK_N
+        return NttPlan(log_n, 3, 1, polys * ctas, ctas)
+    radix_bits = 3 if n >> 3 >= MIN_POLY_THREADS else 2
+    per_poly = n >> radix_bits
+    per_block = min(max(1, BLOCK_THREADS // per_poly), polys)
+    return NttPlan(log_n, radix_bits, per_block, -(-polys // per_block))
+
+
+def max_active_clusters(n: int, inverse: bool, grow: bool) -> int:
+    """How many of kernel A's clusters at ring n (above BLOCK_MAX_N) the
+    current card holds at once (cudaOccupancyMaxActiveClusters for the
+    kernel's launch); raises where a cluster cannot be resident."""
+    lib = kernels.NTT.lib()
+    count = ctypes.c_int(0)
+    rc = lib.pir_ntt_max_active_clusters(n.bit_length() - 1, int(inverse), int(grow),
+                                         ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"kernel A's occupancy query failed: {lib.cuda_error_string(rc).decode()}")
+    if count.value < 1:
+        raise RuntimeError(f"kernel A's cluster at N={n} cannot be resident on this card")
+    return count.value
 
 
 def grow_max_bits(n: int) -> int:
@@ -258,7 +279,6 @@ def ntt_cuda(tables: NttTables, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     if batch == 0:
         return out
     plan = ntt_plan(n, batch * L)
-    scratch = torch.empty_like(x) if plan.top_bits else None
     if inverse:
         tw, tw_sh = tables.psi_inv_rev, tables.psi_inv_rev_shoup
     else:
@@ -266,9 +286,8 @@ def ntt_cuda(tables: NttTables, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     grow = grows(tables.moduli, n)
     kernels.NTT.launch(
         "pir_ntt",
-        x.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-        batch, L, plan.log_n, int(inverse), plan.radix_bits, plan.polys_per_block,
-        plan.blocks, plan.top_bits, plan.top_threads, plan.top_blocks, int(grow),
+        x.data_ptr(), out.data_ptr(), batch, L, plan.log_n, int(inverse), plan.radix_bits,
+        plan.polys_per_block, plan.blocks, plan.cluster_ctas, int(grow),
         tw.data_ptr(), tw_sh.data_ptr(), tables.limbs.table.data_ptr(),
         tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(),
         kernels.stream_handle(x),

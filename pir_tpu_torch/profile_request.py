@@ -5,12 +5,15 @@
     python3 -m pir_tpu_torch.profile_request --ct-mult          # N=8192 ct-mult
     python3 -m pir_tpu_torch.profile_request --batched 16       # 16-query requests
     python3 -m pir_tpu_torch.profile_request --stream 6         # process_stream, depth 6
+    python3 -m pir_tpu_torch.profile_request --n32768 --reps 1 --spread 1
 
 Builds the benchmark configuration (288-byte items, d=2, N=4096, 24-bit
 plain modulus, SEAL's BFVDefault chain, database from seed 42, client seed 7,
 seeded queries, replies mod-switched by ``reply_limbs_for``) — with
 ``--ct-mult`` the same items in ciphertext-multiplication mode at N=8192
-(``chip_smoke.py``'s phase 13) — fills the key cache with one request, then
+(``chip_smoke.py``'s phase 13), with ``--n32768`` at N=32768 on SEAL's
+55/56-bit chain (``chip_smoke.py``'s phase 20: the Shoup-table layout, the
+client's keys made on the card) — fills the key cache with one request, then
 measures warm single-query requests, or with ``--batched Q`` warm
 ``process_request_batched`` requests of Q queries each (no stage profile):
 
@@ -20,10 +23,11 @@ measures warm single-query requests, or with ``--batched Q`` warm
   Response must equal ``process_request``'s byte for byte;
 * ``latency_ms``: host-clock time of ``--spread`` whole ``process_request``
   calls, no profiler;
-* ``profiler``: ``torch.profiler`` over 3 requests — device kernels and
-  copies launched, their summed and merged device time, the wall time, the
-  busy share (merged device time / wall), the device time by kernel name and
-  a request's device time in each hand-written kernel (A-D).
+* ``profiler``: ``torch.profiler`` over 3 requests (1 at N=32768) —
+  device kernels and copies launched, their summed and merged device time,
+  the wall time, the busy share (merged device time / wall), the device
+  time by kernel name, a request's device time in each hand-written kernel
+  (A-D) and in everything else (plain-torch kernels, copies).
 
 With ``--stream D`` it measures ``process_stream`` at depth D instead of
 the stages (``stream``): ``--windows`` windows of ``--spread`` requests,
@@ -60,8 +64,10 @@ ITEM_SIZE = 288
 DB_SEED = 42
 CLIENT_SEED = 7
 # the hand-written kernels' device functions (csrc/*.cu) by kernel
-HAND_KERNELS = {"ntt_kernel": "A", "ntt_top_kernel": "A", "scan_kernel": "B",
-                "scan_wide_kernel": "C", "scan_shoup_kernel": "D"}
+# (ntt_top_kernel: the top-stage pass of kernel A's earlier two-kernel split
+# rings, so that an older tree profiles with this file too)
+HAND_KERNELS = {"ntt_kernel": "A", "ntt_cluster_kernel": "A", "ntt_top_kernel": "A",
+                "scan_kernel": "B", "scan_wide_kernel": "C", "scan_shoup_kernel": "D"}
 _HAND_KERNEL = re.compile(r"\b(" + "|".join(HAND_KERNELS) + r")\b")
 
 
@@ -172,6 +178,9 @@ def device_profile(serve, requests) -> dict:
         "wall_ms": wall_ms,
         "busy_share": merged_us / 1e3 / wall_ms,
         "hand_kernels_ms_per_request": dict(sorted(hand.items())),
+        # everything else on the card: plain-torch kernels, copies and fills
+        "other_device_ms_per_request": (sum(v[1] for v in by_name.values()) / 1e3
+                                        - sum(hand.values()) * len(requests)) / len(requests),
         "by_name": [
             {"name": name[:120], "count": c, "ms": us / 1e3} for name, (c, us) in top
         ],
@@ -253,9 +262,13 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", type=int, metavar="D",
                     help="profile process_stream at depth D (single-query requests)")
     ap.add_argument("--windows", type=int, default=4, help="--stream: windows of each kind")
+    ap.add_argument("--n32768", action="store_true",
+                    help="decomposition at N=32768 on SEAL's chain (the Shoup-table layout)")
     args = ap.parse_args(argv)
     if args.stream is not None and (args.stream < 1 or args.ct_mult or args.batched):
         raise SystemExit("profile_request: --stream takes D >= 1, single-query decomposition")
+    if args.n32768 and (args.ct_mult or args.batched or args.stream):
+        raise SystemExit("profile_request: --n32768 profiles single-query decomposition requests")
     if args.batched is not None and (args.batched < 1 or args.ct_mult):
         raise SystemExit("profile_request: --batched takes Q >= 1 queries, in decomposition mode")
     if not torch.cuda.is_available():
@@ -269,7 +282,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
 
     db_size = 1 << args.log2_items
-    poly_degree = 8192 if args.ct_mult else 4096
+    poly_degree = 8192 if args.ct_mult else 32768 if args.n32768 else 4096
     params = pt.create_pir_parameters(
         db_size, ITEM_SIZE, 2, pt.generate_encryption_params(poly_degree, 24),
         use_ciphertext_multiplication=args.ct_mult,
@@ -284,8 +297,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     server = pt.PirServer(db, params, reply_limbs=pt.reply_limbs_for(params))
-    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True, device="cpu")
-    n_req = max(args.reps, args.spread, 3) + 1
+    client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True,
+                          device=device if args.n32768 else "cpu")
+    profiled = 1 if args.n32768 else 3  # requests under the profiler (~11 s each at N=32768)
+    n_req = max(args.reps, args.spread, profiled) + 1
     queries = args.batched or 1
     requests = [client.create_request([(k * queries + i) * 7919 % db_size for i in range(queries)])
                 for k in range(n_req)]
@@ -330,7 +345,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         serve(req)
         latency.append((time.perf_counter() - t0) * 1e3)
-    prof = device_profile(serve, requests[1:4])
+    prof = device_profile(serve, requests[1 : 1 + profiled])
 
     result = {
         "card": smi,
@@ -359,7 +374,8 @@ def main(argv=None) -> int:
           f"{prof['wall_ms']:.3f} ms wall, busy share {prof['busy_share']:.3f}")
     print("hand-written kernels, device ms a request: " + ", ".join(
         f"{k} {ms:.3f} ({ms / (prof['wall_ms'] / prof['requests']):.2%} of the request)"
-        for k, ms in prof["hand_kernels_ms_per_request"].items()))
+        for k, ms in prof["hand_kernels_ms_per_request"].items())
+        + f"; everything else (plain torch, copies) {prof['other_device_ms_per_request']:.3f}")
     for row in prof["by_name"][:12]:
         print(f"  {row['ms']:9.3f} ms  {row['count']:6d}x  {row['name']}")
     if args.out:

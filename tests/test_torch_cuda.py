@@ -96,7 +96,7 @@ def test_ntt_kernel_rejects_what_it_cannot_take(dev):
 )
 def test_ntt_kernel_above_4096_matches_plain(dev, n, bits):
     """Kernel A at N = 8192 (one 1,024-thread block a limb, 68 KB of shared
-    memory), 16384 and 32768 (top stages, then 4,096-word sub-blocks), on
+    memory), 16384 and 32768 (one cluster of 4 or 8 CTAs a limb), on
     SEAL's chains, the 60-bit BEHZ base and 30-bit tpu32 primes: one
     polynomial and more than one wave of blocks, the residue range's
     edges, growing or reducing butterflies as grows() picks them."""
@@ -114,6 +114,33 @@ def test_ntt_kernel_above_4096_matches_plain(dev, n, bits):
             assert kernels.NTT.variant_launches[variant] == before + 1
             assert torch.equal(got, ntt_plain(tables, x, inverse)), (batch, inverse)
     assert torch.equal(tables.inverse(tables.forward(x)), x)
+
+
+@pytest.mark.parametrize("chain,batch", [("qp", 120), ("q", 228)],
+                         ids=["key-switch digits [120,16,32768]", "selection vector [228,15,32768]"])
+def test_ntt_kernel_served_n32768_shapes_in_one_launch(dev, chain, batch):
+    """The served N=32768 request's largest shapes on SEAL's 55/56-bit chain
+    (reducing butterflies), forward and inverse: bit-equal to the plain
+    version (a quarter GB of input at a time), each transform one launch of
+    kernel A, and nothing allocated on the card beyond the output (the
+    peak over the call, so a scratch freed before it returns shows too)."""
+    from pir_tpu_torch import kernel_times as kt
+
+    ep = kt.encryption_params("seal", 32768)
+    tables = NttTables(ep.coeff_modulus, 32768, dev)
+    if chain == "q":
+        tables = tables.slice(len(ep.ct_modulus))
+    x = residues(tables.moduli, (batch,), 32768, dev, seed=batch)
+    for inverse in (False, True):
+        torch.cuda.synchronize()
+        before, launches = torch.cuda.memory_allocated(dev), kernels.NTT.launches
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = ntt_cuda(tables, x, inverse)
+        torch.cuda.synchronize()
+        assert kernels.NTT.launches == launches + 1
+        assert torch.cuda.max_memory_allocated(dev) - before <= got.nbytes + (2 << 20)
+        assert kt.max_abs_err_plain(tables, x, got, inverse) == 0, inverse
+        del got
 
 
 @pytest.mark.parametrize("bits,P,D", [((34, 36), 5, 7), ((36, 36), 162, 162), ((44, 46), 3, 40)])

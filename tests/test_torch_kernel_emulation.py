@@ -2,11 +2,14 @@
 on the CPU: the CUDA sources themselves, their csrc/*.cuh headers inlined,
 compiled by g++ against a small emulation of the CUDA runtime (one
 std::thread per CUDA thread, a std::barrier for __syncthreads, a byte
-buffer for the block's shared memory; the PTX carry chains and cp.async
-copies replaced by C equivalents), held bit for bit to the plain versions
-at every radix and row split their plans can choose, kernel A at every ring
-up to N=32768 (its top-stage pass and sub-blocks above N=8192) on growing
-and reducing chains, and kernel C at every edge of scan_wide_plan's layout.
+buffer for the block's shared memory; a thread-block cluster's blocks run
+at once, each with its own buffer and barrier, with one std::barrier for
+the cluster; the PTX carry chains, cp.async copies and cluster primitives
+replaced by C equivalents), held bit for bit to the plain versions at
+every radix and row split their plans can choose, kernel A at every ring
+up to N=32768 (one cluster of 4 or 8 blocks a limb above N=8192, grids
+with clusters past the last polynomial) on growing and reducing chains,
+and kernel C at every edge of scan_wide_plan's layout.
 
 What this shows is the kernels' index arithmetic, twiddle choice,
 exchange layout, lazy-reduction bounds, row-split sums and kernel C's ring
@@ -18,6 +21,7 @@ windows to cover each stage once, in order.
 """
 
 import ctypes
+import dataclasses
 import pathlib
 import re
 import shutil
@@ -41,6 +45,8 @@ RUNTIME_H = r"""
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <memory>
+#include <optional>
 #include <thread>
 #include <vector>
 #define __global__
@@ -56,8 +62,12 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
-inline std::barrier<>* g_bar = nullptr;
-inline std::vector<unsigned char> g_smem;
+inline unsigned g_cluster = 1;                        // blocks a cluster, along x
+inline thread_local std::barrier<>* g_bar = nullptr;  // the thread's block's barrier
+inline thread_local unsigned char* g_smem = nullptr;  // and its shared memory
+inline thread_local std::barrier<>* g_cluster_bar = nullptr;
+inline thread_local std::vector<std::vector<unsigned char>>* g_cluster_smem = nullptr;
+inline thread_local std::optional<std::barrier<>::arrival_token> g_cluster_token;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -76,28 +86,74 @@ inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
   return uint64_t(((unsigned __int128)a * b) >> 64);
 }
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
-// blocks one after another, each with all its threads alive at once; shared
-// memory starts as garbage, as on the card
-inline void emulate_launch(dim3 grid, dim3 block, size_t smem, const std::function<void()>& body) {
+// clusters of `cluster` blocks along x one after another, a cluster's
+// blocks at once with all their threads alive; each block its own shared
+// memory (garbage at the start, as on the card) and barrier, and one
+// barrier for the whole cluster
+inline void emulate_launch(dim3 grid, dim3 block, size_t smem, const std::function<void()>& body,
+                           unsigned cluster = 1) {
   blockDim = block;
   gridDim = grid;
+  g_cluster = cluster;
   const unsigned nt = block.x * block.y * block.z;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        g_smem.assign(smem + 16, 0xCD);
-        std::barrier<> bar(nt);
-        g_bar = &bar;
+      for (unsigned bx = 0; bx < grid.x; bx += cluster) {
+        std::vector<std::vector<unsigned char>> mem(cluster,
+                                                    std::vector<unsigned char>(smem + 16, 0xCD));
+        std::vector<std::unique_ptr<std::barrier<>>> bars;
+        for (unsigned c = 0; c < cluster; ++c) bars.emplace_back(new std::barrier<>(nt));
+        std::barrier<> cluster_bar(nt * cluster);
         std::vector<std::thread> ts;
-        for (unsigned t = 0; t < nt; ++t)
-          ts.emplace_back([&, t] {
-            threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
-            blockIdx = dim3(bx, by, bz);
-            body();
-            bar.arrive_and_drop();
-          });
+        for (unsigned c = 0; c < cluster; ++c)
+          for (unsigned t = 0; t < nt; ++t)
+            ts.emplace_back([&, c, t] {
+              threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
+              blockIdx = dim3(bx + c, by, bz);
+              g_bar = bars[c].get();
+              g_smem = mem[c].data();
+              g_cluster_bar = &cluster_bar;
+              g_cluster_smem = &mem;
+              body();
+              g_bar->arrive_and_drop();
+              cluster_bar.arrive_and_drop();
+            });
         for (auto& th : ts) th.join();
       }
+}
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeClusterDimension = 4,
+  cudaLaunchAttributeClusterSchedulingPolicyPreference = 5
+};
+enum cudaClusterSchedulingPolicy {
+  cudaClusterSchedulingPolicyDefault = 0,
+  cudaClusterSchedulingPolicySpread = 1,
+  cudaClusterSchedulingPolicyLoadBalancing = 2
+};
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+  cudaClusterSchedulingPolicy clusterSchedulingPolicyPreference;
+};
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... Exp, class... Act>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...), Act&&... args) {
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) cluster = cfg->attrs[i].val.clusterDim.x;
+  if (cluster < 1 || cfg->gridDim.x % cluster) return cudaErrorInvalidValue;  // as the card refuses it
+  emulate_launch(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, [&] { kernel(args...); }, cluster);
+  return cudaSuccess;
+}
+template <class F> cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t*) {
+  *n = 1;
+  return cudaSuccess;
 }
 """
 
@@ -113,14 +169,22 @@ REPLACED = {  # device functions written in PTX, and their C equivalents
     "copy_async": "{ memcpy(dst, src, kBytes); }",
     "copy_commit": "{}",
     "copy_wait": "{}",
+    # clusters: the rank from blockIdx, a sibling's shared memory as a
+    # pointer into its buffer, the cluster barrier as a std::barrier
+    "cluster_ctarank": "{ return blockIdx.x % g_cluster; }",
+    "cluster_map": "{ return (uint64_t)(uintptr_t)((*g_cluster_smem)[rank].data() + "
+                   "((const unsigned char*)p - g_smem)); }",
+    "cluster_load": "{ return *(const uint64_t*)(uintptr_t)addr; }",
+    "cluster_arrive": "{ g_cluster_token.emplace(g_cluster_bar->arrive()); }",
+    "cluster_wait": "{ g_cluster_bar->wait(std::move(*g_cluster_token)); g_cluster_token.reset(); }",
 }
 
 
 def _replace_body(src: str, fname: str, body: str) -> str:
-    i = src.find(f"void {fname}(")
-    if i < 0:
+    m = re.search(rf"__forceinline__ [\w:]+ {fname}\(", src)
+    if m is None:
         return src
-    j = src.index("{", src.index(")", i))
+    j = src.index("{", src.index(")", m.start()))
     depth, k = 0, j
     while True:
         depth += {"{": 1, "}": -1}.get(src[k], 0)
@@ -130,14 +194,14 @@ def _replace_body(src: str, fname: str, body: str) -> str:
     return src[:j] + body + src[k + 1:]
 
 
-def emulation_source(name: str) -> str:
-    """csrc/<name>.cu with its launches, dynamic shared memory and PTX
-    turned into the emulation's C++."""
-    src = (CSRC / f"{name}.cu").read_text()
+def emulation_source(name: str, src: "str | None" = None) -> str:
+    """csrc/<name>.cu (or `src`, a variant of it) with its launches,
+    dynamic shared memory and PTX turned into the emulation's C++."""
+    src = (CSRC / f"{name}.cu").read_text() if src is None else src
     for header in sorted(CSRC.glob("*.cuh")):  # inlined, so REPLACED reaches their helpers
         src = src.replace(f'#include "{header.name}"', header.read_text().replace("#pragma once", ""))
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
-                 r"\1* \2 = reinterpret_cast<\1*>(g_smem.data());", src)
+                 r"\1* \2 = reinterpret_cast<\1*>(g_smem);", src)
     for fname, body in REPLACED.items():
         src = _replace_body(src, fname, body)
     out, pos = [], 0
@@ -154,20 +218,23 @@ def emulation_source(name: str) -> str:
     return "".join(out)
 
 
-@pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def _compile(d: pathlib.Path, name: str, source: str):
+    """The emulation's C++ `source` built with g++ in directory d, loaded."""
     gxx = shutil.which("g++")
     assert gxx, "the emulation needs g++"
-    d = tmp_path_factory.mktemp("cuda_emulation")
     (d / "cuda_runtime.h").write_text(RUNTIME_H)
-    out = {}
-    for name in ("ntt", "scan", "scan_wide"):
-        (d / f"{name}.cpp").write_text(emulation_source(name))
-        so = d / f"lib{name}.so"
-        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w", f"-I{d}",
-                        "-o", str(so), str(d / f"{name}.cpp"), "-lpthread"],
-                       check=True, capture_output=True, text=True)
-        out[name] = ctypes.CDLL(str(so))
+    (d / f"{name}.cpp").write_text(source)
+    so = d / f"lib{name}.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w", f"-I{d}",
+                    "-o", str(so), str(d / f"{name}.cpp"), "-lpthread"],
+                   check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cuda_emulation")
+    out = {name: _compile(d, name, emulation_source(name)) for name in ("ntt", "scan", "scan_wide")}
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     out["ntt"].pir_ntt.argtypes = kernels.NTT_ARGS
     out["scan"].pir_scan.argtypes = [P, P, P, P, P, I32, I64, I32, I32, I64, I64, I64, I64,
@@ -233,29 +300,28 @@ def test_kernel_a_emulated_equals_plain(libs, n, bits, radix_bits):
                    else (tables.psi_rev, tables.psi_rev_shoup))
         out = torch.empty_like(x)
         rc = libs["ntt"].pir_ntt(
-            x.data_ptr(), out.data_ptr(), None, batch, L, n.bit_length() - 1, int(inverse),
-            radix_bits, per_block, blocks, 0, 0, 0, int(tntt.grows(tables.moduli, n)),
+            x.data_ptr(), out.data_ptr(), batch, L, n.bit_length() - 1, int(inverse),
+            radix_bits, per_block, blocks, 1, int(tntt.grows(tables.moduli, n)),
             tw.data_ptr(), tws.data_ptr(), tables.limbs.table.data_ptr(),
             tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(), None)
         assert rc == 0
         assert torch.equal(out, tntt.ntt_plain(tables, x, inverse)), inverse
 
 
-def _emulated_ntt(lib, tables, x, inverse, plan):
-    """pir_ntt through the emulation, laid out by `plan`."""
+def _emulated_ntt(lib, tables, x, inverse, plan, out=None):
+    """pir_ntt through the emulation, laid out by `plan`: its return code
+    and the output."""
     tw, tws = ((tables.psi_inv_rev, tables.psi_inv_rev_shoup) if inverse
                else (tables.psi_rev, tables.psi_rev_shoup))
-    out, scratch = torch.empty_like(x), torch.empty_like(x)
+    out = torch.empty_like(x) if out is None else out
     L = len(tables.moduli)
     rc = lib.pir_ntt(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), x.numel() // (L * tables.n), L,
-        plan.log_n, int(inverse), plan.radix_bits, plan.polys_per_block, plan.blocks,
-        plan.top_bits, plan.top_threads, plan.top_blocks,
+        x.data_ptr(), out.data_ptr(), x.numel() // (L * tables.n), L, plan.log_n, int(inverse),
+        plan.radix_bits, plan.polys_per_block, plan.blocks, plan.cluster_ctas,
         int(tntt.grows(tables.moduli, tables.n)), tw.data_ptr(), tws.data_ptr(),
         tables.limbs.table.data_ptr(), tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(),
         None)
-    assert rc == 0
-    return out
+    return rc, out
 
 
 # (n, chain bits, batch): every ring above N=4096, with growing chains (the
@@ -274,17 +340,65 @@ LARGE_RINGS = [
 @pytest.mark.parametrize("n,bits,batch", LARGE_RINGS)
 def test_kernel_a_emulated_equals_plain_above_4096(libs, n, bits, batch):
     """Forward and inverse at N = 8192 (one 1,024-thread block a limb),
-    16384 and 32768 (the top stages' pass, then 4,096-word sub-blocks),
-    bit-equal to the plain version, with the words at the edges of the
-    residue range, on the plan's own layout."""
+    16384 and 32768 (one cluster of 4 or 8 CTAs a limb, the top stages'
+    words exchanged through the CTAs' shared memory), bit-equal to the plain
+    version, with the words at the edges of the residue range, on the plan's
+    own layout."""
     tables = tntt.NttTables(primes.coeff_modulus_from_bits(n, list(bits)), n, "cpu")
     assert tntt.grows(tables.moduli, n) == (max(bits) <= min(50, 63 - (n.bit_length() - 1)))
     plan = tntt.ntt_plan(n, batch * len(bits))
     x = _residues(np.random.default_rng(n + sum(bits)), tables.moduli, (batch, n), 1)
     x[0, -1, :3] = torch.tensor([tables.moduli[-1] - 1, tables.moduli[-1] - 2, 0])
     for inverse in (False, True):
-        assert torch.equal(_emulated_ntt(libs["ntt"], tables, x, inverse, plan),
-                           tntt.ntt_plain(tables, x, inverse)), inverse
+        rc, out = _emulated_ntt(libs["ntt"], tables, x, inverse, plan)
+        assert rc == 0
+        assert torch.equal(out, tntt.ntt_plain(tables, x, inverse)), inverse
+
+
+# (n, chain bits, batch, spare clusters): a grid with clusters past the last
+# polynomial, growing and reducing, at both cluster sizes.
+SPARE_CLUSTERS = [(16384, (30,), 1, 1), (16384, (55,), 1, 2), (32768, (30, 48), 1, 1),
+                  (32768, (55,), 1, 3), (16384, (30, 50), 2, 1), (32768, (49,), 3, 2)]
+
+
+@pytest.mark.parametrize("n,bits,batch,spare", SPARE_CLUSTERS)
+def test_kernel_a_emulated_clusters_past_the_last_polynomial(libs, n, bits, batch, spare):
+    """A grid whose last clusters hold no polynomial: their CTAs compute on
+    zeros and meet every cluster barrier (the run would hang otherwise),
+    write nothing (the words past the output stay as they were), and the
+    polynomials come out bit-equal to the plain version."""
+    tables = tntt.NttTables(primes.coeff_modulus_from_bits(n, list(bits)), n, "cpu")
+    plan = tntt.ntt_plan(n, batch * len(bits))
+    wide = dataclasses.replace(plan, blocks=plan.blocks + spare * plan.cluster_ctas)
+    assert wide.clusters == batch * len(bits) + spare
+    x = _residues(np.random.default_rng(n + spare), tables.moduli, (batch, n), 1)
+    for inverse in (False, True):
+        buf = torch.full((x.numel() + spare * n,), -7, dtype=torch.int64)
+        rc, _ = _emulated_ntt(libs["ntt"], tables, x, inverse, wide, out=buf)
+        assert rc == 0
+        assert torch.equal(buf[: x.numel()].view_as(x), tntt.ntt_plain(tables, x, inverse))
+        assert torch.equal(buf[x.numel():], torch.full((spare * n,), -7, dtype=torch.int64))
+
+
+def test_kernel_a_refuses_a_grid_of_part_clusters(libs):
+    """pir_ntt refuses, before anything runs, a split ring's grid that is
+    not a whole number of clusters or has fewer clusters than polynomials,
+    clusters of another size than N / 4,096, and clusters below
+    N=16384."""
+    n = 16384
+    tables = tntt.NttTables(primes.coeff_modulus_from_bits(n, [30, 30]), n, "cpu")
+    plan = tntt.ntt_plan(n, 2)
+    assert (plan.cluster_ctas, plan.blocks) == (4, 8)
+    x = _residues(np.random.default_rng(3), tables.moduli, (1, n), 1)
+    for bad in ({"blocks": 7}, {"blocks": 9}, {"blocks": 10}, {"blocks": 4}, {"blocks": 0},
+                {"cluster_ctas": 8}, {"cluster_ctas": 2, "blocks": 4},
+                {"cluster_ctas": 1}, {"radix_bits": 2}):
+        assert _emulated_ntt(libs["ntt"], tables, x, False, dataclasses.replace(plan, **bad))[0] != 0, bad
+    small = tntt.ntt_plan(4096, 2)
+    t4096 = tntt.NttTables(primes.coeff_modulus_from_bits(4096, [30, 30]), 4096, "cpu")
+    x4096 = _residues(np.random.default_rng(4), t4096.moduli, (1, 4096), 1)
+    assert _emulated_ntt(libs["ntt"], t4096, x4096, False,
+                         dataclasses.replace(small, cluster_ctas=2, blocks=4))[0] != 0
 
 
 @pytest.mark.parametrize(
@@ -394,8 +508,6 @@ def test_kernel_c_refuses_a_launch_that_does_not_cover_the_work(libs):
     shared memory it is given, a block other than 16 warps of 4 x 4 tiles,
     or one with more staged pieces a row than threads, is refused before
     anything runs."""
-    import dataclasses
-
     moduli = primes.coeff_modulus_from_bits(1024, [26, 27])
     table = modular.LimbConstants(moduli, "cpu").table
     sv, hi, lo = _wide_operands(moduli, 17, 4, 32, 0, 64)
@@ -421,3 +533,37 @@ def test_scan_wide_variants_edit_the_kernel_as_they_say():
     for name, edits in scan_wide_variants.EDITS.items():
         out = scan_wide_variants.variant_source(name)
         assert (out == src) == (not edits), name
+
+
+def test_ntt_cluster_variants_edit_the_kernel_as_they_say():
+    """pir_tpu_torch/ntt_cluster_variants.py builds kernel A with parts
+    taken out by text edits of csrc/ntt.cu: each edit must find its text
+    once, so that a change of the kernel cannot leave a variant timing
+    something else."""
+    from pir_tpu_torch import ntt_cluster_variants
+
+    src = (CSRC / "ntt.cu").read_text()
+    for name, edits in ntt_cluster_variants.EDITS.items():
+        assert (ntt_cluster_variants.variant_source(name) == src) == (not edits), name
+
+
+@pytest.mark.parametrize("n,bits", [(16384, (48, 49)), (32768, (55, 56))])
+def test_ntt_cluster_variant_half_the_ctas_equals_plain(tmp_path, n, bits):
+    """The variants script's other cluster size, 8,192-word sub-blocks (2
+    CTAs of 1,024 threads a cluster at N=16384, 4 at 32768), computes the
+    transform too: bit-equal to the plain version, forward and inverse."""
+    from pir_tpu_torch import ntt_cluster_variants
+
+    name = "half the CTAs"
+    lib = _compile(tmp_path, "ntt", emulation_source(
+        "ntt", ntt_cluster_variants.variant_source(name)))
+    lib.pir_ntt.argtypes = kernels.NTT_ARGS
+    tables = tntt.NttTables(primes.coeff_modulus_from_bits(n, list(bits)), n, "cpu")
+    ctas = n >> ntt_cluster_variants.SUB_LOG[name]
+    plan = dataclasses.replace(tntt.ntt_plan(n, len(bits)), cluster_ctas=ctas,
+                               blocks=len(bits) * ctas)
+    x = _residues(np.random.default_rng(n), tables.moduli, (1, n), 1)
+    for inverse in (False, True):
+        rc, out = _emulated_ntt(lib, tables, x, inverse, plan)
+        assert rc == 0
+        assert torch.equal(out, tntt.ntt_plain(tables, x, inverse)), inverse

@@ -3,9 +3,9 @@
 ops/scan_kernel.py::scan_plan and ::scan_wide_plan, whose grids the kernels
 launch as given (and refuse where they do not cover the work).
 
-The blocks of kernel A's plan hold every polynomial (above N=8192 every
-4,096-word sub-block, after a top-stage grid that covers every limb), and
-its words per thread follow N; the tiles of kernel B's grid cover every prefix and
+The blocks of kernel A's plan hold every polynomial (above N=8192 one
+thread-block cluster a limb, a 4,096-word sub-block a block), and its
+words per thread follow N; the tiles of kernel B's grid cover every prefix and
 coefficient, with a row split of 1, 2, 4 or 8 that never exceeds the rows
 (a ragged tail where it does not divide them).  That kernel A's passes
 cover every stage once, in order, is checked where the passes are defined,
@@ -70,22 +70,25 @@ def test_ntt_grows_below_50_bits():
 @pytest.mark.parametrize("polys", [1, 5, 15, 448, 1792])
 def test_ntt_plan_above_4096(n, polys):
     """N=8192: one 1,024-thread block a limb, 68 KB of shared memory (above
-    the 48 KB default; the launch raises the limit).  N=16384, 32768: the
-    top log2(N/4096) stages as their own kernel, one thread per 4,096th of
-    a limb with 2^top_bits words, then every 4,096-word sub-block laid out
-    as an N=4096 limb."""
+    the 48 KB default; the launch raises the limit).  N=16384, 32768: one
+    thread-block cluster of N/4096 CTAs a limb (4 and 8, within the
+    portable cluster size), the grid a whole number of clusters, one a
+    polynomial; each CTA 512 threads of 8 words holding one 4,096-word
+    sub-block, so the cluster covers the limb's words once, in under 48 KB
+    of shared memory a CTA (no attribute needed)."""
     plan = tntt.ntt_plan(n, polys)
-    assert plan.radix_bits == 3 and plan.polys_per_block == 1
+    assert plan.radix_bits == 3 and plan.polys_per_block == 1  # 8 words a thread
     if n == 8192:
-        assert (plan.top_bits, plan.top_threads, plan.top_blocks) == (0, 0, 0)
+        assert (plan.cluster_ctas, plan.clusters) == (1, polys)
         assert plan.threads_per_block == 1024 and plan.blocks == polys
-        assert 48 * 1024 < (n + n // 16) * 8 <= 227 * 1024
+        assert 48 * 1024 < plan.shared_bytes == (n + n // 16) * 8 <= 227 * 1024
         return
-    top = n.bit_length() - 13
-    assert plan.top_bits == top and plan.threads_per_block == 512
-    assert plan.blocks == polys << top  # every sub-block
-    assert plan.top_threads == tntt.TOP_THREADS
-    assert plan.top_threads * plan.top_blocks == polys * 4096  # every 4,096th of every limb
+    top_bits = n.bit_length() - 13
+    assert plan.cluster_ctas == 1 << top_bits == n // tntt.SUB_BLOCK_N <= 8
+    assert plan.blocks % plan.cluster_ctas == 0 and plan.clusters == polys
+    assert plan.threads_per_block == 512
+    assert plan.cluster_ctas * plan.threads_per_block << plan.radix_bits == n  # each word once
+    assert plan.shared_bytes == (4096 + 256) * 8 == 34816 <= 48 * 1024
 
 
 @pytest.mark.parametrize(

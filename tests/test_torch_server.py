@@ -146,6 +146,8 @@ def test_staged_profile_request_equals_process_request(stack, reply_limbs):
      ("void (anonymous namespace)::scan_kernel<0>(unsigned long const*, unsigned char const*", "B"),
      ("void (anonymous namespace)::ntt_kernel<12, 3, true>(unsigned long const*", "A"),
      ("void (anonymous namespace)::ntt_top_kernel<2>(unsigned long const*", "A"),
+     ("void (anonymous namespace)::ntt_cluster_kernel<false, false, 12, 3>(unsigned long const*",
+      "A"),
      ("void (anonymous namespace)::scan_shoup_kernel(unsigned long const*", "D"),
      ("void at::native::vectorized_elementwise_kernel<4, at::native::BitwiseAndFunctor", None)],
 )
