@@ -4,8 +4,8 @@ configuration — single and batched, on SEAL's chain and on the tpu32
 profile, on the planes and on the Shoup-table database, and on meshes of
 ranks that share the card — then in ciphertext-multiplication mode and at
 the rings above N=4096, through process_stream, from a checkpoint, on a
-mesh whose ranks load only their shard and at N=32768, and check every
-retrieved item.
+mesh whose ranks load only their shard and at N=32768 in both modes, and
+check every retrieved item.
 
     python3 chip_smoke.py               # 2^20 items of 288 B, d=2, N=4096
 
@@ -75,12 +75,16 @@ Phases, each of which raises on failure:
    time) and timed with its bound, at the shapes a 2^20-item request gives
    it (kernel_times.large_ring_shapes): the first and the last expansion
    level's key-switch NTT at N=8192 (SEAL's chain), 16384 and 32768 (SEAL's
-   chains and tpu32), and one bfv_multiply's NTTs over the 60-bit BEHZ
-   base at N=8192; then at every launch of phase 20's served request
-   (kernel_times.served_ntt_launches: each expansion level's key-switch
-   NTT and INTT in its steps, the selection vector, the inner INTT, the
-   digit plaintexts' NTT and the upper INTT in their steps), with the sum
-   over a request beside its bound.  Every row gives its time, bound and
+   chains and tpu32), and one ciphertext-multiplication step's NTTs over
+   the 60-bit BEHZ base at N=8192, 16384 and 32768 (the lift [2 rows, L + 1,
+   N] and the tensor product [3 rows, L + 1, N]); then at every launch of
+   phase 20's served request (kernel_times.served_ntt_launches: each
+   expansion level's key-switch NTT and INTT in its steps, the selection
+   vector, the inner INTT, the digit plaintexts' NTT and the upper INTT in
+   their steps), of phase 22's (the expansion, then per upper-level step
+   bfv_multiply's lifts and products over q and Bsk and relinearize's key
+   switch) and of a query of phase 14's N=16384 ciphertext-multiplication
+   row, with the sums over a request beside their bounds.  Every row gives its time, bound and
    share of the bound; at N=16384 and 32768, where kernel A holds a limb in
    one thread-block cluster, also the cluster's CTAs and how many clusters
    the card holds at once (a cluster that cannot be resident fails);
@@ -99,7 +103,11 @@ Phases, each of which raises on failure:
 14. decomposition mode at the larger rings, every item decoded: the
    TPU32_MATRIX N=8192 row (kernel B without a hi plane at N=8192), the same
    database on SEAL's N=8192 chain (planes with a u16 hi plane) and on
-   SEAL's N=16384 chain (49-bit primes: the Shoup-table layout, kernel D).
+   SEAL's N=16384 chain (49-bit primes: the Shoup-table layout, kernel D);
+   then the same N=16384 database in ciphertext-multiplication mode (8 ct
+   limbs, a 9-limb BEHZ base: kernel A's 4-CTA clusters growing over q,
+   reducing over Bsk), every item decoded, every reply's budget > 0, and
+   kernel A's reducing launches the served count of phase 11 a query.
 15. stream serving on phase 6's stamped 2^20-item server: 12 single-query
    requests at distinct indexes served one by one with process_request,
    then (after one untimed stream that sets up the streams and their
@@ -169,7 +177,22 @@ Phases, each of which raises on failure:
    u32 lo + u8 hi words) and by a server with packed_transfer=False on the
    same database — 3 single-query, a 16-query batched (kernel C) and 6
    streamed requests (depth 4, under set_sync_debug_mode("error")) — the
-   Responses byte-equal; each mode's warm latencies.
+   Responses byte-equal; each mode's warm latencies;
+22. ciphertext-multiplication mode at N=32768, after phase 20's database
+   is freed: the same 2^20 stamped items, d=2 (dims 57 x 57, from
+   create_pir_parameters as in phase 20), SEAL's 15 x 55-bit chain, the
+   bench's t, database seed 42, client seed 7, seeded queries, replies at
+   reply_limbs_for; the database packed and built anew (25.55 GB of NTT
+   words and companions, set-up peak), the client's keys, the native-wire
+   Request's bytes (under protobuf's 2 GiB limit, or the phase fails) and
+   its serialize/parse seconds; 3 requests at [2^20 // 3, 7, 2^20 - 1],
+   every item decoded, every reply budget > 0, first and warm latency, a
+   request's peak device memory above the database and keys held (the
+   upper level multiplies in scan.CTMULT_STEP_BYTES steps), kernel A's
+   reducing launches (3 x phase 11's served ct-mult count, the BEHZ base's
+   among them) and kernel D's (one a request); then a warm request in
+   synchronized stages (profile_request.staged_request: the BEHZ multiply
+   and the relinearization apart), byte-equal.
 
 Phase 5 also prints the invariant noise budget of each decomposition
 reply at reply_limbs_for, which must be > 0, and of the inner ciphertexts
@@ -194,8 +217,8 @@ The line before the last is {"kernels": [...]}, one row per KERNEL_ROWS
 entry (every TPU kernel body of pir_tpu/ops/pallas_*.py): its launches
 summed over the served paths named in the row, its numbers from the named
 check (K3's from phase 20's selection-vector NTT at N=32768, its
-launches the N=256 path's and phase 20's: a check's launches are not
-counted); the last line is
+launches the N=256 path's and phases 20 and 22's: a check's launches are
+not counted); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero before printing any result.
 """
@@ -234,6 +257,7 @@ LOG2_CHECKPOINT_ITEMS = 16  # phase 16's database
 # reference's legacy re-encode digits (5 bits wider than the balanced ones
 # at 24 bits) the bench's 24-bit t leaves a 2^20-item reply no noise budget
 SEAL_PLAIN_BITS = 20
+PROTOBUF_LIMIT = 2**31 - 1  # bytes of one protobuf message
 
 
 class KernelRow(NamedTuple):
@@ -263,10 +287,12 @@ KERNEL_ROWS = (
                ("seal_batched", "pir_ntt.grow"), ("seal_stream", "pir_ntt.grow"),
                ("ctmult_ref_mesh", "pir_ntt.grow"), ("ctmult_ref_mesh", "pir_ntt.reduce"),
                ("ctmult_mesh", "pir_ntt.grow"), ("ctmult_mesh", "pir_ntt.reduce"),
-               ("packed", "pir_ntt.grow")), "K2"),
+               ("packed", "pir_ntt.grow"), ("ctmult16384", "pir_ntt.grow"),
+               ("ctmult16384", "pir_ntt.reduce")), "K2"),
     KernelRow("ntt (K3; the N=256 and the served N=32768 paths)", "ntt.cu",
               ("pir_tpu/ops/pallas_ntt.py:147",),
-              (("small", "pir_ntt.grow"), ("n32768", "pir_ntt.reduce")), "K3"),
+              (("small", "pir_ntt.grow"), ("n32768", "pir_ntt.reduce"),
+               ("n32768_ctmult", "pir_ntt.reduce")), "K3"),
     KernelRow("scan_wide (K4)", "scan_wide.cu", ("pir_tpu/ops/pallas_scan.py:397",),
               (("batched", "pir_scan_wide.hi"), ("seal8192", "pir_scan_wide.hi"),
                ("stream_batched", "pir_scan_wide.hi"), ("seal_batched", "pir_scan_wide.hi"),
@@ -284,7 +310,8 @@ KERNEL_ROWS = (
               (("shoup", "pir_scan_shoup"), ("ctmult_ref", "pir_scan_shoup"),
                ("ctmult", "pir_scan_shoup"), ("seal16384", "pir_scan_shoup"),
                ("load_shoup", "pir_scan_shoup"), ("ctmult_ref_mesh", "pir_scan_shoup"),
-               ("ctmult_mesh", "pir_scan_shoup"), ("n32768", "pir_scan_shoup")), "K7"),
+               ("ctmult_mesh", "pir_scan_shoup"), ("n32768", "pir_scan_shoup"),
+               ("ctmult16384", "pir_scan_shoup"), ("n32768_ctmult", "pir_scan_shoup")), "K7"),
 )
 
 # ciphertext-multiplication rows of REFERENCE_MATRIX (tests/test_correctness.py):
@@ -298,13 +325,19 @@ CT_MULT_REFERENCE_ROWS = (
 CT_MULT_CPU_ROW = 1  # the N=4096 d=2 row, served on the CPU as well
 CT_MULT_POLY_DEGREE = 8192  # phase 13: ciphertext-multiplication mode at real size
 # phase 14: TPU32_MATRIX's N=8192 row (tests/test_correctness.py) on three
-# chains and layouts: (path, N, profile, scan_impl, the variants it must launch)
+# chains and layouts, and in ciphertext-multiplication mode on SEAL's
+# N=16384 chain: (path, N, profile, scan_impl, ct-mult, the variants it
+# must launch)
 LARGE_RING_ROW = (0, 0, 87, 2, [5, 33, 86])  # item bytes, bits per coeff, items, d, indexes
 # (the 3-query requests' inner scans run kernel C, their upper scans kernel B)
 LARGE_RING_CASES = (
-    ("tpu32_8192", 8192, "tpu32", "auto", ("pir_ntt.grow", "pir_scan.u32", "pir_scan_wide.u32")),
-    ("seal8192", 8192, "seal", "pallas", ("pir_ntt.grow", "pir_scan.hi", "pir_scan_wide.hi")),
-    ("seal16384", 16384, "seal", "auto", ("pir_ntt.grow", "pir_scan_shoup")),
+    ("tpu32_8192", 8192, "tpu32", "auto", False,
+     ("pir_ntt.grow", "pir_scan.u32", "pir_scan_wide.u32")),
+    ("seal8192", 8192, "seal", "pallas", False,
+     ("pir_ntt.grow", "pir_scan.hi", "pir_scan_wide.hi")),
+    ("seal16384", 16384, "seal", "auto", False, ("pir_ntt.grow", "pir_scan_shoup")),
+    ("ctmult16384", 16384, "seal", "auto", True,
+     ("pir_ntt.grow", "pir_ntt.reduce", "pir_scan_shoup")),
 )
 
 
@@ -342,21 +375,40 @@ def check_ntt(device, gen) -> dict:
             for r in rows if (r["label"], r["inverse"]) in heads}
 
 
-def check_ntt_large(device, gen) -> "tuple[dict, int]":
-    """Kernel A above N=4096 (kernel_times.time_ntt_large) and at every
-    launch of phase 20's served request (kernel_times.time_ntt_served):
+def check_ntt_large(device, gen) -> "tuple[dict, dict]":
+    """Kernel A above N=4096 (kernel_times.time_ntt_large, the BEHZ base's
+    lift and tensor-product shapes at N=8192, 16384 and 32768 among them),
+    at every launch of phase 20's served request and of phase 22's
+    ciphertext-multiplication request (kernel_times.time_ntt_served), and at
+    every launch of the N=16384 ciphertext-multiplication row of phase 14:
     every shape bit-equal to the plain version, timed with its bound, and
-    the served request's sums.  Returns the K3 headline, the served
-    selection vector's NTT [228, 15, 32768] on SEAL's chain, and the
-    served request's launch count."""
+    each served request's sums.  Returns the K3 headline, the served
+    selection vector's NTT [228, 15, 32768] on SEAL's chain, and kernel A's
+    reducing launches a request by path: phase 20's ("n32768") and phase
+    22's ("n32768_ctmult") every launch, the N=16384 row's ("ctmult16384",
+    a query) those over the BEHZ base, the only chain there above the
+    growing rule's 49 bits."""
     head = ("selection vector", False)
     rows = kt.time_ntt_large(device, gen)
     served = kt.time_ntt_served(device, gen, plain={head})
-    for r in rows + served:
+    served_ct = kt.time_ntt_served(device, gen, ct_mult=True)
+    row16384 = large_ring_params(16384, "seal", ct_mult=True).dimensions
+    served_16384 = kt.time_ntt_served(device, gen, n=16384, ct_mult=True, dims=row16384)
+    for r in rows + served + served_ct + served_16384:
         log(kt.ntt_line(r))
-    launches, ms, bound_ms = kt.served_sums(served)
-    log(f"kernel A over the {launches} launches of one N={kt.SERVED_N} request: sum of times "
-        f"{ms:.4f} ms, sum of bounds {bound_ms:.4f} ms ({bound_ms / ms:.1%} of bound)")
+    launches = {}
+    for path, label, n, request in (
+            ("n32768", "request", kt.SERVED_N, served),
+            ("n32768_ctmult", "ciphertext-multiplication request (2^20 items)", kt.SERVED_N,
+             served_ct),
+            ("ctmult16384", f"ciphertext-multiplication query (dims {row16384})", 16384,
+             served_16384)):
+        count, ms, bound_ms = kt.served_sums(request)
+        bsk = sum(r["launches"] for r in request if r["chain"] == "bsk")
+        log(f"kernel A over the {count} launches of one N={n} {label}: sum of times "
+            f"{ms:.4f} ms, sum of bounds {bound_ms:.4f} ms ({bound_ms / ms:.1%} of bound); "
+            f"{bsk} of them over the BEHZ base Bsk")
+        launches[path] = sum(r["launches"] for r in request if not r["grow"])
     name = f"N={kt.SERVED_N} served {head[0]}"
     return {"K3": next({k: r[k] for k in NUMBERS} for r in served
                        if (r["label"], r["inverse"]) == (name, head[1]))}, launches
@@ -904,10 +956,11 @@ def serve_packed(server, client, items, smi: str) -> dict:
     return {"packed": counts}
 
 
-def serve_n32768(device) -> dict:
+def serve_n32768(device, ct_mult: bool = False) -> dict:
     """Phase 20: 3 single-query requests at N=32768 on the 2^20-item
-    database (the Shoup-table layout).  Returns their launch counts
-    ("n32768") and kernel A's launches in them."""
+    database (the Shoup-table layout); with ct_mult phase 22, the same
+    items in ciphertext-multiplication mode.  Returns their launch counts
+    ("n32768" or "n32768_ctmult")."""
     import pir_tpu_torch as pt
     from pir_tpu_torch import kernels, native
     from pir_tpu_torch.pir import database
@@ -917,20 +970,27 @@ def serve_n32768(device) -> dict:
 
     n = kt.SERVED_N
     db_size = 1 << LOG2_ITEMS
+    label = f"N={n} ct-mult" if ct_mult else f"N={n}"
     params = pt.create_pir_parameters(db_size, ITEM_SIZE, DIMENSIONS,
-                                      pt.generate_encryption_params(n, PLAIN_BITS))
+                                      pt.generate_encryption_params(n, PLAIN_BITS),
+                                      use_ciphertext_multiplication=ct_mult)
     rng = np.random.default_rng(DB_SEED)
     pool = [rng.integers(0, 256, ITEM_SIZE, dtype=np.uint8).tobytes() for _ in range(POOL_ITEMS)]
     items = stamped_items([pool[i % POOL_ITEMS] for i in range(db_size)])
-    bytes_per_pt = params.items_per_plaintext * ITEM_SIZE
-    buffer = b"".join(items) + b"\0" * (params.num_pt * bytes_per_pt - db_size * ITEM_SIZE)
-    bits = StringEncoder(n, params.encryption_params.plain_modulus,
-                         params.bits_per_coeff).bits_per_coeff
-    pts, native_s = timed(lambda: native.pack_db(buffer, params.num_pt, bytes_per_pt, bits, n))
-    plain, plain_s = timed(lambda: database.pack_items(buffer, params.num_pt, bytes_per_pt, bits, n))
-    if not np.array_equal(pts, plain):
-        raise AssertionError("the native encoder and pack_items pack different plaintexts")
-    del buffer, pts, plain
+    packed = "packed anew by PirDatabase.create (phase 20's database freed first)"
+    if not ct_mult:
+        bytes_per_pt = params.items_per_plaintext * ITEM_SIZE
+        buffer = b"".join(items) + b"\0" * (params.num_pt * bytes_per_pt - db_size * ITEM_SIZE)
+        bits = StringEncoder(n, params.encryption_params.plain_modulus,
+                             params.bits_per_coeff).bits_per_coeff
+        pts, native_s = timed(lambda: native.pack_db(buffer, params.num_pt, bytes_per_pt, bits, n))
+        plain, plain_s = timed(lambda: database.pack_items(buffer, params.num_pt, bytes_per_pt,
+                                                           bits, n))
+        if not np.array_equal(pts, plain):
+            raise AssertionError("the native encoder and pack_items pack different plaintexts")
+        del buffer, pts, plain
+        packed = (f"packed by the native encoder in {native_s / 1e3:.3f} s, by pack_items in "
+                  f"{plain_s / 1e3:.3f} s (equal)")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -941,12 +1001,11 @@ def serve_n32768(device) -> dict:
     build_s = time.perf_counter() - t0
     setup_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     if db.db_ntt is None:
-        raise AssertionError("the N=32768 database is not in the Shoup-table layout")
+        raise AssertionError(f"the {label} database is not in the Shoup-table layout")
     gb = (db.db_ntt.numel() + db.db_ntt_shoup.numel()) * 8 / 1e9
-    log(f"N={n} database: {db_size} stamped items of {ITEM_SIZE} B, ct moduli "
+    log(f"{label} database: {db_size} stamped items of {ITEM_SIZE} B, ct moduli "
         f"{[q.bit_length() for q in params.encryption_params.ct_modulus]} bits, dims "
-        f"{params.dimensions}, {params.num_pt} plaintexts; packed by the native encoder in "
-        f"{native_s / 1e3:.3f} s, by pack_items in {plain_s / 1e3:.3f} s (equal); "
+        f"{params.dimensions}, {params.num_pt} plaintexts; {packed}; "
         f"PirDatabase.create (native pack, NTT, companions) {build_s:.2f} s; db_ntt + "
         f"db_ntt_shoup {gb:.2f} GB on {device}; set-up peak {setup_peak:.2f} GB above the "
         f"{base / 1e9:.2f} GB held")
@@ -959,9 +1018,13 @@ def serve_n32768(device) -> dict:
     requests = [client.create_request([i]) for i in indexes]
     blob, ser_ms = timed(requests[0].SerializeToString)
     requests[0], parse_ms = timed(lambda: pb.Request.FromString(blob))
-    log(f"N={n} client: keys on {device} in {keygen_ms / 1e3:.2f} s; Request {len(blob)} bytes "
-        f"(Galois keys {len(requests[0].galois_keys)}, relin {len(requests[0].relin_keys)}); "
-        f"serialize {ser_ms / 1e3:.3f} s, parse {parse_ms / 1e3:.3f} s")
+    if len(blob) >= PROTOBUF_LIMIT:
+        raise AssertionError(f"{label}: the Request's {len(blob)} bytes exceed protobuf's "
+                             f"{PROTOBUF_LIMIT}-byte message limit")
+    log(f"{label} client: keys on {device} in {keygen_ms / 1e3:.2f} s; native-wire Request "
+        f"{len(blob)} bytes, {PROTOBUF_LIMIT - len(blob)} under protobuf's limit (Galois keys "
+        f"{len(requests[0].galois_keys)}, relin {len(requests[0].relin_keys)}); serialize "
+        f"{ser_ms / 1e3:.3f} s, parse {parse_ms / 1e3:.3f} s")
     del blob
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -976,26 +1039,27 @@ def serve_n32768(device) -> dict:
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     budgets = [client.reply_noise_budgets(resp.reply[0]) for resp in responses]
     for idx, resp in zip(indexes, responses):
-        check_items(client, [idx], resp, items, f"N={n}")
+        check_items(client, [idx], resp, items, label)
     if min(min(b) for b in budgets) <= 0:
-        raise AssertionError(f"an N={n} reply or recomposed inner ciphertext has no noise "
+        raise AssertionError(f"an {label} reply or recomposed inner ciphertext has no noise "
                              f"budget left: {budgets}")
-    log(f"N={n}: 3/3 requests at {indexes} retrieved their stamped item; replies at "
-        f"{reply_limbs} limb(s), {len(responses[0].reply[0].ct)} ciphertexts; noise budgets "
-        f"(bits) [reply, recomposed inner] {budgets}; latency first {latencies[0]:.2f} ms, warm "
+    kinds = "[reply]" if ct_mult else "[reply, recomposed inner]"
+    log(f"{label}: 3/3 requests at {indexes} retrieved their stamped item; replies at "
+        f"{reply_limbs} limb(s), {len(responses[0].reply[0].ct)} ciphertext(s); noise budgets "
+        f"(bits) {kinds} {budgets}; latency first {latencies[0]:.2f} ms, warm "
         f"{', '.join(f'{x:.2f}' for x in latencies[1:])} ms; a request's peak device memory "
         f"{peak:.2f} GB above the {base / 1e9:.2f} GB held; launches {counts}")
-    require(counts, ("pir_ntt.reduce", "pir_scan_shoup"), f"N={n}")
+    require(counts, ("pir_ntt.reduce", "pir_scan_shoup"), label)
     stages, levels = {}, [0.0] * 16
     staged = staged_request(server, requests[1], stages, levels)
     if staged.SerializeToString() != responses[1].SerializeToString():
-        raise AssertionError(f"N={n}: the staged request's Response differs")
-    log(f"N={n}: a warm request in synchronized stages (profile_request.staged_request, "
+        raise AssertionError(f"{label}: the staged request's Response differs")
+    log(f"{label}: a warm request in synchronized stages (profile_request.staged_request, "
         f"Response byte-equal): {', '.join(f'{k} {v:.2f} ms' for k, v in stages.items())}; "
         f"expansion levels {', '.join(f'{x:.2f}' for x in levels if x)} ms")
     del server, db, client
     torch.cuda.empty_cache()
-    return {"n32768": counts}
+    return {"n32768_ctmult" if ct_mult else "n32768": counts}
 
 
 def reply_arrays(response, ctx) -> list:
@@ -1347,27 +1411,30 @@ def serve_ctmult_mesh_reference(device) -> dict:
     return mesh
 
 
-def large_ring_params(n: int, profile: str):
+def large_ring_params(n: int, profile: str, ct_mult: bool = False):
     """LARGE_RING_ROW's PirParams at ring n under `profile`."""
     import pir_tpu_torch as pt
 
     elem, bpc, dbsize, d, _ = LARGE_RING_ROW
     return pt.create_pir_parameters(
         dbsize, elem, d, pt.generate_encryption_params(n, PLAIN_BITS, profile=profile),
-        bits_per_coeff=bpc,
+        bits_per_coeff=bpc, use_ciphertext_multiplication=ct_mult,
     )
 
 
-def serve_large_rings(device) -> dict:
-    """Decomposition mode above N=4096 (LARGE_RING_CASES), every item
-    decoded.  Returns each case's launch counts by its path name."""
+def serve_large_rings(device, reduce_launches: dict) -> dict:
+    """Decomposition mode above N=4096, and ciphertext-multiplication mode
+    at N=16384 (LARGE_RING_CASES), every item decoded and every reply's
+    noise budget > 0; the ct-mult row's reducing launches of kernel A (its
+    BEHZ base's) must be one request's count in `reduce_launches` a query.
+    Returns each case's launch counts by its path name."""
     import pir_tpu_torch as pt
     from pir_tpu_torch import kernels
 
     *_, indexes = LARGE_RING_ROW
     paths = {}
-    for path, n, profile, scan_impl, variants in LARGE_RING_CASES:
-        params = large_ring_params(n, profile)
+    for path, n, profile, scan_impl, ct_mult, variants in LARGE_RING_CASES:
+        params = large_ring_params(n, profile, ct_mult)
         raw = seeded_items(params.num_items, params.bytes_per_item)
         db = pt.PirDatabase.create(raw, params, scan_impl=scan_impl, device=device)
         layout = ("Shoup table" if not db._use_planes else "planes, hi plane "
@@ -1380,11 +1447,17 @@ def serve_large_rings(device) -> dict:
         counts = kernels.variant_launch_counts()
         check_items(client, indexes, response, raw, path)
         budgets = reply_budgets(client, response)
-        log(f"decomposition N={n} {profile} ({layout}), d={len(params.dimensions)}, "
+        mode = "ciphertext-multiplication" if ct_mult else "decomposition"
+        log(f"{mode} N={n} {profile} ({layout}), d={len(params.dimensions)}, "
             f"{params.num_items} items, dims "
             f"{params.dimensions}: {len(indexes)} queries in {ms:.2f} ms, every item retrieved; "
             f"noise budgets {budgets} bits; launches {counts}")
         require(counts, variants, path)
+        if path in reduce_launches:
+            want = len(indexes) * reduce_launches[path]
+            if counts["pir_ntt.reduce"] != want:
+                raise AssertionError(f"{path}: {counts['pir_ntt.reduce']} reducing launches of "
+                                     f"kernel A, kernel_times.served_ntt_launches says {want}")
         paths[path] = counts
         del server, db
     torch.cuda.empty_cache()
@@ -1439,7 +1512,7 @@ def main() -> int:
     scan = check_scan(device, gen)
     wide = check_scan_wide(device, gen)
     shoup = check_scan_shoup(device, gen)
-    ntt_large, served_launches = check_ntt_large(device, gen)
+    ntt_large, reduce_launches = check_ntt_large(device, gen)
     small = check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
     server, stamped = check_full_size_indexing(device, params, client, raw)
@@ -1472,13 +1545,15 @@ def main() -> int:
     ctmult_ref = serve_ctmult_reference(device)
     ctmult_ref_mesh = serve_ctmult_mesh_reference(device)
     ctmult, ctmult_mesh = serve_ctmult_full(device)
-    large = serve_large_rings(device)
+    large = serve_large_rings(device, reduce_launches)
     n32768 = serve_n32768(device)
-    want = {"pir_ntt.reduce": 3 * served_launches, "pir_scan_shoup": 3}
-    got = {k: n32768["n32768"].get(k, 0) for k in want}
-    if got != want:
-        raise AssertionError(f"N={kt.SERVED_N}: launches {got}, kernel_times.served_ntt_launches "
-                             f"and one kernel D a request say {want}")
+    n32768.update(serve_n32768(device, ct_mult=True))
+    for path, counts in n32768.items():
+        want = {"pir_ntt.reduce": 3 * reduce_launches[path], "pir_scan_shoup": 3}
+        got = {k: counts.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"{path}: launches {got}, kernel_times.served_ntt_launches and "
+                                 f"one kernel D a request say {want}")
 
     paths = {"single": single, "small": small, "batched": batched, "tpu32": tpu32,
              "mesh": mesh, "mesh32": mesh32, "shoup": shoup_counts,

@@ -3,8 +3,9 @@
 Port of ``pir_tpu/core/context.py``: NTT twiddle tables per RNS limb,
 Barrett/Shoup constants, Galois automorphism and monomial-shift
 permutations, key-switching scale-down constants and the plaintext-lift
-constants.  Client, server and database each build their own context from
-the shared ``PirParams``, on the device they compute on.
+constants.  A client and a database take their context from
+:meth:`PirContext.for_params`, one per (``PirParams``, device) in a process,
+as ``pir_tpu``'s do; a server computes with its database's.
 """
 
 from __future__ import annotations
@@ -22,6 +23,20 @@ class PirContext:
     # Set on the per-rank views of a limb-sharded mesh
     # (parallel/sharded.py); the base context is always limb-dense.
     limb_axis_name: "str | None" = None
+
+    @classmethod
+    def for_params(cls, params: PirParams, device=None) -> "PirContext":
+        """The shared context of a parameter set on a device (a process-wide
+        memo keyed by the params and the resolved device).  A context is
+        precomputation only: its tables never change after it is built, and
+        what it derives later (``derived``) is a function of the params and
+        the device alone, so every client, database and server holding equal
+        params on one device can share it."""
+        key = (params, modular.resolve_device(device))
+        ctx = _CONTEXT_CACHE.get(key)
+        if ctx is None:
+            ctx = _CONTEXT_CACHE[key] = cls(params, key[1])
+        return ctx
 
     def __init__(self, params: PirParams, device=None):
         self.params = params
@@ -149,3 +164,7 @@ class PirContext:
             row = residues[i].astype(object)
             out = (out + (row * inv[i]) % m * punctured[i]) % qbig
         return [int(c) for c in out]
+
+
+# process-wide context memo (see PirContext.for_params)
+_CONTEXT_CACHE: "dict[tuple[PirParams, torch.device], PirContext]" = {}

@@ -5,8 +5,8 @@ profile and one rank of the meshes for kernel B's other cases; a batched
 request of 16 queries for kernel C), and at the rings above N=4096
 (:func:`large_ring_shapes`, :func:`scan_cases`, :func:`wide_cases`,
 :func:`shoup_cases`), and kernel A at every launch of a served request at
-N=32768 (:func:`served_ntt_launches`), each checked bit-equal to its plain
-version first.  ``chip_smoke.py`` makes its checks of the four kernels
+N=32768 in either mode (:func:`served_ntt_launches`), each checked
+bit-equal to its plain version first.  ``chip_smoke.py`` makes its checks of the four kernels
 through :func:`time_ntt`, :func:`time_ntt_large`, :func:`time_ntt_served`,
 :func:`time_scan`, :func:`time_wide` and :func:`time_shoup`.
 
@@ -177,9 +177,11 @@ def large_ring_shapes() -> "list[tuple[str, str, int, int]]":
     """(label, tables key, batch, n) of kernel A's launches at the rings
     above N=4096, from a request at each ring and chain serving 2^20 items
     of 288 B, d=2, t of 24 bits: the first and the last expansion level's
-    key-switch NTT [2^j L, Lp, N] over QP; at N=8192 also one
-    bfv_multiply's Bsk forward NTT (the lift of a level's 114 ciphertexts,
-    [228, 5, N]) and inverse (the tensor product, [342, 5, N])."""
+    key-switch NTT [2^j L, Lp, N] over QP; and on SEAL's chain in
+    ciphertext-multiplication mode one upper-level step's BEHZ NTTs over
+    the 60-bit base Bsk (:func:`behz_step_rows` rows a step): the lift of
+    the step's ciphertexts and selection ciphertexts ([2 rows, L + 1, N]) and
+    the tensor product ([3 rows, L + 1, N])."""
     from pir_tpu_torch.utils.math import ceil_log2
 
     shapes = []
@@ -192,15 +194,29 @@ def large_ring_shapes() -> "list[tuple[str, str, int, int]]":
             L = len(ep.ct_modulus)
             for j in (0, levels - 1):
                 shapes.append((f"N={n} {profile} expansion {j}", f"{n} {profile}", (1 << j) * L, n))
-    dim = request_dims(encryption_params("seal", 8192))[0]
-    shapes += [("N=8192 Bsk lift", "8192 bsk", 2 * dim, 8192),
-               ("N=8192 Bsk product", "8192 bsk", 3 * dim, 8192)]
+    for n in (8192, 16384, 32768):
+        ep = encryption_params("seal", n)
+        rows = behz_step_rows(ep, request_dims(ep, ct_mult=True)[0])
+        shapes += [(f"N={n} Bsk lift", f"{n} bsk", 2 * rows, n),
+                   (f"N={n} Bsk product", f"{n} bsk", 3 * rows, n)]
     return shapes
+
+
+def behz_step_rows(ep, dim: int) -> int:
+    """Rows of a ciphertext-multiplication upper dimension of `dim` rows
+    (prefix 1) that one step multiplies (ops.scan.ctmult_step_rows; the
+    whole dimension in a tree from before the steps, for --root)."""
+    from pir_tpu_torch.ops import scan as scan_mod
+
+    step = getattr(scan_mod, "ctmult_step_rows", None)
+    if step is None:
+        return dim
+    return min(dim, step(1, len(ep.ct_modulus), ep.poly_modulus_degree))
 
 
 def large_ring_tables(device) -> dict:
     """NttTables of large_ring_shapes()'s keys: each ring's QP chain, and the
-    BEHZ base of SEAL's N=8192 chain."""
+    BEHZ base of SEAL's chain at each ring."""
     from pir_tpu_torch.core.rns import RnsTool
     from pir_tpu_torch.ops.ntt import NttTables
 
@@ -278,34 +294,55 @@ def time_ntt_large(device, gen, plain=(), reps: int = 20) -> "list[dict]":
 SERVED_N = 32768  # the ring whose whole served request kernel A is timed at
 
 
-def served_ntt_launches(n: int = SERVED_N) -> "list[tuple[str, str, int, bool, int]]":
+def served_ntt_launches(n: int = SERVED_N, ct_mult: bool = False,
+                        dims=None) -> "list[tuple[str, str, int, bool, int]]":
     """(label, chain, batch, inverse, launches) of every kernel A launch of
-    one single-query 2^20-item request at ring n on SEAL's chain (the
-    Shoup-table layout), as the server issues them: per expansion level j
-    the key switch's NTT over QP on [rows, L, Lp, N] digits and INTT on
-    [rows, 2, Lp, N], its 2^j ciphertexts in steps of
-    keyswitch.SWITCH_CHUNK_BYTES; the selection vector's NTT; the inner
-    scan's INTT; then per ops.scan.upper_step_columns digit columns the
-    digit plaintexts' NTT and the upper scan's INTT."""
+    one single-query request at ring n on SEAL's chain (the Shoup-table
+    layout) over the hypercube `dims` (default: 2^20 items, d=2), as the
+    server issues them: per expansion level j the key switch's NTT over QP
+    on [rows, L, Lp, N] digits and INTT on [rows, 2, Lp, N], its 2^j
+    ciphertexts in steps of keyswitch.SWITCH_CHUNK_BYTES.  In decomposition
+    mode then the selection vector's NTT, the inner scan's INTT and, per
+    ops.scan.upper_step_columns digit columns, the digit plaintexts' NTT and
+    the upper scan's INTT.  In ciphertext-multiplication mode (d=2) the
+    inner dimension's selection vector NTT, the inner scan's INTT, then per
+    upper-level step of :func:`behz_step_rows` rows bfv_multiply's NTTs
+    (each operand's lift over q and over Bsk, the tensor product's INTT over
+    both) and relinearize's key switch."""
     from pir_tpu_torch.ops import keyswitch
     from pir_tpu_torch.ops import scan as scan_mod
     from pir_tpu_torch.utils.math import ceil_log2
 
     ep = encryption_params("seal", n)
     L, Lp = len(ep.ct_modulus), len(ep.coeff_modulus)
-    d0, d1 = request_dims(ep)
+    d0, d1 = dims if dims is not None else request_dims(ep, ct_mult=ct_mult)
     counts: dict = {}
 
-    def add(label, chain, batch, inverse):
+    def add(label, chain, batch, inverse, times=1):
         key = (label, chain, batch, inverse)
-        counts[key] = counts.get(key, 0) + 1
+        counts[key] = counts.get(key, 0) + times
 
     step = max(1, keyswitch.SWITCH_CHUNK_BYTES // (L * 2 * Lp * n * 8))
+
+    def switch(label, rows):
+        for r0 in range(0, rows, step):
+            k = min(step, rows - r0)
+            add(f"{label} digits", "qp", k * L, False)
+            add(f"{label} INTT", "qp", k * 2, True)
+
     for j in range(ceil_log2(min(d0 + d1, n))):
-        for r0 in range(0, 1 << j, step):
-            rows = min(step, (1 << j) - r0)
-            add(f"expansion {j} digits", "qp", rows * L, False)
-            add(f"expansion {j} INTT", "qp", rows * 2, True)
+        switch(f"expansion {j}", 1 << j)
+    if ct_mult:
+        add("selection vector", "q", d1 * 2, False)
+        add("inner-scan INTT", "q", d0 * 2, True)
+        rows = behz_step_rows(ep, d0)
+        for r0 in range(0, d0, rows):
+            r = min(rows, d0 - r0)
+            for chain in ("q", "bsk"):
+                add("BEHZ lift", chain, 2 * r, False, times=2)
+                add("BEHZ product", chain, 3 * r, True)
+            switch("relinearization", r)
+        return [(*key, c) for key, c in counts.items()]
     add("selection vector", "q", (d0 + d1) * 2, False)
     add("inner-scan INTT", "q", d0 * 2, True)
     new_c = 2 * expansion_ratio(ep)
@@ -317,33 +354,39 @@ def served_ntt_launches(n: int = SERVED_N) -> "list[tuple[str, str, int, bool, i
     return [(*key, c) for key, c in counts.items()]
 
 
-def time_ntt_served(device, gen, plain=(), reps: int = 5) -> "list[dict]":
-    """Kernel A at served_ntt_launches(): bit-equal to the plain version
-    (a quarter GB of input at a time), then timed; each row carries its
-    launches a request and cluster_fields.  The plain version is timed at
-    the (label, inverse) pairs in `plain`."""
+def time_ntt_served(device, gen, plain=(), reps: int = 5, n: int = SERVED_N,
+                    ct_mult: bool = False, dims=None) -> "list[dict]":
+    """Kernel A at served_ntt_launches(n, ct_mult, dims): bit-equal to the
+    plain version (a quarter GB of input at a time), then timed; each row
+    carries its chain ("q", "qp" or "bsk"), its launches a request and
+    cluster_fields.  The plain version is timed at the (label, inverse)
+    pairs in `plain`."""
     import torch
 
+    from pir_tpu_torch.core.rns import RnsTool
     from pir_tpu_torch.ops.ntt import NttTables, grows, ntt_cuda, ntt_plain
 
-    ep = encryption_params("seal", SERVED_N)
-    tables = {"qp": NttTables(ep.coeff_modulus, SERVED_N, device)}
+    ep = encryption_params("seal", n)
+    tables = {"qp": NttTables(ep.coeff_modulus, n, device)}
     tables["q"] = tables["qp"].slice(len(ep.ct_modulus))
+    if ct_mult:
+        tables["bsk"] = RnsTool(ep.ct_modulus, n, ep.plain_modulus, device=device).ntt_bsk
+    mode = "ct-mult " if ct_mult else ""
     rows = []
-    for label, chain, batch, inverse, launches in served_ntt_launches():
+    for label, chain, batch, inverse, launches in served_ntt_launches(n, ct_mult, dims):
         t = tables[chain]
-        x = random_residues(t.moduli, (batch,), SERVED_N, device, gen)
+        x = random_residues(t.moduli, (batch,), n, device, gen)
         got = ntt_cuda(t, x, inverse)
         err = max_abs_err_plain(t, x, got, inverse)
         if err:
             raise AssertionError(f"kernel A differs from plain at {label} {tuple(x.shape)}: {err}")
         del got
-        grow = grows(t.moduli, SERVED_N)
-        row = {"label": f"N={SERVED_N} served {label}", "shape": list(x.shape),
+        grow = grows(t.moduli, n)
+        row = {"label": f"N={n} served {mode}{label}", "chain": chain, "shape": list(x.shape),
                "inverse": inverse, "max_abs_err": err, "grow": grow, "launches": launches,
                "ms": device_ms(lambda: ntt_cuda(t, x, inverse), reps),
-               **ntt_bound(x, SERVED_N, len(t.moduli), grow),
-               **cluster_fields(SERVED_N, inverse, grow)}
+               **ntt_bound(x, n, len(t.moduli), grow),
+               **cluster_fields(n, inverse, grow)}
         if (label, inverse) in plain:
             row["plain_ms"] = device_ms(lambda: ntt_plain(t, x, inverse), 1)
         rows.append(row)
@@ -625,21 +668,25 @@ def main(argv=None) -> int:
     ntt = time_ntt(device, gen)
     large = time_ntt_large(device, gen)
     served = time_ntt_served(device, gen)
+    served_ct = time_ntt_served(device, gen, ct_mult=True)
     scan = time_scan(device, gen)
     wide = time_wide(device, gen)
     shoup = time_shoup(device, gen)
     request_ms, request_bound_ms = request_sums(ntt)
     result = {"label": args.label, "package": pir_tpu_torch.__file__, "card": card,
-              "ntt": ntt, "ntt_large": large, "ntt_served": served, "scan": scan, "wide": wide, "shoup": shoup,
+              "ntt": ntt, "ntt_large": large, "ntt_served": served,
+              "ntt_served_ct_mult": served_ct, "scan": scan, "wide": wide, "shoup": shoup,
               "ntt_request_ms": request_ms, "ntt_request_bound_ms": request_bound_ms}
-    for line in ([ntt_line(r) for r in ntt + large + served] + [scan_line(r) for r in scan]
+    for line in ([ntt_line(r) for r in ntt + large + served + served_ct]
+                 + [scan_line(r) for r in scan]
                  + [wide_line(r) for r in wide] + [shoup_line(r) for r in shoup]):
         print(f"[{args.label}] {line}", flush=True)
     print(f"[{args.label}] kernel A over one request's 22 launches: "
           f"{request_ms:.4f} ms (bound {request_bound_ms:.4f}); {card}")
-    launches, served_ms, served_bound_ms = served_sums(served)
-    print(f"[{args.label}] kernel A over one N={SERVED_N} request's {launches} launches: "
-          f"{served_ms:.4f} ms (bound {served_bound_ms:.4f}); {card}")
+    for mode, rows in (("", served), ("ct-mult ", served_ct)):
+        launches, served_ms, served_bound_ms = served_sums(rows)
+        print(f"[{args.label}] kernel A over one N={SERVED_N} {mode}request's {launches} "
+              f"launches: {served_ms:.4f} ms (bound {served_bound_ms:.4f}); {card}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

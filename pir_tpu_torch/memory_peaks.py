@@ -1,11 +1,16 @@
-"""Peak transient device memory of the two plain-torch stages whose steps
+"""Peak transient device memory of the three plain-torch stages whose steps
 bound the N=32768 path's memory, at a 2^20-item request's shapes on SEAL's
 chain (15 × 55-bit primes and a 56-bit special prime): one key switch over
 2^j ciphertexts in a single step (``ops/keyswitch.py::apply_galois`` with
-SWITCH_CHUNK_BYTES lifted), and one upper-level contraction of k digit
-columns over D_0 rows (``ops/scan.py::contract_dim``), each beside the
-bytes of its products.  The measurements behind
-``keyswitch.SWITCH_CHUNK_BYTES`` and ``scan.UPPER_STEP_BYTES``.
+SWITCH_CHUNK_BYTES lifted), one upper-level contraction of k digit
+columns over D_0 rows (``ops/scan.py::contract_dim``), and one
+ciphertext-multiplication step over r rows of the upper dimension
+(``bfv/multiply.py::bfv_multiply`` of r ciphertexts by r selection
+ciphertexts, then ``ops/keyswitch.py::relinearize``), each beside the
+bytes of its products (for the multiply, of its widest BEHZ sum product,
+[r, 3, L + 1, L, N]).  The measurements behind
+``keyswitch.SWITCH_CHUNK_BYTES``, ``scan.UPPER_STEP_BYTES`` and
+``scan.CTMULT_STEP_BYTES``.
 
     python3 -m pir_tpu_torch.memory_peaks --out peaks.json
 
@@ -22,6 +27,7 @@ import sys
 
 SWITCH_CIPHERTEXTS = (8, 16, 32, 64)
 UPPER_COLUMNS = (1, 2, 4, 8)
+CTMULT_ROWS = (1, 2, 4, 8)
 
 
 def _transient(fn, device) -> dict:
@@ -53,6 +59,7 @@ def main(argv=None) -> int:
         print("memory_peaks: no CUDA device available", file=sys.stderr)
         return 1
     from pir_tpu_torch import kernel_times as kt
+    from pir_tpu_torch.bfv.multiply import bfv_multiply, rns_tool_for
     from pir_tpu_torch.core.context import PirContext
     from pir_tpu_torch.core.params import create_pir_parameters
     from pir_tpu_torch.ops import keyswitch, scan
@@ -67,7 +74,7 @@ def main(argv=None) -> int:
     L, Lp, d0 = ctx.L, len(ep.coeff_modulus), kt.request_dims(ep)[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    result = {"card": card, "n": n, "switch": [], "upper": []}
+    result = {"card": card, "n": n, "switch": [], "upper": [], "ctmult": []}
 
     key = {3: kt.random_residues(ep.coeff_modulus, (L, 2), n, device, gen)}
     step_bytes = keyswitch.SWITCH_CHUNK_BYTES
@@ -95,6 +102,20 @@ def main(argv=None) -> int:
         print(f"upper contraction of {cols} digit column(s) over {d0} rows at N={n}: {row} "
               f"({card})", flush=True)
         del items
+    del sv
+
+    rns_tool_for(ctx)  # the BEHZ tool's tables are held, not transient
+    relin = kt.random_residues(ep.coeff_modulus, (L, 2), n, device, gen)
+    for rows in CTMULT_ROWS:
+        cts = kt.random_residues(ep.ct_modulus, (1, rows, 2), n, device, gen)
+        sel = kt.random_residues(ep.ct_modulus, (1, rows, 2), n, device, gen)
+        row = {"rows": rows, "products_gb": rows * 3 * (L + 1) * L * n * 8 / 1e9,
+               **_transient(lambda: keyswitch.relinearize(ctx, relin, bfv_multiply(ctx, cts, sel)),
+                            device)}
+        result["ctmult"].append(row)
+        print(f"ct-mult multiply + relinearize of {rows} row(s) in one step at N={n}: {row} "
+              f"({card})", flush=True)
+        del cts, sel
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

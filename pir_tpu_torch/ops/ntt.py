@@ -215,6 +215,17 @@ class NttTables:
             return ntt_cuda(self, x.contiguous(), inverse=True)
         return ntt_plain(self, x, inverse=True)
 
+    # ------------------------------------------------------------------
+    def pointwise_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Product of two NTT-form polynomials (any broadcastable shapes)."""
+        return self.limbs.mul(a, b)
+
+    def negacyclic_polymul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Full coefficient-domain negacyclic product a*b mod (x^N + 1): the
+        transforms are kernel A on a CUDA tensor, the plain version on a
+        CPU one."""
+        return self.inverse(self.pointwise_mul(self.forward(a), self.forward(b)))
+
 
 def ntt_plain(tables: NttTables, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The transform as log2 N vectorized butterfly stages over

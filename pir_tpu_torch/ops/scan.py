@@ -40,10 +40,27 @@ from pir_tpu_torch.ops.keyswitch import relinearize
 UPPER_STEP_BYTES = 1 << 30
 
 
+# The widest BEHZ products a ciphertext-multiplication upper-level step
+# holds: ``core/rns.py::RnsTool._sum_conv`` materializes [rows, 3, L + 1, L,
+# N] int64 products (fast_floor's q -> Bsk conversion of the size-3 tensor
+# product).  One row's multiply and relinearization at N=32768 on SEAL's
+# chain hold 3.49 GB of plain-torch transients, 18.5 times that product
+# (``memory_peaks.py`` on an NVIDIA H100 80GB HBM3): a step of 1 GiB of
+# products (5 rows) holds ~17.5 GB, about a key-switch step's 18.7 GB, where
+# the whole dimension's 57 rows would hold ~199 GB.
+CTMULT_STEP_BYTES = 1 << 30
+
+
 def upper_step_columns(rows: int, L: int, n: int) -> int:
     """(lower-ct, digit) columns an upper-level step takes: each is `rows`
     (prefix·dim) digit plaintexts lifted to L limbs of n words."""
     return max(1, UPPER_STEP_BYTES // (rows * L * n * 8))
+
+
+def ctmult_step_rows(prefix: int, L: int, n: int) -> int:
+    """Rows of a dimension a ciphertext-multiplication step multiplies: each
+    brings `prefix` products, each a [3, L + 1, L, n] BEHZ sum product."""
+    return max(1, CTMULT_STEP_BYTES // (prefix * 3 * (L + 1) * L * n * 8))
 
 
 def _ct_moduli_bits(ctx: PirContext) -> int:
@@ -152,6 +169,7 @@ def database_scan_decomp(
     db_planes=None,
     db_ntt: "torch.Tensor | None" = None,
     db_shoup: "torch.Tensor | None" = None,
+    probe=None,
 ) -> torch.Tensor:
     """Full d-dimensional decomposition-mode scan.
 
@@ -163,6 +181,9 @@ def database_scan_decomp(
             — every contraction then reads planes; or
     db_ntt, db_shoup: int64[prod(dims), L, N] NTT-form database and its
             Shoup companions (the inner contraction is kernel D's).
+    probe:  optional callable(desc, cts) run on the coefficient-form
+            ciphertexts after the inner contraction and after each upper
+            level (the reference's noise-budget probe, database.cpp:260-270).
     Returns int64[(2·ER)^(d-1), 2, L, N] reply ciphertexts, coefficient form.
     """
     d = len(dims)
@@ -191,6 +212,8 @@ def database_scan_decomp(
         shoup = db_shoup.reshape(items.shape) if db_shoup is not None else None
         result = contract_dim(ctx, sv_last, items, shoup)  # [prefix, 2, L, N]
     result = ctx.ntt_q.inverse(result)  # coefficient form
+    if probe is not None:
+        probe(f"dim {d - 1} (inner contraction)", result)
 
     # Upper dimensions, bottom-up: decompose, re-NTT, contract.
     for level in range(d - 2, -1, -1):
@@ -207,6 +230,8 @@ def database_scan_decomp(
             return contract_dim(ctx, sv_lvl, items)
 
         result = _upper_level(ctx, result, prefix, dim, contract)
+        if probe is not None:
+            probe(f"dim {level} (digit contraction)", result.reshape(-1, 2, ctx.L, ctx.n))
 
     # top level: prefix == 1; C axis may be absent for d == 1
     if result.dim() == 4:
@@ -281,7 +306,10 @@ def database_scan_ctmult(
     relinearizing after each product with relin_key (int64[L, 2, Lp, N];
     None only for d = 1).  db_ntt and its Shoup companions db_shoup (which
     send the inner contraction to kernel D on the card): int64[prod(dims),
-    L, N].  Returns one int64[1, 2, L, N] reply.
+    L, N].  Each upper dimension multiplies, relinearizes and sums
+    ctmult_step_rows() of its rows at a time, the steps' reduced sums added
+    mod q, so every step count gives the same words.  Returns one
+    int64[1, 2, L, N] reply.
     """
     offsets = []
     off = 0
@@ -303,12 +331,15 @@ def database_scan_ctmult(
         prefix //= dim
         sv_lvl = sv[offsets[level] : offsets[level] + dim]  # [dim, 2, L, N]
         blocks = result.reshape(prefix, dim, 2, ctx.L, ctx.n)
-        prod3 = bfv_multiply(ctx, blocks, sv_lvl[None])  # [prefix, dim, 3, L, N]
-        prod2 = relinearize(ctx, relin_key, prod3)  # [prefix, dim, 2, L, N]
-        # sum over the dimension: reduced summands, a chunk per u64 headroom
-        result = scan_kernel.sum_row_chunks(
-            lambda s, e: modular.barrett_reduce_64(prod2[:, s:e].sum(dim=1), lq.q, lq.ratio_hi),
-            dim, min(_max_chunk(ctx), dim), lq.q,
-        )
+
+        def step(s, e, blocks=blocks, sv_lvl=sv_lvl):
+            prod3 = bfv_multiply(ctx, blocks[:, s:e], sv_lvl[None, s:e])  # [prefix, e-s, 3, L, N]
+            prod2 = relinearize(ctx, relin_key, prod3)  # [prefix, e-s, 2, L, N]
+            return modular.barrett_reduce_64(prod2.sum(dim=1), lq.q, lq.ratio_hi)
+
+        # sum over the dimension: reduced summands, a step per u64 headroom
+        # or per CTMULT_STEP_BYTES, whichever is fewer rows
+        rows = min(_max_chunk(ctx), ctmult_step_rows(prefix, ctx.L, ctx.n), dim)
+        result = scan_kernel.sum_row_chunks(step, dim, rows, lq.q)
 
     return result.reshape(1, 2, ctx.L, ctx.n)

@@ -73,7 +73,7 @@ class PirClient:
             )
         self.compress_queries = compress_queries
         self.params = params
-        self.ctx = PirContext(params, device)
+        self.ctx = PirContext.for_params(params, device)
         self._rng = np.random.default_rng(seed)
         seeded_wire = wire_format == "seal"
         self.sk = keys_mod.gen_secret_key(self.ctx, self._rng)

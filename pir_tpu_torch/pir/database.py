@@ -115,7 +115,7 @@ def default_scan_impl(moduli) -> str:
 class PirDatabase:
     def __init__(self, params: PirParams, scan_impl: str = "auto", device=None):
         self.params = params
-        self.ctx = PirContext(params, device)
+        self.ctx = PirContext.for_params(params, device)
         self.device = self.ctx.device
         self.db_pts: Optional[np.ndarray] = None  # u64[num_pt, N] mod t (host)
         # scan_impl "pallas": (hi, lo) planes of the NTT-form hypercube,
@@ -166,12 +166,22 @@ class PirDatabase:
             return {"db_planes": self.db_planes}
         return {"db_ntt": self.db_ntt, "db_shoup": self.db_ntt_shoup}
 
-    def multiply(self, selection_vector: torch.Tensor, relin_key=None) -> torch.Tensor:
+    def multiply(
+        self, selection_vector: torch.Tensor, relin_key=None, decryptor=None
+    ) -> torch.Tensor:
         """Scan: selection vector ciphertexts (coefficient form, int64
         [dim_sum, 2, L, N]) -> reply ciphertexts (coefficient form).  Parity
         with pir_tpu's PirDatabase.multiply (the reference's
         PIRDatabase::multiply, database.cpp:290-316).  Ciphertext-
-        multiplication mode with d > 1 needs the relinearization key."""
+        multiplication mode with d > 1 needs the relinearization key.
+
+        decryptor: optional callable(ct) -> noise-budget int, given each of
+        the first two ciphertexts (coefficient form, on this database's
+        device) after the inner contraction and after each upper level; the
+        budgets are printed — the reference's server-side debug probe
+        (database.h:127, database.cpp:260-270).  Ciphertext-multiplication
+        mode ignores it, as pir_tpu does.  The returned words do not change.
+        """
         p = self.params
         if selection_vector.shape[0] != p.dimensions_sum:
             raise ValueError("selection vector size does not match dimensions")
@@ -189,9 +199,15 @@ class PirDatabase:
                 self.ctx, self.db_ntt, self.db_ntt_shoup, p.dimensions, selection_vector,
                 relin_key,
             )
+        probe = None
+        if decryptor is not None:
+            def probe(desc, cts):
+                budgets = [decryptor(cts[i]) for i in range(min(2, cts.shape[0]))]
+                print(f"noise budget after {desc}: {budgets}")
+
         return scan.database_scan_decomp(
             self.ctx, p.dimensions, self.ctx.ntt_q.forward(selection_vector),
-            **self.scan_operands(),
+            **self.scan_operands(), probe=probe,
         )
 
     @property

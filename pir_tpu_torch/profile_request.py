@@ -6,6 +6,7 @@
     python3 -m pir_tpu_torch.profile_request --batched 16       # 16-query requests
     python3 -m pir_tpu_torch.profile_request --stream 6         # process_stream, depth 6
     python3 -m pir_tpu_torch.profile_request --n32768 --reps 1 --spread 1
+    python3 -m pir_tpu_torch.profile_request --n32768 --ct-mult --reps 1 --spread 1
 
 Builds the benchmark configuration (288-byte items, d=2, N=4096, 24-bit
 plain modulus, SEAL's BFVDefault chain, database from seed 42, client seed 7,
@@ -13,7 +14,8 @@ seeded queries, replies mod-switched by ``reply_limbs_for``) — with
 ``--ct-mult`` the same items in ciphertext-multiplication mode at N=8192
 (``chip_smoke.py``'s phase 13), with ``--n32768`` at N=32768 on SEAL's
 55/56-bit chain (``chip_smoke.py``'s phase 20: the Shoup-table layout, the
-client's keys made on the card) — fills the key cache with one request, then
+client's keys made on the card; with ``--ct-mult`` too, phase 22) — fills
+the key cache with one request, then
 measures warm single-query requests, or with ``--batched Q`` warm
 ``process_request_batched`` requests of Q queries each (no stage profile):
 
@@ -97,7 +99,10 @@ class _Laps:
 def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
     """process_request for a one-query request, one synchronized stage at a
     time (the same calls, in the same order); adds each stage's ms to
-    ``stages`` and each expansion level's ms to ``levels``."""
+    ``stages`` and each expansion level's ms to ``levels``.  In
+    ciphertext-multiplication mode the scan's BEHZ multiplies and
+    relinearizations are stages of their own, apart from its inner scan and
+    the sums of its steps."""
     ctx = server.ctx
     clock = _Laps(stages, server.device)
     keys, relin_key = server._device_keys(request)
@@ -116,16 +121,35 @@ def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
     sv = torch.cat(outs, dim=0)
     clock.lap("oblivious expansion")
     if server.params.use_ciphertext_multiplication:
-        # the inner scan, then per upper dimension the BEHZ multiply,
-        # relinearization and sum
-        reply = server.db.multiply(sv, relin_key)
+        # the inner scan, then per upper-level step the BEHZ multiply,
+        # relinearization and sum: the scan's own calls, each lapped
+        inner = "database scan (inner scan, sums)"
+        laps = {"bfv_multiply": "BEHZ multiply", "relinearize": "relinearization"}
+        calls = {name: getattr(scan, name) for name in laps}
+
+        def lapped(name):
+            def run(*args):
+                clock.lap(inner)
+                out = calls[name](*args)
+                clock.lap(laps[name])
+                return out
+            return run
+
+        for name in laps:
+            setattr(scan, name, lapped(name))
+        try:
+            reply = server.db.multiply(sv, relin_key)
+        finally:
+            for name, fn in calls.items():
+                setattr(scan, name, fn)
+        clock.lap(inner)
     else:
         sv_ntt = ctx.ntt_q.forward(sv)
         clock.lap("selection-vector NTT")
         reply = scan.database_scan_decomp(
             ctx, server.params.dimensions, sv_ntt, **server.db.scan_operands()
         )
-    clock.lap("database scan (all dimensions)")
+        clock.lap("database scan (all dimensions)")
     if server.reply_limbs is not None:
         reply = modswitch.mod_switch_to(ctx, reply, server.reply_limbs)
     clock.lap("mod switch")
@@ -256,19 +280,19 @@ def main(argv=None) -> int:
     ap.add_argument("--spread", type=int, default=10, help="timed whole requests")
     ap.add_argument("--out", help="also write the JSON result to this file")
     ap.add_argument("--ct-mult", action="store_true",
-                    help="ciphertext-multiplication mode at N=8192")
+                    help="ciphertext-multiplication mode (at N=8192 unless --n32768)")
     ap.add_argument("--batched", type=int, metavar="Q",
                     help="profile process_request_batched requests of Q queries")
     ap.add_argument("--stream", type=int, metavar="D",
                     help="profile process_stream at depth D (single-query requests)")
     ap.add_argument("--windows", type=int, default=4, help="--stream: windows of each kind")
     ap.add_argument("--n32768", action="store_true",
-                    help="decomposition at N=32768 on SEAL's chain (the Shoup-table layout)")
+                    help="N=32768 on SEAL's chain (the Shoup-table layout)")
     args = ap.parse_args(argv)
     if args.stream is not None and (args.stream < 1 or args.ct_mult or args.batched):
         raise SystemExit("profile_request: --stream takes D >= 1, single-query decomposition")
-    if args.n32768 and (args.ct_mult or args.batched or args.stream):
-        raise SystemExit("profile_request: --n32768 profiles single-query decomposition requests")
+    if args.n32768 and (args.batched or args.stream):
+        raise SystemExit("profile_request: --n32768 profiles single-query requests")
     if args.batched is not None and (args.batched < 1 or args.ct_mult):
         raise SystemExit("profile_request: --batched takes Q >= 1 queries, in decomposition mode")
     if not torch.cuda.is_available():
@@ -282,7 +306,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
 
     db_size = 1 << args.log2_items
-    poly_degree = 8192 if args.ct_mult else 32768 if args.n32768 else 4096
+    poly_degree = 32768 if args.n32768 else 8192 if args.ct_mult else 4096
     params = pt.create_pir_parameters(
         db_size, ITEM_SIZE, 2, pt.generate_encryption_params(poly_degree, 24),
         use_ciphertext_multiplication=args.ct_mult,

@@ -295,6 +295,7 @@ def test_staged_profile_request_equals_process_request_ct_mult():
     got = profile_request.staged_request(server, req, stages, levels)
     assert got.SerializeToString() == server.process_request(req).SerializeToString()
     assert list(stages) == ["load query + keys", "oblivious expansion",
-                            "database scan (all dimensions)", "mod switch",
+                            "database scan (inner scan, sums)", "BEHZ multiply",
+                            "relinearization", "mod switch",
                             "reply copy to host + serialize"]
     assert client.process_response([21], got) == [raw[21]]

@@ -1,11 +1,12 @@
-"""Kernels A (NTT, N=64..32768), B (scan, with and without a hi plane, and
+"""Kernels A (NTT, N=64..32768, and over the BEHZ base at the large rings'
+ciphertext-multiplication shapes), B (scan, with and without a hi plane, and
 its runtime-moduli entry K6), C (the wide scan of batched serving, both
 variants) and D (the Shoup-table scan, K7) on the card against their plain
 PyTorch versions, bit for bit (tolerance 0); the port's server on the card
-(both layouts, ciphertext-multiplication mode, and SEAL-stream requests)
-against the same server on the CPU; and meshes of two gloo ranks sharing
-the card (decomposition and ciphertext-multiplication mode) against the
-single-device server.
+(both layouts, ciphertext-multiplication mode, and SEAL-stream requests),
+negacyclic_polymul and the noise-budget probe against the same on the CPU;
+and meshes of two gloo ranks sharing the card (decomposition and
+ciphertext-multiplication mode) against the single-device server.
 
 These tests need an NVIDIA GPU and carry the ``cuda`` marker; without a card
 they skip.  This file imports no JAX, so it also runs on a machine that has
@@ -141,6 +142,85 @@ def test_ntt_kernel_served_n32768_shapes_in_one_launch(dev, chain, batch):
         assert torch.cuda.max_memory_allocated(dev) - before <= got.nbytes + (2 << 20)
         assert kt.max_abs_err_plain(tables, x, got, inverse) == 0, inverse
         del got
+
+
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_ntt_kernel_at_behz_base_shapes_matches_plain(dev, n):
+    """Kernel A over the BEHZ base of SEAL's chain (RnsTool's Bsk, L + 1
+    primes of 60 bits: 9 at N=16384, 16 at 32768, reducing butterflies) at
+    a served ciphertext-multiplication step's lift and tensor-product
+    shapes (kernel_times.large_ring_shapes), forward and inverse: each one
+    launch, bit-equal to the plain version."""
+    from pir_tpu_torch import kernel_times as kt
+    from pir_tpu_torch.core.rns import RnsTool
+
+    ep = kt.encryption_params("seal", n)
+    tables = RnsTool(ep.ct_modulus, n, ep.plain_modulus, device=dev).ntt_bsk
+    assert len(tables.moduli) == len(ep.ct_modulus) + 1
+    shapes = [batch for _, key, batch, ring in kt.large_ring_shapes() if key == f"{n} bsk"]
+    assert len(shapes) == 2
+    for batch in shapes:
+        x = residues(tables.moduli, (batch,), n, dev, seed=batch)
+        x[0, -1, :2] = torch.tensor([0, tables.moduli[-1] - 1])
+        for inverse in (False, True):
+            before = kernels.NTT.variant_launches.get("pir_ntt.reduce", 0)
+            got = ntt_cuda(tables, x, inverse)
+            torch.cuda.synchronize()
+            assert kernels.NTT.variant_launches["pir_ntt.reduce"] == before + 1
+            assert kt.max_abs_err_plain(tables, x, got, inverse) == 0, (batch, inverse)
+
+
+@pytest.mark.parametrize("n,bits", [(4096, (36, 36, 37)), (16384, (60, 60))])
+def test_negacyclic_polymul_on_card_matches_cpu(dev, n, bits):
+    """NttTables.negacyclic_polymul on the card (kernel A's three
+    transforms, growing or reducing) and pointwise_mul against the same
+    tables on the CPU (the plain versions), with broadcast batch axes."""
+    moduli = primes.coeff_modulus_from_bits(n, list(bits))
+    card, host = NttTables(moduli, n, dev), NttTables(moduli, n, "cpu")
+    a = residues(moduli, (2,), n, dev, seed=1)
+    b = residues(moduli, (1,), n, dev, seed=2)
+    launches = kernels.NTT.launches
+    got = card.negacyclic_polymul(a, b)
+    torch.cuda.synchronize()
+    assert kernels.NTT.launches == launches + 3 and got.is_cuda
+    assert torch.equal(got.cpu(), host.negacyclic_polymul(a.cpu(), b.cpu()))
+    assert torch.equal(card.pointwise_mul(a, b).cpu(), host.pointwise_mul(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_noise_budget_probe_on_card_matches_cpu(dev, capsys, dims):
+    """PirDatabase.multiply(decryptor=) on the card prints the CPU's lines
+    (the probe decrypts on the card) and returns the CPU's words."""
+    from pir_tpu_torch.bfv.encrypt import encrypt, invariant_noise_budget
+    from pir_tpu_torch.pir.database import calculate_indices
+
+    n = 128
+    ep = pt.EncryptionParams(
+        poly_modulus_degree=n,
+        plain_modulus=primes.get_prime(2 * n, 13),
+        coeff_modulus=tuple(primes.coeff_modulus_from_bits(n, [34, 36, 37])),
+    )
+    params = pt.create_pir_parameters(60, 8, dims, ep)
+    rng = np.random.default_rng(dims)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(60)]
+    cpu_client = pt.PirClient(params, seed=3, device="cpu")
+    card_client = pt.PirClient(params, seed=3, device=dev)
+    hot, off = set(), 0
+    for dim, i in zip(params.dimensions, calculate_indices(params, 41)):
+        hot.add(off + i)
+        off += dim
+    sv = torch.stack([encrypt(cpu_client.ctx, cpu_client.pk,
+                              np.array([int(r in hot)] + [0] * (n - 1), dtype=np.uint64), rng)
+                      for r in range(params.dimensions_sum)])
+    lines, words = [], []
+    for client, where in ((cpu_client, "cpu"), (card_client, dev)):
+        db = pt.PirDatabase.create(raw, params, device=where)
+        words.append(db.multiply(
+            sv.to(where), decryptor=lambda ct, c=client: invariant_noise_budget(c.ctx, c.sk, ct)
+        ).cpu())
+        lines.append(capsys.readouterr().out.splitlines())
+    assert len(lines[0]) == dims and lines[1] == lines[0]
+    assert torch.equal(words[1], words[0])
 
 
 @pytest.mark.parametrize("bits,P,D", [((34, 36), 5, 7), ((36, 36), 162, 162), ((44, 46), 3, 40)])

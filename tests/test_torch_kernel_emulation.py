@@ -329,10 +329,11 @@ def _emulated_ntt(lib, tables, x, inverse, plan, out=None):
 # (the 60-bit BEHZ base, SEAL's 55/56-bit N=32768 primes); each ring has a
 # chain at the growing rule's edge, 2^(63 - log2 N) at 16384 and 32768
 # (q of 49 and 48 bits) and 2^50 at 8192, and one just past it, which
-# reduces.
+# reduces; and the BEHZ base of SEAL's N=16384 chain in ciphertext-
+# multiplication mode (9 limbs of 60 bits, as RnsTool's Bsk).
 LARGE_RINGS = [
     (8192, (44, 50), 1), (8192, (51, 60), 1),
-    (16384, (48, 49), 1), (16384, (30, 50), 1),
+    (16384, (48, 49), 1), (16384, (30, 50), 1), (16384, (60,) * 9, 1),
     (32768, (30, 48), 1), (32768, (55, 56), 1), (32768, (49,), 2),
 ]
 

@@ -157,6 +157,71 @@ def test_kernel_times_shapes_follow_the_served_request(n, profile):
         assert cases["K7 N=16384 inner"][1:] == (ep.ct_modulus, *params.dimensions, n)
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one thread: the N=4096 transforms below otherwise spin
+    every core's worth of threads in each of the suite's workers."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("ct_mult", [False, True], ids=["decomp", "ct_mult"])
+def test_served_ntt_launches_are_the_servers(monkeypatch, one_thread, ct_mult):
+    """kernel_times.served_ntt_launches, which chip_smoke.py holds kernel A's
+    launch counts to, lists every NTT a served request runs: a request at
+    N=4096 on SEAL's chain over a small hypercube (the Shoup-table layout),
+    its key-switch and ciphertext-multiplication steps cut to 2 rows, served
+    on the CPU with each transform recorded by chain, polynomial count and
+    direction."""
+    import pir_tpu_torch as pt
+    from pir_tpu_torch import kernel_times as kt
+    from pir_tpu_torch.bfv.multiply import rns_tool_for
+    from pir_tpu_torch.ops import keyswitch, scan
+
+    n = 4096
+    ep = kt.encryption_params("seal", n)
+    params = pt.create_pir_parameters(300, 288, 2, ep, use_ciphertext_multiplication=ct_mult)
+    L, Lp = len(ep.ct_modulus), len(ep.coeff_modulus)
+    monkeypatch.setattr(keyswitch, "SWITCH_CHUNK_BYTES", 2 * L * 2 * Lp * n * 8)
+    monkeypatch.setattr(scan, "CTMULT_STEP_BYTES", 2 * 3 * (L + 1) * L * n * 8)
+    items = [bytes([i % 251]) * 288 for i in range(params.num_items)]
+    db = pt.PirDatabase.create(items, params, scan_impl="xla", device="cpu")
+    client = pt.PirClient(params, seed=1, compress_queries=True, device="cpu")
+    server = pt.PirServer(db, params)
+    request = client.create_request([params.num_items - 1])
+    chains = {tuple(ep.ct_modulus): "q", tuple(ep.coeff_modulus): "qp"}
+    if ct_mult:
+        chains[rns_tool_for(db.ctx).bsk_moduli] = "bsk"
+    seen = {}
+
+    def recorder(fn, inverse):
+        def run(self, x):
+            key = (chains[self.moduli], x.numel() // (len(self.moduli) * n), inverse)
+            seen[key] = seen.get(key, 0) + 1
+            return fn(self, x)
+        return run
+
+    monkeypatch.setattr(tntt.NttTables, "forward", recorder(tntt.NttTables.forward, False))
+    monkeypatch.setattr(tntt.NttTables, "inverse", recorder(tntt.NttTables.inverse, True))
+    want = {}
+    for _, chain, batch, inverse, launches in kt.served_ntt_launches(n, ct_mult,
+                                                                     params.dimensions):
+        want[chain, batch, inverse] = want.get((chain, batch, inverse), 0) + launches
+    response = server.process_request(request)
+    monkeypatch.undo()
+    assert params.dimensions == (3, 3) and seen == want
+    if ct_mult:
+        # (the bench's 24-bit t leaves a ct-mult product at N=4096 no noise
+        # budget, so only the decomposition reply is decoded)
+        assert any(chain == "bsk" for chain, _, _ in seen)
+    else:
+        assert client.process_response([params.num_items - 1], response) == [items[-1]]
+
+
 @pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 9, 16, 32, 33, 64])
 @pytest.mark.parametrize(
     "P,L,N,D,hi_bytes",

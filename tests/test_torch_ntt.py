@@ -127,3 +127,41 @@ def test_monomial_shift(contexts, k):
     ref = jax.jit(lambda v: jpoly.multiply_inverse_power_of_x(jc, v, k))(jnp.asarray(x))
     got = tpoly.multiply_inverse_power_of_x(tc, tensor_u64(x), k)
     assert np.array_equal(numpy_u64(got), np.asarray(ref))
+
+
+def schoolbook_negacyclic(a, b, moduli):
+    """a*b mod (x^N + 1) per limb, in Python ints: u64[..., L, N] -> the
+    same shape (a and b broadcast)."""
+    a, b = np.broadcast_arrays(a, b)
+    n = a.shape[-1]
+    out = np.zeros(a.shape, dtype=np.uint64)
+    for idx in np.ndindex(a.shape[:-1]):
+        full = np.convolve(a[idx].astype(object), b[idx].astype(object))
+        wrapped = full[:n] - np.append(full[n:], 0)
+        out[idx] = [int(v) % moduli[idx[-1]] for v in wrapped]
+    return out
+
+
+@pytest.mark.parametrize(
+    "n,bits,a_batch,b_batch",
+    [(64, (26, 27, 28), (2,), (2,)), (128, (36, 37), (3,), (1,)),
+     (256, (45, 50), (), ()), (128, (58, 60), (2,), ()), (256, (55, 56, 60), (1,), (1,))],
+)
+def test_pointwise_mul_and_negacyclic_polymul(n, bits, a_batch, b_batch):
+    """NttTables.pointwise_mul and negacyclic_polymul (broadcasting batch
+    axes) equal pir_tpu's and a schoolbook product in Python ints, at moduli
+    where kernel A's butterflies grow (below 2^50 up to N=8192) and where
+    they reduce."""
+    jt, tt = tables(n, bits)
+    rng = np.random.default_rng(n + sum(bits))
+    a = rand_poly(rng, jt.moduli, n, a_batch)
+    b = rand_poly(rng, jt.moduli, n, b_batch)
+    pw = tt.pointwise_mul(tensor_u64(a), tensor_u64(b))
+    assert np.array_equal(numpy_u64(pw), np.asarray(jax.jit(jt.pointwise_mul)(a, b)))
+    assert np.array_equal(
+        numpy_u64(pw),
+        np.asarray((a.astype(object) * b.astype(object))
+                   % np.array(jt.moduli, dtype=object)[:, None], dtype=np.uint64))
+    got = numpy_u64(tt.negacyclic_polymul(tensor_u64(a), tensor_u64(b)))
+    assert np.array_equal(got, np.asarray(jax.jit(jt.negacyclic_polymul)(a, b)))
+    assert np.array_equal(got, schoolbook_negacyclic(a, b, jt.moduli))
