@@ -12,8 +12,9 @@ check every retrieved item.
 Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build kernels A (NTT), B (scan), C (wide scan) and D (Shoup-table scan)
-   from pir_tpu_torch/csrc with nvcc and the native bulk encoder
+2. build kernels A (NTT), B (scan), C (wide scan), D (Shoup-table scan) and
+   E (the key switch and the expansion's combine step) from
+   pir_tpu_torch/csrc with nvcc and the native bulk encoder
    (pir_tpu_torch/native/encoder.cpp) with g++, all at once;
 3. each kernel against its plain version on the card, bit for bit, at the
    shapes the main paths give it, with both times and the bound: A at each
@@ -33,7 +34,12 @@ Phases, each of which raises on failure:
    (a 2^20-item request's inner scan and phase 14's) and at N=32768
    (phase 20's inner scan [57, 57, 15, 32768], db and companions 25.5 GB,
    every prefix compared, a few at a time), and at phase 19's rank block of
-   the N=8192 ct-mult inner scan (57 of its 114 prefixes);
+   the N=8192 ct-mult inner scan (57 of its 114 prefixes); E's four entries
+   (E1 decompose, E2 digit inner product, E3 P-division, E4 combine) at
+   kernel_times.keyswitch_cases(): each expansion level of an N=4096
+   request on SEAL's chain and on tpu32, the first key-switch step of a
+   16-lane batch's last level, one step of N=32768's last level and one
+   relinearization step at N=32768;
 4. a small database (N=256) served on the card and on the CPU (plain
    versions): the Response bytes must be equal, and the card's request must
    have launched kernel A (the K3 row's launches);
@@ -42,6 +48,8 @@ Phases, each of which raises on failure:
    seeded queries, replies mod-switched by reply_limbs_for): three requests
    through PirServer.process_request, each reply decoded and compared with
    the item; the kernels' launch counts over those requests must be > 0;
+   then one more warm request under torch.profiler: the device kernels it
+   launched (profile_request.device_profile);
 6. indexing at full size: the benchmark data repeats a pool of 4,096 items,
    so rows 512 plaintexts apart hold equal bytes and a wrong row could still
    decode to the right item.  A second database of the same size with each
@@ -52,7 +60,8 @@ Phases, each of which raises on failure:
    launch kernel C and decode every item; each of its first 16 queries, sent
    alone in a Request with the same keys, must give the same reply bytes.
    Latency and queries/s of a 16-query batch against those 16 single-query
-   requests, and the batch's peak device memory;
+   requests, the batch's peak device memory and the device kernels one
+   16-query request launched (torch.profiler);
 8. the tpu32 profile (three 26-bit primes, a 30-bit special prime, no hi
    plane) on a stamped 2^20-item database: a batched request of 16 queries
    and the 16 single-query requests of its queries, every item decoded, the
@@ -207,18 +216,23 @@ written once) at 3.35 TB/s and its 32-bit integer multiply instructions at
 Hopper has 64 INT32 lanes per SM), counted for the arithmetic the kernel
 runs (12 multiplies a butterfly of kernel A where it grows, every modulus
 below 2^min(50, 63 - log2 N); 16 where it reduces; 7 a scan product with a
-hi plane, 3 without).  Kernel
+hi plane, 3 without; kernel E: 12 a one-word Barrett reduction or a 64 x 64
+-> 128-bit product, 40 a two-word reduction, 16 a Shoup product).  Kernel
 times are device times of back-to-back launches queued behind a
 device-side sleep.  No single PyTorch
-call computes a modular contraction or a negacyclic NTT, so library_ms is
-null for every kernel.
+call computes a modular contraction, a negacyclic NTT, an RNS
+decomposition, a scale-down by P or a signed shift-and-add mod q, so
+library_ms is null for every kernel.
 
 The line before the last is {"kernels": [...]}, one row per KERNEL_ROWS
 entry (every TPU kernel body of pir_tpu/ops/pallas_*.py): its launches
 summed over the served paths named in the row, its numbers from the named
 check (K3's from phase 20's selection-vector NTT at N=32768, its
 launches the N=256 path's and phases 20 and 22's: a check's launches are
-not counted); the last line is
+not counted), then one row per XLA_KERNEL_ROWS entry (kernel E's entries,
+which replace code pir_tpu leaves to XLA: a table of their own, their
+launches summed over every served path, their numbers from the main
+path's last expansion level, N=4096 on SEAL's chain); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero before printing any result.
 """
@@ -313,6 +327,26 @@ KERNEL_ROWS = (
                ("ctmult_mesh", "pir_scan_shoup"), ("n32768", "pir_scan_shoup"),
                ("ctmult16384", "pir_scan_shoup"), ("n32768_ctmult", "pir_scan_shoup")), "K7"),
 )
+
+# Kernel E's entries: they replace code that pir_tpu leaves to XLA (not a
+# Pallas body), so they are a table of their own; each is launched by every
+# served path (the expansion; ct-mult's relinearization too), and
+# E4 by every path that expands.
+XLA_KERNEL_ROWS = (
+    KernelRow("keyswitch decompose (E1)", "keyswitch.cu",
+              ("pir_tpu/ops/keyswitch.py:132", "pir_tpu/ops/poly.py:19"),
+              (("*", "pir_ks.decompose"),), "E1"),
+    KernelRow("keyswitch digit inner product (E2)", "keyswitch.cu",
+              ("pir_tpu/ops/keyswitch.py:52",), (("*", "pir_ks.inner"),), "E2"),
+    KernelRow("keyswitch P-division (E3)", "keyswitch.cu",
+              ("pir_tpu/ops/keyswitch.py:158", "pir_tpu/ops/keyswitch.py:190",
+               "pir_tpu/ops/keyswitch.py:207"), (("*", "pir_ks.moddown"),), "E3"),
+    KernelRow("expansion combine (E4)", "keyswitch.cu", ("pir_tpu/ops/expand.py:46",),
+              (("*", "pir_ks.combine"),), "E4"),
+)
+KEYSWITCH_HEAD = "N=4096 seal expansion 8"  # kernel E's numbers in the kernels line
+KEYSWITCH_VARIANTS = ("pir_ks.decompose", "pir_ks.inner", "pir_ks.moddown", "pir_ks.combine")
+
 
 # ciphertext-multiplication rows of REFERENCE_MATRIX (tests/test_correctness.py):
 # (N, plain-modulus bits, item bytes (0: a whole plaintext), bits per
@@ -457,6 +491,21 @@ def check_scan_shoup(device, gen) -> dict:
     return next({k: r[k] for k in NUMBERS} for r in rows if r["label"] == "K7 inner")
 
 
+def check_keyswitch(device, gen) -> dict:
+    """Kernel E's four entries vs their plain versions (tolerance 0), timed
+    with their bounds, at kernel_times.keyswitch_cases().  Returns the
+    headline case's numbers by entry (E1-E4)."""
+    rows = kt.time_keyswitch(device, gen)
+    for r in rows:
+        log(kt.keyswitch_line(r))
+    for case in dict.fromkeys(r["label"] for r in rows):
+        mine = [r for r in rows if r["label"] == case]
+        log(f"kernel E at {case}: sum of times {sum(r['ms'] for r in mine):.4f} ms, of plain "
+            f"{sum(r['plain_ms'] for r in mine):.4f} ms, of bounds "
+            f"{sum(r['bound_ms'] for r in mine):.4f} ms")
+    return {r["entry"]: {k: r[k] for k in NUMBERS} for r in rows if r["label"] == KEYSWITCH_HEAD}
+
+
 def check_small_against_cpu(device) -> dict:
     """A small database (N=256, K3's ring) served on the card and on the CPU
     (plain versions of the kernels) must give byte-identical Responses.
@@ -545,7 +594,21 @@ def serve_bench_config(device, log2_items: int):
         f"{', '.join(f'{x:.2f}' for x in latencies[1:])} ms")
     log(f"kernel launches during the 3 requests: {counts}")
     require(counts, ("pir_ntt.grow", "pir_scan.hi"), "single-query")
+    log_device_launches("single-query", server.process_request, requests[1])
     return counts, params, client, raw
+
+
+def log_device_launches(label: str, serve, request) -> None:
+    """One warm request under torch.profiler: the device kernels it launched
+    (copies and fills apart), its device time and busy share."""
+    from pir_tpu_torch.profile_request import device_profile
+
+    prof = device_profile(serve, [request])
+    log(f"{label}: one warm request under torch.profiler launched {prof['device_kernels']} "
+        f"device kernels ({prof['device_events']} device events with copies and fills); "
+        f"device {prof['device_ms_merged']:.3f} ms of {prof['wall_ms']:.3f} ms wall (busy "
+        f"{prof['busy_share']:.3f}); hand-written kernels (ms) "
+        f"{prof['hand_kernels_ms_per_request']}")
 
 
 def stamped_items(raw) -> list:
@@ -644,6 +707,7 @@ def serve_batched(server, client, items, indexes, label: str) -> dict:
     log(f"{label}: warm batched request of {n16}: {batch16_ms:.2f} ms "
         f"({n16 / batch16_ms * 1e3:.2f} queries/s), {seq_ms / batch16_ms:.2f}x the "
         f"sequential rate")
+    log_device_launches(f"{label} batched {n16}", server.process_request_batched, request16)
     return counts
 
 
@@ -1512,6 +1576,7 @@ def main() -> int:
     scan = check_scan(device, gen)
     wide = check_scan_wide(device, gen)
     shoup = check_scan_shoup(device, gen)
+    keyswitch = check_keyswitch(device, gen)
     ntt_large, reduce_launches = check_ntt_large(device, gen)
     small = check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
@@ -1561,16 +1626,24 @@ def main() -> int:
              "shard_mesh": shard_mesh, **checkpoint, **seal,
              "ctmult_ref_mesh": ctmult_ref_mesh, "ctmult_mesh": ctmult_mesh, **packed,
              **n32768}
-    checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup}
+    checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup, **keyswitch}
     for row in KERNEL_ROWS:  # every (path, variant) a row counts was launched
         for path, variant in row.launches:
             require(paths[path], (variant,), path)
+    for path, counts in paths.items():  # every served path switched keys through kernel E
+        require(counts, KEYSWITCH_VARIANTS, path)
+        log(f"{path}: kernel E launches " + ", ".join(f"{v} {counts[v]}" for v in KEYSWITCH_VARIANTS)
+            + f"; every counted launch {sum(counts.values())}")
+
+    def launches(row):
+        return sum(counts.get(variant, 0) for path, variant in row.launches
+                   for counts in (paths.values() if path == "*" else [paths[path]]))
+
     print(json.dumps({"kernels": [
         {"name": row.name, "route": "cuda", "source": "pir_tpu_torch/csrc/" + row.source,
-         "replaces": ", ".join(row.replaces),
-         "launches": sum(paths[path][variant] for path, variant in row.launches),
+         "replaces": ", ".join(row.replaces), "launches": launches(row),
          **checks[row.check], "library_ms": None}
-        for row in KERNEL_ROWS
+        for row in KERNEL_ROWS + XLA_KERNEL_ROWS
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -23,6 +23,7 @@ class PirContext:
     # Set on the per-rank views of a limb-sharded mesh
     # (parallel/sharded.py); the base context is always limb-dense.
     limb_axis_name: "str | None" = None
+    ct_limb_offset = 0  # the first ciphertext limb this context owns
 
     @classmethod
     def for_params(cls, params: PirParams, device=None) -> "PirContext":
@@ -86,9 +87,9 @@ class PirContext:
 
     def take_ct_limbs(self, x: torch.Tensor) -> torch.Tensor:
         """The ciphertext-level limbs this context owns out of a
-        key-basis tensor [..., Lp, N].  Limb-shard views override this with
-        the rank's own slice."""
-        return x[..., : self.L, :]
+        key-basis tensor [..., Lp, N]: L of them from ct_limb_offset (a
+        limb-shard view's rank slice; 0 and all of them here)."""
+        return x[..., self.ct_limb_offset : self.ct_limb_offset + self.L, :]
 
     # ------------------------------------------------------------------
     # Permutation tables (Galois automorphisms, negacyclic monomial shifts)

@@ -1,14 +1,17 @@
-"""Device times of kernels A (NTT), B (scan), C (wide scan) and D
-(Shoup-table scan) at the shapes one request at the bench configuration
+"""Device times of kernels A (NTT), B (scan), C (wide scan), D
+(Shoup-table scan) and E (the key switch's entries E1-E4) at the shapes one
+request at the bench configuration
 gives them (2^20 items of 288 B, d=2, N=4096, SEAL's chain; the tpu32
 profile and one rank of the meshes for kernel B's other cases; a batched
 request of 16 queries for kernel C), and at the rings above N=4096
 (:func:`large_ring_shapes`, :func:`scan_cases`, :func:`wide_cases`,
 :func:`shoup_cases`), and kernel A at every launch of a served request at
-N=32768 in either mode (:func:`served_ntt_launches`), each checked
-bit-equal to its plain version first.  ``chip_smoke.py`` makes its checks of the four kernels
-through :func:`time_ntt`, :func:`time_ntt_large`, :func:`time_ntt_served`,
-:func:`time_scan`, :func:`time_wide` and :func:`time_shoup`.
+N=32768 in either mode (:func:`served_ntt_launches`), and kernel E at
+:func:`keyswitch_cases`, each checked bit-equal to its plain version first.
+``chip_smoke.py`` makes its checks of the five kernels through
+:func:`time_ntt`, :func:`time_ntt_large`, :func:`time_ntt_served`,
+:func:`time_scan`, :func:`time_wide`, :func:`time_shoup` and
+:func:`time_keyswitch`.
 
     python3 pir_tpu_torch/kernel_times.py --out chiprun_out/times.json
     python3 pir_tpu_torch/kernel_times.py --root build/parent --label parent
@@ -38,6 +41,12 @@ MULS_SHOUP = 16
 MULS_SHOUP_GROW = 12  # kernel A's growing butterflies: the quotient from 3 partial products
 MULS_48BIT = 7   # per product with a hi plane (the three-word sum, modarith.cuh::mac96)
 MULS_32BIT = 3   # without
+# kernel E: a 64-bit product's low word 4, high word 8 (as above); a
+# one-word Barrett reduction a high and a low product, a two-word one
+# (modarith.cuh::barrett_reduce_128) three high and four low products
+MULS_WIDE = 12  # E2's full 64 x 64 -> 128-bit product
+MULS_BARRETT64 = 12
+MULS_BARRETT128 = 40
 POLY_DEGREE = 4096
 PLAIN_BITS = 24
 ITEMS, ITEM_BYTES, DIMS = 1 << 20, 288, 2  # the request the large rings' shapes come from
@@ -597,6 +606,144 @@ def time_shoup(device, gen, cases=None, plain: bool = False, reps: int = 10) -> 
     return rows
 
 
+KS_LEVELS_N = POLY_DEGREE  # kernel E: each expansion level of a request at this ring
+BATCH_LANES = 16  # kernel E: the batched request's lanes
+
+
+def switch_step_rows(L: int, Lp: int, n: int) -> int:
+    """Rows a key-switch step takes (ops.keyswitch.SWITCH_CHUNK_BYTES)."""
+    from pir_tpu_torch.ops import keyswitch
+
+    return max(1, keyswitch.SWITCH_CHUNK_BYTES // (L * 2 * Lp * n * 8))
+
+
+def keyswitch_cases() -> "list[tuple[str, str, int, int, int | None, tuple | None]]":
+    """(label, profile, n, rows, level, trees) of kernel E's served shapes:
+    every expansion level j of a 2^20-item single-query request at N=4096 on
+    SEAL's chain and on tpu32 (2^j rows, one step); the first step of a
+    16-lane batched request's last level (its combine on the level's 16
+    trees); one step of the last level at N=32768 (SEAL's chain; the combine
+    on the whole level); one relinearization step of a ciphertext-
+    multiplication request at N=32768 (level None: no permutation, the
+    product's c0 and c1 added, no combine).  E1-E3 take `rows` rows; E4
+    takes `trees` = (Q, B): Q trees of B ciphertexts (Q 0: one tree on
+    axis 0)."""
+    from pir_tpu_torch.utils.math import ceil_log2
+
+    cases = []
+    for profile in ("seal", "tpu32"):
+        ep = encryption_params(profile)
+        for j in range(ceil_log2(min(sum(request_dims(ep)), KS_LEVELS_N))):
+            cases.append((f"N=4096 {profile} expansion {j}", profile, KS_LEVELS_N, 1 << j, j,
+                          (0, 1 << j)))
+    ep = encryption_params()
+    j = ceil_log2(min(sum(request_dims(ep)), POLY_DEGREE)) - 1
+    rows = min(BATCH_LANES << j, switch_step_rows(len(ep.ct_modulus), len(ep.coeff_modulus),
+                                                  POLY_DEGREE))
+    cases.append((f"N=4096 seal batched {BATCH_LANES} lanes, expansion {j}", "seal",
+                  POLY_DEGREE, rows, j, (BATCH_LANES, 1 << j)))
+    ep = encryption_params("seal", SERVED_N)
+    L, Lp = len(ep.ct_modulus), len(ep.coeff_modulus)
+    j = ceil_log2(min(sum(request_dims(ep)), SERVED_N)) - 1
+    cases.append((f"N={SERVED_N} seal expansion {j}", "seal", SERVED_N,
+                  min(1 << j, switch_step_rows(L, Lp, SERVED_N)), j, (0, 1 << j)))
+    rows = behz_step_rows(ep, request_dims(ep, ct_mult=True)[0])
+    cases.append((f"N={SERVED_N} seal relinearization", "seal", SERVED_N,
+                  min(rows, switch_step_rows(L, Lp, SERVED_N)), None, None))
+    return cases
+
+
+def keyswitch_bounds(L: int, Lp: int, n: int, rows: int, galois: bool, addends: int,
+                     ciphertexts: int) -> dict:
+    """Each entry's bound: E1 reads rows x L words (and the permutation)
+    and writes them reduced mod Lp primes, a one-word Barrett reduction
+    each; E2 reads the digits and the key and writes [rows, 2, Lp, N], a
+    wide product per (row, digit, output) and a two-word reduction per
+    output; E3 reads the output limbs and P's of acc and the addends and
+    writes [rows, 2, L, N], a one-word reduction and a Shoup product each;
+    E4 reads `ciphertexts` ciphertexts and their substitutions and writes
+    twice as many, no multiplies."""
+    perm = (9 * n) if galois else 0
+    return {
+        "E1": bound(rows * L * n * 8 + perm + rows * L * Lp * n * 8,
+                    rows * L * Lp * n * MULS_BARRETT64),
+        "E2": bound((rows * L * Lp * n + L * 2 * Lp * n + rows * 2 * Lp * n) * 8,
+                    rows * L * Lp * n * 2 * MULS_WIDE + rows * 2 * Lp * n * MULS_BARRETT128),
+        "E3": bound((rows * 2 * (L + 1) * n + addends * rows * L * n + rows * 2 * L * n) * 8
+                    + (perm if addends else 0),
+                    rows * 2 * L * n * (MULS_BARRETT64 + MULS_SHOUP)),
+        "E4": bound(ciphertexts * 2 * L * n * 8 * 4, 0),
+    }
+
+
+def time_keyswitch(device, gen, cases=None, plain: bool = True, reps: int = 10) -> "list[dict]":
+    """Kernel E's four entries at `cases` (default keyswitch_cases()), each
+    on random words of the case's shape: bit-equal to its plain version,
+    then timed (and the plain version where `plain`), with its bound.  One
+    row per (case, entry)."""
+    import torch
+
+    from pir_tpu_torch.core.context import PirContext
+    from pir_tpu_torch.core.params import create_pir_parameters
+    from pir_tpu_torch.ops import expand, keyswitch
+
+    rows_out = []
+    for label, profile, n, rows, level, trees in cases if cases is not None else keyswitch_cases():
+        ep = encryption_params(profile, n)
+        ctx = PirContext.for_params(create_pir_parameters(ITEMS, ITEM_BYTES, DIMS, ep), device)
+        L, Lp = ctx.L, ctx.Lp
+        galois = level is not None
+        perm = ctx.galois_permutation((n >> level) + 1) if galois else None
+        polys = 2 if galois else 3
+        ct = random_residues(ctx.ct_moduli, (rows, polys), n, device, gen)
+        addends = (ct[:, 0], None) if galois else (ct[:, 0], ct[:, 1])
+        digits = random_residues(ctx.key_moduli, (rows, L), n, device, gen)
+        key = random_residues(ctx.key_moduli, (L, 2), n, device, gen)
+        acc = random_residues(ctx.key_moduli, (rows, 2), n, device, gen)
+        entries = {
+            "E1": (lambda: keyswitch.decompose_cuda(ctx, ct[:, polys - 1], perm),
+                   lambda: keyswitch.decompose_plain(ctx, ct[:, polys - 1], perm)),
+            "E2": (lambda: keyswitch.inner_product_cuda(ctx.limbs_qp, digits, key),
+                   lambda: keyswitch.inner_product_plain(ctx, digits, key)),
+            "E3": (lambda: keyswitch.mod_down_cuda(ctx, acc, addends, perm),
+                   lambda: keyswitch.mod_down_plain(ctx, acc, addends, perm)),
+        }
+        count = 0
+        if trees is not None:
+            q, b = trees
+            shape = (b, 2) if q == 0 else (q, b, 2)
+            cts = random_residues(ctx.ct_moduli, shape, n, device, gen)
+            sub = random_residues(ctx.ct_moduli, shape, n, device, gen)
+            axis = 0 if q == 0 else 1
+            count = max(q, 1) * b
+            entries["E4"] = (lambda: expand.combine_cuda(ctx, cts, sub, level, axis),
+                             lambda: expand.combine_plain(ctx, cts, sub, level, axis))
+        bounds = keyswitch_bounds(L, Lp, n, rows, galois, sum(a is not None for a in addends),
+                                  count)
+        for entry, (kernel, reference) in entries.items():
+            got = kernel()
+            err = max_abs_err(got, reference())
+            if err:
+                raise AssertionError(f"kernel {entry} differs from plain at {label}: {err}")
+            row = {"label": label, "entry": entry, "shape": list(got.shape), "max_abs_err": err,
+                   "ms": device_ms(kernel, reps), **bounds[entry]}
+            if plain:
+                row["plain_ms"] = device_ms(reference, 1 if n == SERVED_N else 3)
+            rows_out.append(row)
+            del got
+        del ct, addends, digits, key, acc, entries
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def keyswitch_line(r) -> str:
+    return (f"kernel {r['entry']} {r['label']} -> {r['shape']}: bit-equal to plain "
+            f"(max_abs_err {r['max_abs_err']}); {r['ms']:.4f} ms"
+            + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound)")
+
+
 def ntt_line(r) -> str:
     checks = "bit-equal to plain" + ("" if "grow" in r else ", round trip exact")
     if "launches" in r:
@@ -660,7 +807,7 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     from pir_tpu_torch import kernels
 
-    for k in (kernels.NTT, kernels.SCAN, kernels.SCAN_WIDE, kernels.SCAN_SHOUP):
+    for k in kernels.REGISTRY.values():
         k.lib()
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -672,14 +819,17 @@ def main(argv=None) -> int:
     scan = time_scan(device, gen)
     wide = time_wide(device, gen)
     shoup = time_shoup(device, gen)
+    keyswitch = time_keyswitch(device, gen) if hasattr(kernels, "KEYSWITCH") else []
     request_ms, request_bound_ms = request_sums(ntt)
     result = {"label": args.label, "package": pir_tpu_torch.__file__, "card": card,
               "ntt": ntt, "ntt_large": large, "ntt_served": served,
               "ntt_served_ct_mult": served_ct, "scan": scan, "wide": wide, "shoup": shoup,
+              "keyswitch": keyswitch,
               "ntt_request_ms": request_ms, "ntt_request_bound_ms": request_bound_ms}
     for line in ([ntt_line(r) for r in ntt + large + served + served_ct]
                  + [scan_line(r) for r in scan]
-                 + [wide_line(r) for r in wide] + [shoup_line(r) for r in shoup]):
+                 + [wide_line(r) for r in wide] + [shoup_line(r) for r in shoup]
+                 + [keyswitch_line(r) for r in keyswitch]):
         print(f"[{args.label}] {line}", flush=True)
     print(f"[{args.label}] kernel A over one request's 22 launches: "
           f"{request_ms:.4f} ms (bound {request_bound_ms:.4f}); {card}")

@@ -12,9 +12,10 @@ Every C entry point launches on the stream it is handed and returns
 and otherwise adds one to the kernel's ``launches`` count and to the count
 of the variant it launched (``entry_point.variant``, e.g. ``pir_scan.u32``,
 ``pir_scan.hi.dyn`` for the runtime-moduli entry of a limb-sharded mesh, or
-``pir_ntt.grow`` / ``pir_ntt.reduce`` for kernel A's two butterflies)
-— the counts a run reads to show that its main path went through each
-kernel and each of its variants.
+``pir_ntt.grow`` / ``pir_ntt.reduce`` for kernel A's two butterflies; a
+kernel may count an entry point under a name of its own, e.g. kernel E's
+``pir_ks.inner``) — the counts a run reads to show that its main path went
+through each kernel and each of its variants.
 """
 
 from __future__ import annotations
@@ -54,10 +55,11 @@ def nvcc_path() -> str:
 class CudaKernel:
     """One csrc/ source, its C entry points and a launch counter."""
 
-    def __init__(self, name: str, source: str, entry_points: dict):
+    def __init__(self, name: str, source: str, entry_points: dict, counted_as=None):
         self.name = name
         self.source = CSRC / source
         self._entry_points = entry_points  # C function -> argtypes
+        self._counted_as = counted_as or {}  # C function -> its name in the counts
         self.launches = 0
         self.variant_launches: "dict[str, int]" = {}
         self.build_seconds: "float | None" = None
@@ -111,7 +113,8 @@ class CudaKernel:
             msg = lib.cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({rc})")
         self.launches += 1
-        key = fn_name if variant is None else f"{fn_name}.{variant}"
+        base = self._counted_as.get(fn_name, fn_name)
+        key = base if variant is None else f"{base}.{variant}"
         self.variant_launches[key] = self.variant_launches.get(key, 0) + 1
 
 
@@ -161,4 +164,19 @@ SCAN_WIDE = CudaKernel("scan_wide", "scan_wide.cu",
 SCAN_SHOUP = CudaKernel(
     "scan_shoup", "scan_shoup.cu",
     {"pir_scan_shoup": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P]},
+)
+# kernel E, the key switch and the expansion's combine step:
+# in, in_row_stride, src, flip, q_in, qp, out, R, L, Lp, N, stream
+# digits, key, qp, out, R, L, Lp, N, stream
+# acc, lq, p_half_mod_q, p_inv, p_inv_shoup, add0, add1, add_row_stride, src, flip,
+#   out, R, L, Lp, offset, N, P, p_half, stream
+# cts, sub, lq, out, Q, B, polys, L, N, shift_a, shift_b, stream
+KEYSWITCH = CudaKernel(
+    "keyswitch", "keyswitch.cu",
+    {"pir_ks_decompose": [_P, _I64, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _P],
+     "pir_ks_inner": [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P],
+     "pir_ks_moddown": [_P] * 7 + [_I64, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I64, _P],
+     "pir_expand_combine": [_P] * 4 + [_I64, _I64, _I32, _I32, _I64, _I64, _I64, _P]},
+    counted_as={"pir_ks_decompose": "pir_ks.decompose", "pir_ks_inner": "pir_ks.inner",
+                "pir_ks_moddown": "pir_ks.moddown", "pir_expand_combine": "pir_ks.combine"},
 )

@@ -1,8 +1,9 @@
-"""Peak transient device memory of the three plain-torch stages whose steps
-bound the N=32768 path's memory, at a 2^20-item request's shapes on SEAL's
-chain (15 × 55-bit primes and a 56-bit special prime): one key switch over
-2^j ciphertexts in a single step (``ops/keyswitch.py::apply_galois`` with
-SWITCH_CHUNK_BYTES lifted), one upper-level contraction of k digit
+"""Peak transient device memory of the three stages whose steps bound the
+N=32768 path's memory, at a 2^20-item request's shapes on SEAL's chain (15 ×
+55-bit primes and a 56-bit special prime): one key switch over 2^j
+ciphertexts in a single step (``ops/keyswitch.py::apply_galois`` with
+SWITCH_CHUNK_BYTES lifted: kernels E and A, its transients per ciphertext
+beside its digit products'), one upper-level contraction of k digit
 columns over D_0 rows (``ops/scan.py::contract_dim``), and one
 ciphertext-multiplication step over r rows of the upper dimension
 (``bfv/multiply.py::bfv_multiply`` of r ciphertexts by r selection
@@ -84,6 +85,8 @@ def main(argv=None) -> int:
             cts = kt.random_residues(ep.ct_modulus, (count, 2), n, device, gen)
             row = {"ciphertexts": count, "products_gb": count * L * 2 * Lp * n * 8 / 1e9,
                    **_transient(lambda: keyswitch.apply_galois(ctx, key, cts, 3), device)}
+            if "transient_gb" in row:
+                row["transient_gb_per_ciphertext"] = row["transient_gb"] / count
             result["switch"].append(row)
             print(f"key switch of {count} ciphertexts in one step at N={n}: {row} ({card})",
                   flush=True)

@@ -7,14 +7,17 @@ mesh forms ``expand_single_sharded`` / ``expand_query_sharded`` of
 one-hot polynomial into m ciphertexts, the k-th encrypting coefficient k
 (scaled by next_power_two(m) — the client pre-cancels this with an m⁻¹
 factor).  The 2^j ciphertexts at level j are one batched tensor
-[2^j, 2, L, N]; each level is one batched apply_galois plus two
-sign-permutation gathers and two adds.
+[2^j, 2, L, N]; each level is one batched apply_galois and one
+:func:`combine` (two negacyclic shifts and two adds: kernel E4 on a card).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from pir_tpu_torch import kernels
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import keyswitch, modular, poly
 from pir_tpu_torch.utils.math import ceil_log2, next_power_two
@@ -29,18 +32,57 @@ def expand_level(
     axis: which axis doubles — batched serving runs Q trees as
     int64[Q, B, 2, L, N] with axis=1 (every step is batched over leading
     axes)."""
-    n = ctx.n
+    sub = keyswitch.apply_galois(ctx, galois_keys, cts, (ctx.n >> j) + 1)
+    return combine(ctx, cts, sub, j, axis)
+
+
+def combine(ctx, cts: torch.Tensor, sub: torch.Tensor, j: int, axis: int = 0) -> torch.Tensor:
+    """Level j's doubling of cts and their substitutions sub (both
+    [..., B, 2, L, N], B on `axis`): [..., 2B, 2, L, N] holding
+    upper = cts + sub, then lower = cts·x^{-2^j} + sub·x^{-(N+2^j)}.  Kernel
+    E4 on a CUDA tensor, the plain version on a CPU one."""
+    if cts.is_cuda:
+        return combine_cuda(ctx, cts, sub, j, axis)
+    return combine_plain(ctx, cts, sub, j, axis)
+
+
+def combine_plain(ctx, cts: torch.Tensor, sub: torch.Tensor, j: int, axis: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of :func:`combine`."""
     q = ctx.limbs_q.q
-    galois_elt = (n >> j) + 1
-    sub = keyswitch.apply_galois(ctx, galois_keys, cts, galois_elt)
-    # new upper half: c·x^{-2^j} + Sub(c)·x^{-(N+2^j)}
     lower = modular.add_mod(
         poly.multiply_inverse_power_of_x(ctx, cts, 1 << j),
-        poly.multiply_inverse_power_of_x(ctx, sub, n + (1 << j)),
+        poly.multiply_inverse_power_of_x(ctx, sub, ctx.n + (1 << j)),
         q,
     )
     upper = modular.add_mod(cts, sub, q)
     return torch.cat([upper, lower], dim=axis)
+
+
+def combine_cuda(ctx, cts: torch.Tensor, sub: torch.Tensor, j: int, axis: int = 0) -> torch.Tensor:
+    """Kernel E4 (``pir_expand_combine``): both halves written straight into
+    the doubled output, the Q = prod(shape[:axis]) trees interleaved as
+    [Q, 2B, ...]."""
+    keyswitch.require_cuda(cts, "cts")
+    keyswitch.require_cuda(sub, "sub")
+    if cts.shape != sub.shape:
+        raise ValueError(f"combine needs two tensors of one shape, got {tuple(cts.shape)} "
+                         f"and {tuple(sub.shape)}")
+    L, n = cts.shape[-2:]
+    if L != len(ctx.limbs_q.moduli) or not 0 <= j < n.bit_length() - 1:
+        raise ValueError(f"combine at level {j} of [..., {L}, {n}] under "
+                         f"{len(ctx.limbs_q.moduli)} limbs")
+    axis %= cts.dim()
+    B = cts.shape[axis]
+    out = torch.empty((*cts.shape[:axis], 2 * B, *cts.shape[axis + 1:]), dtype=torch.int64,
+                      device=cts.device)
+    if out.numel() == 0:
+        return out
+    cts, sub = cts.contiguous(), sub.contiguous()
+    kernels.KEYSWITCH.launch(
+        "pir_expand_combine", cts.data_ptr(), sub.data_ptr(), ctx.limbs_q.table.data_ptr(),
+        out.data_ptr(), math.prod(cts.shape[:axis]), B, math.prod(cts.shape[axis + 1:-2]), L,
+        n, 1 << j, n + (1 << j), kernels.stream_handle(cts))
+    return out
 
 
 def expand_single(

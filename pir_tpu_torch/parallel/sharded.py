@@ -186,8 +186,8 @@ class _LimbShardView:
         self.limb_axis_name = axis_name
         l_local = ctx.L // mesh.size(axis_name)
         self.L = l_local
-        self._offset = mesh.coord(axis_name) * l_local
-        lo, hi = self._offset, self._offset + l_local
+        self.ct_limb_offset = mesh.coord(axis_name) * l_local
+        lo, hi = self.ct_limb_offset, self.ct_limb_offset + l_local
         self.ntt_q = ctx.ntt_q.limb_range(lo, hi)
         self.limbs_q = self.ntt_q.limbs
         if ctx.special is not None:
@@ -224,7 +224,7 @@ class _LimbShardView:
 
     def take_ct_limbs(self, x):
         """This rank's ciphertext-level limbs out of a key-basis tensor."""
-        return x[..., self._offset : self._offset + self.L, :]
+        return PirContext.take_ct_limbs(self, x)
 
     def __getattr__(self, name):
         return getattr(self._ctx, name)

@@ -29,7 +29,12 @@ measures warm single-query requests, or with ``--batched Q`` warm
   device kernels and copies launched, their summed and merged device time,
   the wall time, the busy share (merged device time / wall), the device
   time by kernel name, a request's device time in each hand-written kernel
-  (A-D) and in everything else (plain-torch kernels, copies).
+  (A-E) and in everything else (plain-torch kernels, copies), and the
+  device kernels a request launched (``device_kernels``: copies and fills
+  apart);
+* ``stage_kernels``: the device kernels each stage of one more staged
+  request launched, under torch.profiler (each kernel counted in the stage
+  whose closing synchronization follows its end).
 
 With ``--stream D`` it measures ``process_stream`` at depth D instead of
 the stages (``stream``): ``--windows`` windows of ``--spread`` requests,
@@ -69,8 +74,12 @@ CLIENT_SEED = 7
 # (ntt_top_kernel: the top-stage pass of kernel A's earlier two-kernel split
 # rings, so that an older tree profiles with this file too)
 HAND_KERNELS = {"ntt_kernel": "A", "ntt_cluster_kernel": "A", "ntt_top_kernel": "A",
-                "scan_kernel": "B", "scan_wide_kernel": "C", "scan_shoup_kernel": "D"}
+                "scan_kernel": "B", "scan_wide_kernel": "C", "scan_shoup_kernel": "D",
+                "ks_decompose_kernel": "E", "ks_inner_kernel": "E", "ks_moddown_kernel": "E",
+                "expand_combine_kernel": "E"}
 _HAND_KERNEL = re.compile(r"\b(" + "|".join(HAND_KERNELS) + r")\b")
+_NOT_A_KERNEL = ("Memcpy", "Memset")  # device events that are copies and fills
+LAP_MARK = "stage done: "
 
 
 def _sync(device: torch.device) -> None:
@@ -79,16 +88,22 @@ def _sync(device: torch.device) -> None:
 
 
 class _Laps:
-    """Host-clock laps between device synchronizations, summed by name."""
+    """Host-clock laps between device synchronizations, summed by name;
+    with ``marks`` each lap also leaves a profiler range named
+    LAP_MARK + the stage's name, right after its synchronization."""
 
-    def __init__(self, ms: dict, device: torch.device):
+    def __init__(self, ms: dict, device: torch.device, marks: bool = False):
         self.ms = ms
         self.device = device
+        self.marks = marks
         _sync(device)
         self.t = time.perf_counter()
 
     def lap(self, name: str) -> float:
         _sync(self.device)
+        if self.marks:
+            with torch.profiler.record_function(LAP_MARK + name):
+                pass
         now = time.perf_counter()
         ms = (now - self.t) * 1e3
         self.ms[name] = self.ms.get(name, 0.0) + ms
@@ -96,15 +111,16 @@ class _Laps:
         return ms
 
 
-def staged_request(server: pt.PirServer, request, stages: dict, levels: list):
+def staged_request(server: pt.PirServer, request, stages: dict, levels: list,
+                   marks: bool = False):
     """process_request for a one-query request, one synchronized stage at a
     time (the same calls, in the same order); adds each stage's ms to
     ``stages`` and each expansion level's ms to ``levels``.  In
     ciphertext-multiplication mode the scan's BEHZ multiplies and
     relinearizations are stages of their own, apart from its inner scan and
-    the sums of its steps."""
+    the sums of its steps.  ``marks``: see _Laps."""
     ctx = server.ctx
-    clock = _Laps(stages, server.device)
+    clock = _Laps(stages, server.device, marks)
     keys, relin_key = server._device_keys(request)
     cts = server._upload(wire.load_ciphertexts(request.query[0], ctx), 0)
     clock.lap("load query + keys")
@@ -197,6 +213,8 @@ def device_profile(serve, requests) -> dict:
     return {
         "requests": len(requests),
         "device_events": len(events),
+        "device_kernels": sum(not e.name.startswith(_NOT_A_KERNEL) for e in events)
+        / len(requests),
         "device_ms_summed": sum(v[1] for v in by_name.values()) / 1e3,
         "device_ms_merged": merged_us / 1e3,
         "wall_ms": wall_ms,
@@ -209,6 +227,28 @@ def device_profile(serve, requests) -> dict:
             {"name": name[:120], "count": c, "ms": us / 1e3} for name, (c, us) in top
         ],
     }
+
+
+def stage_kernels(server, request) -> dict:
+    """The device kernels (copies and fills apart) each stage of one staged
+    request launched: each kernel counted in the first stage whose closing
+    mark (taken right after the stage's synchronization) follows its end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(server.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        staged_request(server, request, {}, [0.0] * 16, marks=True)
+    events = prof.events()
+    marks = sorted((e.time_range.start, e.name[len(LAP_MARK):]) for e in events
+                   if e.name.startswith(LAP_MARK))
+    counts = {name: 0 for _, name in marks}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith(_NOT_A_KERNEL):
+            continue
+        stage = next((name for t, name in marks if t >= e.time_range.end), "after the last mark")
+        counts[stage] = counts.get(stage, 0) + 1
+    return counts
 
 
 def stream_profile(server, requests, depth: int, windows: int) -> dict:
@@ -370,6 +410,7 @@ def main(argv=None) -> int:
         serve(req)
         latency.append((time.perf_counter() - t0) * 1e3)
     prof = device_profile(serve, requests[1 : 1 + profiled])
+    per_stage = {} if args.batched else stage_kernels(server, requests[1])
 
     result = {
         "card": smi,
@@ -383,6 +424,7 @@ def main(argv=None) -> int:
         "expansion_levels_ms": levels,
         "latency_ms": latency,
         "profiler": prof,
+        "stage_kernels": per_stage,
     }
     total = result["stages_total_ms"]
     print(f"database: {db_size} items, built in {build_s:.2f} s", flush=True)
@@ -395,7 +437,11 @@ def main(argv=None) -> int:
           + ", ".join(f"{x:.2f}" for x in latency))
     print(f"profiler, {prof['requests']} requests: {prof['device_events']} device "
           f"events, device {prof['device_ms_merged']:.3f} ms (merged) of "
-          f"{prof['wall_ms']:.3f} ms wall, busy share {prof['busy_share']:.3f}")
+          f"{prof['wall_ms']:.3f} ms wall, busy share {prof['busy_share']:.3f}; "
+          f"{prof['device_kernels']:.1f} device kernels a request")
+    if per_stage:
+        print("device kernels by stage of one staged request: " + ", ".join(
+            f"{k} {v}" for k, v in per_stage.items()) + f" (sum {sum(per_stage.values())})")
     print("hand-written kernels, device ms a request: " + ", ".join(
         f"{k} {ms:.3f} ({ms / (prof['wall_ms'] / prof['requests']):.2%} of the request)"
         for k, ms in prof["hand_kernels_ms_per_request"].items())

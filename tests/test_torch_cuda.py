@@ -1,8 +1,10 @@
 """Kernels A (NTT, N=64..32768, and over the BEHZ base at the large rings'
 ciphertext-multiplication shapes), B (scan, with and without a hi plane, and
 its runtime-moduli entry K6), C (the wide scan of batched serving, both
-variants) and D (the Shoup-table scan, K7) on the card against their plain
-PyTorch versions, bit for bit (tolerance 0); the port's server on the card
+variants), D (the Shoup-table scan, K7) and E (the key switch's four
+entries, at every served shape of kernel_times.keyswitch_cases) on the card
+against their plain PyTorch versions, bit for bit (tolerance 0); the
+expansion and relinearization on the card through kernel E alone; the port's server on the card
 (both layouts, ciphertext-multiplication mode, and SEAL-stream requests),
 negacyclic_polymul and the noise-budget probe against the same on the CPU;
 and meshes of two gloo ranks sharing the card (decomposition and
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 import pir_tpu_torch as pt
-from pir_tpu_torch import kernels
+from pir_tpu_torch import kernel_times, kernels
 from pir_tpu_torch.core import primes
 from pir_tpu_torch.ops import modular, scan_kernel
 from pir_tpu_torch.ops.ntt import NttTables, ntt_cuda, ntt_plain
@@ -331,14 +333,16 @@ def test_launch_counts(dev):
     tables.inverse(x)
     assert kernels.NTT.launches == before + 2
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"ntt": 0, "scan": 0, "scan_wide": 0, "scan_shoup": 0}
+    assert kernels.launch_counts() == {"ntt": 0, "scan": 0, "scan_wide": 0, "scan_shoup": 0,
+                                       "keyswitch": 0}
     assert kernels.variant_launch_counts() == {}
     limbs = modular.LimbConstants(tables.moduli[:1], dev)
     sv = residues(tables.moduli[:1], (3, 4), 64, dev, seed=4)
     _, lo = scan_kernel.split_planes(residues(tables.moduli[:1], (2, 3), 64, dev, 5).transpose(1, 2).contiguous(), tables.moduli[:1])
     scan_kernel.contract_dim_raw(sv[:, :2], None, lo, limbs)
     scan_kernel.contract_dim_raw_wide(sv, None, lo, limbs)
-    assert kernels.launch_counts() == {"ntt": 0, "scan": 1, "scan_wide": 1, "scan_shoup": 0}
+    assert kernels.launch_counts() == {"ntt": 0, "scan": 1, "scan_wide": 1, "scan_shoup": 0,
+                                       "keyswitch": 0}
     assert kernels.variant_launch_counts() == {"pir_scan.u32": 1, "pir_scan_wide.u32": 1}
 
 
@@ -734,3 +738,79 @@ def test_packed_and_unpacked_responses_equal_on_card(dev, bits):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert got == want
+
+
+@pytest.mark.parametrize("case", [c[0] for c in kernel_times.keyswitch_cases()])
+def test_keyswitch_kernels_match_plain_at_served_shapes(dev, case):
+    """Kernel E's entries (E1 decompose, E2 digit inner product, E3
+    P-division, E4 combine) at a served shape: bit-equal to their plain
+    versions, each launched and counted."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(case))
+    kernels.reset_launch_counts()
+    rows = kernel_times.time_keyswitch(
+        dev, gen, cases=[c for c in kernel_times.keyswitch_cases() if c[0] == case],
+        plain=False, reps=1)
+    torch.cuda.synchronize()
+    assert all(r["max_abs_err"] == 0 for r in rows)
+    counts = kernels.variant_launch_counts()
+    names = {"E1": "pir_ks.decompose", "E2": "pir_ks.inner", "E3": "pir_ks.moddown",
+             "E4": "pir_ks.combine"}
+    assert all(counts[names[r["entry"]]] > 0 for r in rows)
+
+
+def test_expansion_and_relinearization_on_card_use_kernel_e_only(dev, monkeypatch):
+    """expand_single (one tree), expand_level on two trees (axis 1) and
+    relinearize on the card equal the same on the CPU, launch kernel E's
+    four entries, and never reach the plain pieces."""
+    from pir_tpu_torch.core.context import PirContext
+    from pir_tpu_torch.ops import expand, keyswitch
+
+    params = _small_params((34, 36, 37))
+    cpu, card = PirContext(params, "cpu"), PirContext(params, dev)
+    L, Lp, n = cpu.L, cpu.Lp, cpu.n
+    rng = np.random.default_rng(11)
+
+    def words(moduli, shape):
+        return modular.tensor_u64(np.stack([rng.integers(0, q, (*shape, n), dtype=np.uint64)
+                                            for q in moduli], axis=-2))
+
+    keys = {(n >> j) + 1: words(cpu.key_moduli, (L, 2)) for j in range(6)}
+    ct = words(cpu.ct_moduli, (2,))
+    trees = words(cpu.ct_moduli, (2, 3, 2))
+    relin = words(cpu.key_moduli, (L, 2))
+    ct3 = words(cpu.ct_moduli, (4, 3))
+    want = (expand.expand_single(cpu, keys, ct, 40), expand.expand_level(cpu, keys, trees, 2, 1),
+            keyswitch.relinearize(cpu, relin, ct3))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain piece of the key switch")
+
+    for mod, name in ((keyswitch, "decompose_plain"), (keyswitch, "inner_product_plain"),
+                      (keyswitch, "mod_down_plain"), (expand, "combine_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    keys_dev = {e: k.to(dev) for e, k in keys.items()}
+    kernels.reset_launch_counts()
+    got = (expand.expand_single(card, keys_dev, ct.to(dev), 40),
+           expand.expand_level(card, keys_dev, trees.to(dev), 2, 1),
+           keyswitch.relinearize(card, relin.to(dev), ct3.to(dev)))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    counts = kernels.variant_launch_counts()
+    assert counts["pir_ks.decompose"] == counts["pir_ks.inner"] == counts["pir_ks.moddown"] == 8
+    assert counts["pir_ks.combine"] == 7
+
+
+def test_keyswitch_kernel_launch_failure_raises(dev):
+    """A launch kernel E refuses (here a grid past the card's limit of row
+    tiles) raises; nothing falls back."""
+    from pir_tpu_torch.ops import keyswitch
+
+    qp = modular.LimbConstants(primes.coeff_modulus_from_bits(64, [34, 36]), dev)
+    digits = torch.zeros((8 * 65536, 1, 2, 64), dtype=torch.int64, device=dev)
+    key = torch.zeros((1, 2, 2, 64), dtype=torch.int64, device=dev)
+    before = kernels.KEYSWITCH.launches
+    with pytest.raises(RuntimeError, match="keyswitch kernel launch failed"):
+        keyswitch.inner_product_cuda(qp, digits, key)
+    assert kernels.KEYSWITCH.launches == before

@@ -119,7 +119,5 @@ def test_digit_inner_product_branch(setup):
     jc = tk.ctx
     ksk = keys[tk.ctx.n + 1]
     ref = jks._digit_inner_product(jc, jnp.asarray(digits), jnp.asarray(ksk), jc.limbs_qp)
-    got = tks._digit_inner_product(
-        tctx, tensor_u64(digits), tkeys[tk.ctx.n + 1], tctx.limbs_qp
-    )
+    got = tks.digit_inner_product(tctx, tensor_u64(digits), tkeys[tk.ctx.n + 1])
     assert np.array_equal(numpy_u64(got), np.asarray(ref))

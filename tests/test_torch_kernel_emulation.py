@@ -1,5 +1,5 @@
-"""Kernels A (csrc/ntt.cu), B (csrc/scan.cu) and C (csrc/scan_wide.cu) run
-on the CPU: the CUDA sources themselves, their csrc/*.cuh headers inlined,
+"""Kernels A (csrc/ntt.cu), B (csrc/scan.cu), C (csrc/scan_wide.cu) and E
+(csrc/keyswitch.cu, through its Python wrappers) run on the CPU: the CUDA sources themselves, their csrc/*.cuh headers inlined,
 compiled by g++ against a small emulation of the CUDA runtime (one
 std::thread per CUDA thread, a std::barrier for __syncthreads, a byte
 buffer for the block's shared memory; a thread-block cluster's blocks run
@@ -9,7 +9,9 @@ replaced by C equivalents), held bit for bit to the plain versions at
 every radix and row split their plans can choose, kernel A at every ring
 up to N=32768 (one cluster of 4 or 8 blocks a limb above N=8192, grids
 with clusters past the last polynomial) on growing and reducing chains,
-and kernel C at every edge of scan_wide_plan's layout.
+kernel C at every edge of scan_wide_plan's layout, and kernel E's four
+entries at tiny rings under each of pir_tpu's inner-product methods, with
+every word at q - 1 too.
 
 What this shows is the kernels' index arithmetic, twiddle choice,
 exchange layout, lazy-reduction bounds, row-split sums and kernel C's ring
@@ -234,12 +236,16 @@ def _compile(d: pathlib.Path, name: str, source: str):
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cuda_emulation")
-    out = {name: _compile(d, name, emulation_source(name)) for name in ("ntt", "scan", "scan_wide")}
+    out = {name: _compile(d, name, emulation_source(name))
+           for name in ("ntt", "scan", "scan_wide", "keyswitch")}
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     out["ntt"].pir_ntt.argtypes = kernels.NTT_ARGS
     out["scan"].pir_scan.argtypes = [P, P, P, P, P, I32, I64, I32, I32, I64, I64, I64, I64,
                                      I32, I32, I32, I32, P]
     out["scan_wide"].pir_scan_wide.argtypes = kernels.SCAN_WIDE._entry_points["pir_scan_wide"]
+    for fn, argtypes in kernels.KEYSWITCH._entry_points.items():
+        getattr(out["keyswitch"], fn).argtypes = argtypes
+    out["keyswitch"].cuda_error_string.restype = ctypes.c_char_p
     return out
 
 
@@ -568,3 +574,156 @@ def test_ntt_cluster_variant_half_the_ctas_equals_plain(tmp_path, n, bits):
         rc, out = _emulated_ntt(lib, tables, x, inverse, plan)
         assert rc == 0
         assert torch.equal(out, tntt.ntt_plain(tables, x, inverse)), inverse
+
+
+# ---------------------------------------------------------------------------
+# kernel E: the key switch's entries and the expansion's combine step
+# ---------------------------------------------------------------------------
+
+# (N, chain bits: ciphertext primes then the special prime) of kernel E's
+# cases: the u32 method (tpu32-like 26-28 bits), the 48-bit one (SEAL's
+# 36/37-bit chain), the generic one (60/61 bits), and a tpu32 chain of 28
+# ciphertext limbs and 29 key primes as at N=32768 (L (q - 1)^2 above 2^64).
+KS_CHAINS = [(64, (26, 27, 28)), (128, (34, 36, 37)), (64, (58, 60, 61)), (64, (30,) * 29)]
+
+
+def _ks_ctx(n, bits):
+    from pir_tpu_torch.core.context import PirContext
+    from pir_tpu_torch.core.params import EncryptionParams, create_pir_parameters
+
+    ep = EncryptionParams(poly_modulus_degree=n, plain_modulus=primes.get_prime(2 * n, 12),
+                          coeff_modulus=tuple(primes.coeff_modulus_from_bits(n, list(bits))))
+    return PirContext(create_pir_parameters(40, 8, 2, ep), "cpu")
+
+
+@pytest.fixture
+def emulated_e(libs, monkeypatch):
+    """Kernel E's wrappers on CPU tensors, launching the emulation."""
+    from pir_tpu_torch.ops import keyswitch
+
+    monkeypatch.setattr(kernels.KEYSWITCH, "_lib", libs["keyswitch"])
+    monkeypatch.setattr(keyswitch, "require_cuda", lambda x, name: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda t: None)
+    kernels.KEYSWITCH.variant_launches.clear()
+    return kernels.KEYSWITCH.variant_launches
+
+
+def _ks_words(ctx, shape, seed, moduli=None, top=False):
+    """int64[*shape, L, N] residues below each limb's modulus (q - 1 in
+    every word where `top`)."""
+    moduli = ctx.ct_moduli if moduli is None else moduli
+    if top:
+        return torch.tensor(moduli, dtype=torch.int64)[:, None].expand(*shape, -1, ctx.n) - 1
+    return _residues(np.random.default_rng(seed), moduli, (*shape, ctx.n), -2)
+
+
+@pytest.mark.parametrize("top", [False, True], ids=["random", "q-1"])
+@pytest.mark.parametrize("n,bits", KS_CHAINS)
+def test_kernel_e_emulated_equals_plain(emulated_e, n, bits, top):
+    """E1 (with and without a Galois permutation, from a ciphertext's
+    second polynomial read in place), E2, E3 (no addend, apply_galois's
+    permuted c0, relinearize's c0 and c1) and E4 (axis 0 and Q = 2 trees on
+    axis 1, the first and the last level) against their plain versions,
+    bit for bit."""
+    from pir_tpu_torch.ops import expand, keyswitch
+
+    ctx = _ks_ctx(n, bits)
+    L, Lp = ctx.L, ctx.Lp
+    if top:  # the largest sums: every digit and key word q - 1
+        assert L * (max(ctx.key_moduli) - 1) ** 2 < 1 << 127
+    ct = _ks_words(ctx, (3, 2), n, top=top)
+    perm = ctx.galois_permutation((n >> 1) + 1)
+    for p in (None, perm):
+        got = keyswitch.decompose_cuda(ctx, ct[:, 1], p)
+        assert torch.equal(got, keyswitch.decompose_plain(ctx, ct[:, 1], p))
+
+    digits = _ks_words(ctx, (3, L), n + 1, ctx.key_moduli, top)
+    key = _ks_words(ctx, (L, 2), n + 2, ctx.key_moduli, top)
+    got = keyswitch.inner_product_cuda(ctx.limbs_qp, digits, key)
+    assert torch.equal(got, keyswitch.inner_product_plain(ctx, digits, key))
+
+    acc = _ks_words(ctx, (3, 2), n + 3, ctx.key_moduli, top)
+    ct3 = _ks_words(ctx, (3, 3), n + 4, top=top)
+    for addends, p in (((None, None), None), ((ct[:, 0], None), perm),
+                       ((ct3[:, 0], ct3[:, 1]), None)):
+        got = keyswitch.mod_down_cuda(ctx, acc, addends, p)
+        assert torch.equal(got, keyswitch.mod_down_plain(ctx, acc, addends, p))
+
+    sub = _ks_words(ctx, (3, 2), n + 5, top=top)
+    trees = _ks_words(ctx, (2, 3, 2), n + 6, top=top)
+    sub_trees = _ks_words(ctx, (2, 3, 2), n + 7, top=top)
+    for j in (0, n.bit_length() - 2):
+        assert torch.equal(expand.combine_cuda(ctx, ct, sub, j),
+                           expand.combine_plain(ctx, ct, sub, j))
+        assert torch.equal(expand.combine_cuda(ctx, trees, sub_trees, j, axis=1),
+                           expand.combine_plain(ctx, trees, sub_trees, j, axis=1))
+    assert emulated_e == {"pir_ks.decompose": 2, "pir_ks.inner": 1, "pir_ks.moddown": 3,
+                          "pir_ks.combine": 4}
+
+
+def test_kernel_e_emulated_rank_of_a_limb_sharded_mesh(emulated_e):
+    """E1-E3 on a rank's view of a limb-sharded mesh (its own ciphertext
+    limbs, the whole key basis; E3 keeps limbs offset..offset + L_local of
+    the key basis) equal their plain versions."""
+    from pir_tpu_torch.ops import keyswitch
+    from pir_tpu_torch.parallel.sharded import _LimbShardView
+
+    class Mesh:
+        def size(self, axis):
+            return 2
+
+        def coord(self, axis):
+            return 1
+
+    ctx = _ks_ctx(64, (34, 35, 36, 36, 37))
+    view = _LimbShardView(ctx, Mesh())
+    assert (view.L, view.ct_limb_offset) == (2, 2)
+    ct = _ks_words(view, (3, 2), 5, ctx.ct_moduli[2:])
+    perm = ctx.galois_permutation(33)
+    for p in (None, perm):
+        assert torch.equal(keyswitch.decompose_cuda(view, ct[:, 1], p),
+                           keyswitch.decompose_plain(view, ct[:, 1], p))
+    digits = _ks_words(ctx, (3, 2), 6, ctx.key_moduli)
+    key = _ks_words(ctx, (2, 2), 7, ctx.key_moduli)
+    assert torch.equal(keyswitch.inner_product_cuda(view.limbs_qp, digits, key),
+                       keyswitch.inner_product_plain(ctx, digits, key))
+    acc = _ks_words(ctx, (3, 2), 8, ctx.key_moduli)
+    got = keyswitch.mod_down_cuda(view, acc, (ct[:, 0], None), perm)
+    assert torch.equal(got, keyswitch.mod_down_plain(view, acc, (ct[:, 0], None), perm))
+    assert torch.equal(got[:, 1], keyswitch.mod_down_plain(ctx, acc)[:, 1, 2:])
+
+
+def test_kernel_e_emulated_switch_steps_write_their_rows(emulated_e, monkeypatch):
+    """E3 writes each step's rows into the switch's output in place: one
+    row a step gives the words of one step (kernel A's transforms replaced
+    by their plain versions)."""
+    from pir_tpu_torch.ops import keyswitch
+
+    ctx = _ks_ctx(64, (34, 36, 37))
+    monkeypatch.setattr(keyswitch, "decompose", keyswitch.decompose_cuda)
+    monkeypatch.setattr(keyswitch, "digit_inner_product",
+                        lambda c, d, k: keyswitch.inner_product_cuda(c.limbs_qp, d, k))
+    monkeypatch.setattr(keyswitch, "mod_down", keyswitch.mod_down_cuda)
+    ct = _ks_words(ctx, (5, 2), 9)
+    key = _ks_words(ctx, (ctx.L, 2), 10, ctx.key_moduli)
+    whole = keyswitch.apply_galois(ctx, {9: key}, ct, 9)
+    monkeypatch.setattr(keyswitch, "SWITCH_CHUNK_BYTES", 1)
+    assert torch.equal(keyswitch.apply_galois(ctx, {9: key}, ct, 9), whole)
+    assert emulated_e["pir_ks.moddown"] == 6
+
+
+def test_kernel_e_refuses_what_it_cannot_take(libs, emulated_e):
+    """Launches that would not cover their work, or read past the key basis,
+    are refused before anything runs; a key switch whose 127-bit sums could
+    overflow is refused by the wrapper."""
+    from pir_tpu_torch.ops import keyswitch, modular
+
+    lib = libs["keyswitch"]
+    assert lib.pir_ks_decompose(None, 0, None, None, None, None, None, 0, 2, 3, 64, None) != 0
+    assert lib.pir_ks_inner(None, None, None, None, 8 * 65536, 2, 3, 64, None) != 0
+    assert lib.pir_ks_moddown(*[None] * 7, 0, None, None, None, 1, 2, 3, 1, 64, 5, 2, None) != 0
+    assert lib.pir_expand_combine(None, None, None, None, 1, 1, 2, 2, 64, 128, 0, None) != 0
+    qp = modular.LimbConstants(primes.coeff_modulus_from_bits(64, [61, 61]), "cpu")
+    with pytest.raises(ValueError, match="127-bit"):
+        keyswitch.inner_product_cuda(qp, torch.zeros((1, 64, 2, 64), dtype=torch.int64),
+                                     torch.zeros((64, 2, 2, 64), dtype=torch.int64))

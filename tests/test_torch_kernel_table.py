@@ -83,3 +83,21 @@ def test_kernel_rows_are_complete():
         assert (REPO / "pir_tpu_torch" / "csrc" / row.source).exists()
         assert row.launches and all(path and variant for path, variant in row.launches)
     assert {r.check for r in rows} == {"K1", "K2", "K3", "K4", "K4-u32", "K5", "K6", "K7"}
+
+
+def test_xla_kernel_rows_name_kernel_e():
+    """Kernel E's rows, a table of their own (they replace code pir_tpu
+    leaves to XLA, not Pallas bodies): one row per entry, each naming lines
+    of pir_tpu's key switch, Galois permutation or expansion that exist,
+    counted on every served path."""
+    rows = chip_smoke.XLA_KERNEL_ROWS
+    assert [r.check for r in rows] == ["E1", "E2", "E3", "E4"]
+    assert not {r.name for r in rows} & {r.name for r in chip_smoke.KERNEL_ROWS}
+    for row in rows:
+        assert (REPO / "pir_tpu_torch" / "csrc" / row.source).exists()
+        assert [path for path, _ in row.launches] == ["*"]
+        for ref in row.replaces:
+            path, line = ref.split(":")
+            assert path.startswith("pir_tpu/ops/")
+            assert (REPO / path).read_text().splitlines()[int(line) - 1].strip(), ref
+    assert {v for r in rows for _, v in r.launches} == set(chip_smoke.KEYSWITCH_VARIANTS)

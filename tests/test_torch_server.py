@@ -140,6 +140,20 @@ def test_staged_profile_request_equals_process_request(stack, reply_limbs):
     assert levels and all(ms > 0 for ms in levels)
 
 
+def test_stage_kernels_counts_each_stage(stack):
+    """profile_request.stage_kernels runs a staged request under the
+    profiler with a mark after each stage: every stage gets a count (0 on
+    the CPU, which has no device kernels)."""
+    from pir_tpu_torch import profile_request
+
+    params, _, _, tdb = stack
+    client = pt.PirClient(params, seed=13, compress_queries=True, device="cpu")
+    counts = profile_request.stage_kernels(pt.PirServer(tdb, params), client.create_request([5]))
+    assert counts == {name: 0 for name in (
+        "load query + keys", "oblivious expansion", "selection-vector NTT",
+        "database scan (all dimensions)", "mod switch", "reply copy to host + serialize")}
+
+
 @pytest.mark.parametrize(
     "name,kernel",
     [("void (anonymous namespace)::scan_wide_kernel<1>(unsigned long const*, unsigned char", "C"),
@@ -149,10 +163,14 @@ def test_staged_profile_request_equals_process_request(stack, reply_limbs):
      ("void (anonymous namespace)::ntt_cluster_kernel<false, false, 12, 3>(unsigned long const*",
       "A"),
      ("void (anonymous namespace)::scan_shoup_kernel(unsigned long const*", "D"),
+     ("(anonymous namespace)::ks_decompose_kernel(unsigned long const*, long, long const*", "E"),
+     ("(anonymous namespace)::ks_inner_kernel(unsigned long const*, unsigned long const*", "E"),
+     ("(anonymous namespace)::ks_moddown_kernel(unsigned long const*, unsigned long const*", "E"),
+     ("(anonymous namespace)::expand_combine_kernel(unsigned long const*, unsigned long", "E"),
      ("void at::native::vectorized_elementwise_kernel<4, at::native::BitwiseAndFunctor", None)],
 )
 def test_profile_names_each_hand_written_kernel(name, kernel):
-    """The device profile sums a request's time in kernels A-D by their
+    """The device profile sums a request's time in kernels A-E by their
     device functions' names, and in nothing else."""
     from pir_tpu_torch import profile_request
 
