@@ -12,9 +12,10 @@ check every retrieved item.
 Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build kernels A (NTT), B (scan), C (wide scan), D (Shoup-table scan) and
-   E (the key switch and the expansion's combine step) from
-   pir_tpu_torch/csrc with nvcc and the native bulk encoder
+2. build kernels A (NTT), B (scan), C (wide scan), D (Shoup-table scan),
+   E (the key switch and the expansion's combine step) and F (the
+   decomposition upper level's lift, contraction and plane split, and the
+   reply's mod switch) from pir_tpu_torch/csrc with nvcc and the native bulk encoder
    (pir_tpu_torch/native/encoder.cpp) with g++, all at once;
 3. each kernel against its plain version on the card, bit for bit, at the
    shapes the main paths give it, with both times and the bound: A at each
@@ -39,7 +40,13 @@ Phases, each of which raises on failure:
    kernel_times.keyswitch_cases(): each expansion level of an N=4096
    request on SEAL's chain and on tpu32, the first key-switch step of a
    16-lane batch's last level, one step of N=32768's last level and one
-   relinearization step at N=32768;
+   relinearization step at N=32768; F's four entries (F1 digit lift, F2
+   companion-free contraction, F3 mod switch, F4 plane split) at
+   kernel_times.upper_cases() and modswitch_cases(): the main path's upper
+   step at N=4096 (F1, F4), a 16-lane batch's step (F1 over the lanes, F4 on
+   a lane), the Shoup-table layout's step at N=4096 (F2), the first and the
+   ragged last step of phase 20's upper level at N=32768 (F1, F2), and the
+   reply's mod switch at N=4096 and at phase 20's N=32768 (F3);
 4. a small database (N=256) served on the card and on the CPU (plain
    versions): the Response bytes must be equal, and the card's request must
    have launched kernel A (the K3 row's launches);
@@ -217,22 +224,26 @@ Hopper has 64 INT32 lanes per SM), counted for the arithmetic the kernel
 runs (12 multiplies a butterfly of kernel A where it grows, every modulus
 below 2^min(50, 63 - log2 N); 16 where it reduces; 7 a scan product with a
 hi plane, 3 without; kernel E: 12 a one-word Barrett reduction or a 64 x 64
--> 128-bit product, 40 a two-word reduction, 16 a Shoup product).  Kernel
+-> 128-bit product, 40 a two-word reduction, 16 a Shoup product; kernel
+F the same, its lift and split moving bytes only).  Kernel
 times are device times of back-to-back launches queued behind a
 device-side sleep.  No single PyTorch
 call computes a modular contraction, a negacyclic NTT, an RNS
-decomposition, a scale-down by P or a signed shift-and-add mod q, so
-library_ms is null for every kernel.
+decomposition, a scale-down by P, a signed shift-and-add mod q, a digit
+decomposition or an exact modulus switch, so library_ms is null for every
+kernel.
 
 The line before the last is {"kernels": [...]}, one row per KERNEL_ROWS
 entry (every TPU kernel body of pir_tpu/ops/pallas_*.py): its launches
 summed over the served paths named in the row, its numbers from the named
 check (K3's from phase 20's selection-vector NTT at N=32768, its
 launches the N=256 path's and phases 20 and 22's: a check's launches are
-not counted), then one row per XLA_KERNEL_ROWS entry (kernel E's entries,
-which replace code pir_tpu leaves to XLA: a table of their own, their
-launches summed over every served path, their numbers from the main
-path's last expansion level, N=4096 on SEAL's chain); the last line is
+not counted), then one row per XLA_KERNEL_ROWS entry (kernel E's and F's
+entries, which replace code pir_tpu leaves to XLA: a table of their own;
+E's launches summed over every served path, their numbers from the main
+path's last expansion level, N=4096 on SEAL's chain; F's launches summed
+over the paths that serve it, their numbers from N=4096's upper step (the
+Shoup-table layout's for F2) and reply); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero before printing any result.
 """
@@ -346,6 +357,34 @@ XLA_KERNEL_ROWS = (
 )
 KEYSWITCH_HEAD = "N=4096 seal expansion 8"  # kernel E's numbers in the kernels line
 KEYSWITCH_VARIANTS = ("pir_ks.decompose", "pir_ks.inner", "pir_ks.moddown", "pir_ks.combine")
+# the served paths that run kernel F's entries: an upper level lifts its
+# digits (F1) on one device; the planes layout splits them (F4, on the
+# limb-sharded meshes' ranks too); the Shoup-table layout contracts them
+# (F2); a server with reply_limbs below L mod-switches its replies (F3)
+_PLANES_UPPER = ("single", "batched", "stream", "stream_batched", "packed", "seal_single",
+                 "seal_batched", "seal_stream", "tpu32", "load_planes", "small", "tpu32_8192",
+                 "seal8192")
+_SHOUP_UPPER = ("shoup", "load_shoup", "seal16384", "n32768")
+_SWITCHED = ("single", "batched", "stream", "stream_batched", "packed", "seal_single",
+             "seal_batched", "seal_stream", "shoup", "tpu32", "load_planes", "load_shoup",
+             "ctmult", "ctmult_mesh", "n32768", "n32768_ctmult")
+XLA_KERNEL_ROWS += (
+    KernelRow("upper-level digit lift (F1)", "upper.cu",
+              ("pir_tpu/ops/decompose.py:76", "pir_tpu/ops/scan.py:206"),
+              tuple((p, "pir_upper.lift") for p in _PLANES_UPPER + _SHOUP_UPPER), "F1"),
+    KernelRow("upper-level contraction (F2)", "upper.cu", ("pir_tpu/ops/scan.py:35",),
+              tuple((p, "pir_upper.contract") for p in _SHOUP_UPPER), "F2"),
+    KernelRow("reply mod switch (F3)", "upper.cu",
+              ("pir_tpu/ops/modswitch.py:50", "pir_tpu/ops/modswitch.py:70"),
+              tuple((p, "pir_upper.modswitch") for p in _SWITCHED), "F3"),
+    KernelRow("upper-level plane split (F4)", "upper.cu",
+              ("pir_tpu/ops/scan.py:125", "pir_tpu/ops/pallas_scan.py:133"),
+              tuple((p, "pir_upper.split") for p in _PLANES_UPPER + ("mesh", "mesh32", "shard_mesh")),
+              "F4"),
+)
+# kernel F's numbers in the kernels line, by entry
+UPPER_HEAD = {"F1": "N=4096 upper step", "F2": "N=4096 Shoup upper step", "F3": "N=4096 reply",
+              "F4": "N=4096 upper step"}
 
 
 # ciphertext-multiplication rows of REFERENCE_MATRIX (tests/test_correctness.py):
@@ -504,6 +543,17 @@ def check_keyswitch(device, gen) -> dict:
             f"{sum(r['plain_ms'] for r in mine):.4f} ms, of bounds "
             f"{sum(r['bound_ms'] for r in mine):.4f} ms")
     return {r["entry"]: {k: r[k] for k in NUMBERS} for r in rows if r["label"] == KEYSWITCH_HEAD}
+
+
+def check_upper(device, gen) -> dict:
+    """Kernel F's four entries vs their plain versions (tolerance 0), timed
+    with their bounds, at kernel_times.upper_cases() and modswitch_cases().
+    Returns each entry's UPPER_HEAD numbers."""
+    rows = kt.time_upper(device, gen)
+    for r in rows:
+        log(kt.keyswitch_line(r))
+    return {r["entry"]: {k: r[k] for k in NUMBERS} for r in rows
+            if r["label"] == UPPER_HEAD[r["entry"]]}
 
 
 def check_small_against_cpu(device) -> dict:
@@ -1121,6 +1171,9 @@ def serve_n32768(device, ct_mult: bool = False) -> dict:
     log(f"{label}: a warm request in synchronized stages (profile_request.staged_request, "
         f"Response byte-equal): {', '.join(f'{k} {v:.2f} ms' for k, v in stages.items())}; "
         f"expansion levels {', '.join(f'{x:.2f}' for x in levels if x)} ms")
+    scan_ms = sum(v for k, v in stages.items() if k.startswith("database scan"))
+    log(f"{label}: the staged request's database scan {scan_ms:.2f} ms, mod switch "
+        f"{stages['mod switch']:.2f} ms")
     del server, db, client
     torch.cuda.empty_cache()
     return {"n32768_ctmult" if ct_mult else "n32768": counts}
@@ -1577,6 +1630,7 @@ def main() -> int:
     wide = check_scan_wide(device, gen)
     shoup = check_scan_shoup(device, gen)
     keyswitch = check_keyswitch(device, gen)
+    upper = check_upper(device, gen)
     ntt_large, reduce_launches = check_ntt_large(device, gen)
     small = check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
@@ -1626,10 +1680,11 @@ def main() -> int:
              "shard_mesh": shard_mesh, **checkpoint, **seal,
              "ctmult_ref_mesh": ctmult_ref_mesh, "ctmult_mesh": ctmult_mesh, **packed,
              **n32768}
-    checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup, **keyswitch}
-    for row in KERNEL_ROWS:  # every (path, variant) a row counts was launched
+    checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup, **keyswitch, **upper}
+    for row in KERNEL_ROWS + XLA_KERNEL_ROWS:  # every (path, variant) a row counts was launched
         for path, variant in row.launches:
-            require(paths[path], (variant,), path)
+            if path != "*":
+                require(paths[path], (variant,), path)
     for path, counts in paths.items():  # every served path switched keys through kernel E
         require(counts, KEYSWITCH_VARIANTS, path)
         log(f"{path}: kernel E launches " + ", ".join(f"{v} {counts[v]}" for v in KEYSWITCH_VARIANTS)

@@ -62,10 +62,6 @@ constexpr int kThreads = 256;       // element-wise kernels
 constexpr int kInnerThreads = 128;  // E2: coefficients a block
 constexpr int kRowTile = 8;         // E2: rows a thread
 
-__device__ __forceinline__ uint64_t sub_mod(uint64_t a, uint64_t b, uint64_t q) {
-  return a >= b ? a - b : a + q - b;
-}
-
 __device__ __forceinline__ uint64_t neg_if(uint64_t x, bool neg, uint64_t q) {
   return neg && x != 0 ? q - x : x;
 }
@@ -77,14 +73,6 @@ __device__ __forceinline__ uint64_t shifted(const uint64_t* row, int64_t k,
                                             uint64_t q) {
   const int64_t t = k + shift;
   return neg_if(row[t % N], (t / N) & 1, q);
-}
-
-// (hi:lo) += a * b, 128-bit.
-__device__ __forceinline__ void mac128(uint64_t& lo, uint64_t& hi, uint64_t a,
-                                       uint64_t b) {
-  const uint64_t p = a * b;
-  lo += p;
-  hi += __umul64hi(a, b) + (lo < p ? 1 : 0);
 }
 
 // E1: in is c's rows, [R, L, N] words with rows in_row_stride apart; out is

@@ -1,5 +1,6 @@
 // Modular helpers shared by the kernels (csrc/ntt.cu, csrc/scan.cu,
-// csrc/scan_wide.cu, csrc/scan_shoup.cu).  Every modulus is below 2^61.
+// csrc/scan_wide.cu, csrc/scan_shoup.cu, csrc/keyswitch.cu, csrc/upper.cu).
+// Every modulus is below 2^61.
 #pragma once
 
 #include <cstdint>
@@ -46,6 +47,20 @@ __device__ __forceinline__ uint64_t add_mod(uint64_t a, uint64_t b,
                                             uint64_t q) {
   const uint64_t s = a + b;
   return s >= q ? s - q : s;
+}
+
+// a - b mod q for a, b < q.
+__device__ __forceinline__ uint64_t sub_mod(uint64_t a, uint64_t b, uint64_t q) {
+  return a >= b ? a - b : a + q - b;
+}
+
+// (hi:lo) += a * b, 128-bit: the exact sums of kernel E's digit inner
+// product (csrc/keyswitch.cu) and kernel F's contraction (csrc/upper.cu).
+__device__ __forceinline__ void mac128(uint64_t& lo, uint64_t& hi, uint64_t a,
+                                       uint64_t b) {
+  const uint64_t p = a * b;
+  lo += p;
+  hi += __umul64hi(a, b) + (lo < p ? 1 : 0);
 }
 
 // The scans' exact sums (csrc/scan.cu, csrc/scan_wide.cu), three 32-bit

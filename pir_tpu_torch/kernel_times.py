@@ -1,17 +1,19 @@
 """Device times of kernels A (NTT), B (scan), C (wide scan), D
-(Shoup-table scan) and E (the key switch's entries E1-E4) at the shapes one
+(Shoup-table scan), E (the key switch's entries E1-E4) and F (the upper
+level's and the mod switch's entries F1-F4) at the shapes one
 request at the bench configuration
 gives them (2^20 items of 288 B, d=2, N=4096, SEAL's chain; the tpu32
 profile and one rank of the meshes for kernel B's other cases; a batched
 request of 16 queries for kernel C), and at the rings above N=4096
 (:func:`large_ring_shapes`, :func:`scan_cases`, :func:`wide_cases`,
 :func:`shoup_cases`), and kernel A at every launch of a served request at
-N=32768 in either mode (:func:`served_ntt_launches`), and kernel E at
-:func:`keyswitch_cases`, each checked bit-equal to its plain version first.
-``chip_smoke.py`` makes its checks of the five kernels through
+N=32768 in either mode (:func:`served_ntt_launches`), kernel E at
+:func:`keyswitch_cases` and kernel F at :func:`upper_cases` and
+:func:`modswitch_cases`, each checked bit-equal to its plain version first.
+``chip_smoke.py`` makes its checks of the six kernels through
 :func:`time_ntt`, :func:`time_ntt_large`, :func:`time_ntt_served`,
-:func:`time_scan`, :func:`time_wide`, :func:`time_shoup` and
-:func:`time_keyswitch`.
+:func:`time_scan`, :func:`time_wide`, :func:`time_shoup`,
+:func:`time_keyswitch` and :func:`time_upper`.
 
     python3 pir_tpu_torch/kernel_times.py --out chiprun_out/times.json
     python3 pir_tpu_torch/kernel_times.py --root build/parent --label parent
@@ -736,7 +738,159 @@ def time_keyswitch(device, gen, cases=None, plain: bool = True, reps: int = 10) 
     return rows_out
 
 
+def upper_cases() -> "list[tuple[str, str, int, int, int, int, tuple]]":
+    """(label, profile, n, lanes, c0, c1, entries) of kernel F's upper-level
+    shapes, a 2^20-item request on SEAL's chain (its first upper level:
+    prefix 1, C = 1): the main path's step at N=4096 (F1, then F4 into
+    kernel B's planes); a 16-lane batch's step (F1 over all lanes, F4 on one
+    lane's items); the Shoup-table layout's step at N=4096 (F2); the first
+    and the ragged last of the upper level's ops.scan.UPPER_STEP_BYTES steps
+    at N=32768 (F1, F2).  lanes 0: no lane axis."""
+    from pir_tpu_torch.ops import scan as scan_mod
+
+    cases = []
+    for n in (POLY_DEGREE, SERVED_N):
+        ep = encryption_params("seal", n)
+        d0 = request_dims(ep)[0]
+        new_c = 2 * expansion_ratio(ep)
+        step = min(new_c, scan_mod.upper_step_columns(d0, len(ep.ct_modulus), n))
+        if n == POLY_DEGREE:
+            cases += [(f"N={n} upper step", "seal", n, 0, 0, step, ("F1", "F4")),
+                      (f"N={n} batched {BATCH_LANES} lanes, upper step", "seal", n, BATCH_LANES,
+                       0, step, ("F1", "F4")),
+                      (f"N={n} Shoup upper step", "seal", n, 0, 0, step, ("F2",))]
+        else:
+            last = (new_c - 1) // step * step
+            cases += [(f"N={n} upper step", "seal", n, 0, 0, step, ("F1", "F2")),
+                      (f"N={n} last upper step", "seal", n, 0, last, new_c, ("F1", "F2"))]
+    return cases
+
+
+def modswitch_cases() -> "list[tuple[str, str, int, int, int]]":
+    """(label, profile, n, replies, keep) of kernel F3's reply mod switch at
+    a 2^20-item single-query request: its (2·ER) reply ciphertexts from L
+    limbs to reply_limbs_for's, at N=4096 and N=32768 on SEAL's chain."""
+    from pir_tpu_torch.core.params import create_pir_parameters
+    from pir_tpu_torch.pir.server import reply_limbs_for
+
+    cases = []
+    for n in (POLY_DEGREE, SERVED_N):
+        ep = encryption_params("seal", n)
+        keep = reply_limbs_for(create_pir_parameters(ITEMS, ITEM_BYTES, DIMS, ep))
+        cases.append((f"N={n} reply", "seal", n, 2 * expansion_ratio(ep), keep))
+    return cases
+
+
+def upper_bounds(entry: str, **k) -> dict:
+    """Kernel F's bounds.  F1 reads each source word its columns name once
+    (`sources` words) and writes `items` x L words; F2 reads sv [D, 2, L, N]
+    and items [P, D, L, N] and writes [P, 2, L, N], a wide product per
+    (prefix, row, output) and a two-word reduction per output and chunk; F3
+    reads [R, L', N] and writes [R, keep, N], a one-word reduction and a
+    Shoup product per limb update (s updates to drop limb s); F4 reads
+    [P, D, L, N] words and writes 4 bytes and the hi plane's per word."""
+    if entry == "F1":
+        return bound((k["sources"] + k["items"] * k["L"]) * 8, 0)
+    if entry == "F2":
+        P, D, L, N, chunks = k["P"], k["D"], k["L"], k["N"], k["chunks"]
+        return bound((D * 2 * L * N + P * D * L * N + P * 2 * L * N) * 8,
+                     P * D * L * N * 2 * MULS_WIDE + P * 2 * L * N * chunks * MULS_BARRETT128)
+    if entry == "F3":
+        R, cur, keep, N = k["R"], k["cur"], k["keep"], k["N"]
+        updates = sum(range(keep, cur))
+        return bound(R * (cur + keep) * N * 8, R * N * updates * (MULS_BARRETT64 + MULS_SHOUP))
+    return bound(k["words"] * (8 + 4 + k["hi_bytes"]), 0)
+
+
+def _plain_by_prefix(fn, items):
+    """fn over items' leading rows PLAIN_CHUNK_BYTES at a time, concatenated
+    (the plain versions' temporaries of a whole N=32768 step would not fit
+    the card)."""
+    import torch
+
+    step = max(1, PLAIN_CHUNK_BYTES // (items[0].numel() * 8))
+    return torch.cat([fn(items[i : i + step]) for i in range(0, items.shape[0], step)])
+
+
+def time_upper(device, gen, labels=None, plain: bool = True, reps: int = 10) -> "list[dict]":
+    """Kernel F at upper_cases() and modswitch_cases() (those whose label is
+    in `labels`, where given), each entry on random words of the case's
+    shape: bit-equal to its plain version, then timed (and the plain version
+    where `plain`), with its bound.  One row per (case, entry)."""
+    import torch
+
+    from pir_tpu_torch.core.context import PirContext
+    from pir_tpu_torch.core.params import create_pir_parameters
+    from pir_tpu_torch.ops import decompose, modswitch, scan, scan_kernel
+
+    rows_out = []
+
+    def run(label, entry, kernel, reference, bounds, big):
+        got = kernel()
+        want = reference()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        err = max(0 if a is None and b is None else max_abs_err(a.to(torch.int64),
+                                                                 b.to(torch.int64))
+                  for a, b in pairs)
+        if err:
+            raise AssertionError(f"kernel {entry} differs from plain at {label}: {err}")
+        shape = got[1].shape if isinstance(got, tuple) else got.shape
+        row = {"label": label, "entry": entry, "shape": list(shape), "max_abs_err": err,
+               "ms": device_ms(kernel, reps), **bounds}
+        if plain:
+            row["plain_ms"] = device_ms(reference, 1 if big else 3)
+        rows_out.append(row)
+
+    for label, profile, n, lanes, c0, c1, entries in upper_cases():
+        if labels is not None and label not in labels:
+            continue
+        ep = encryption_params(profile, n)
+        ctx = PirContext.for_params(create_pir_parameters(ITEMS, ITEM_BYTES, DIMS, ep), device)
+        L, d0, k = ctx.L, request_dims(ep)[0], c1 - c0
+        lead = (lanes,) if lanes else ()
+        big = n == SERVED_N
+        if "F1" in entries:
+            result = random_residues(ctx.ct_moduli, (*lead, d0, 1, 2), n, device, gen)
+            table = decompose.lift_table(ctx).tolist()
+            er2 = len(table)
+            sources = len({(c // er2, table[c % er2][0]) for c in range(c0, c1)})
+            run(label, "F1", lambda: decompose.lift_columns_cuda(ctx, result, 1, d0, c0, c1),
+                lambda: decompose.lift_columns_plain(ctx, result, 1, d0, c0, c1),
+                upper_bounds("F1", sources=max(lanes, 1) * d0 * sources * n,
+                             items=max(lanes, 1) * k * d0 * n, L=L), big)
+            del result
+        items = random_residues(ctx.ct_moduli, (k, d0), n, device, gen)
+        if "F2" in entries:
+            sv = random_residues(ctx.ct_moduli, (d0, 2), n, device, gen)
+            chunks = -(-d0 // scan.contract_chunk(ctx.ct_moduli))
+            run(label, "F2", lambda: scan.contract_dim_cuda(ctx.limbs_q, sv, items),
+                lambda: _plain_by_prefix(lambda x: scan.contract_dim_plain(ctx, sv, x), items),
+                upper_bounds("F2", P=k, D=d0, L=L, N=n, chunks=chunks), big)
+            del sv
+        if "F4" in entries:
+            bits = max(int(q).bit_length() for q in ctx.ct_moduli)
+            hi_bytes = 0 if bits <= 32 else scan_kernel.hi_plane_dtype(bits=bits).itemsize
+            run(label, "F4", lambda: scan_kernel.items_to_planes_cuda(items, bits),
+                lambda: scan_kernel.items_to_planes_plain(items, bits),
+                upper_bounds("F4", words=items.numel(), hi_bytes=hi_bytes), big)
+        del items
+        torch.cuda.empty_cache()
+    for label, profile, n, replies, keep in modswitch_cases():
+        if labels is not None and label not in labels:
+            continue
+        ep = encryption_params(profile, n)
+        ctx = PirContext.for_params(create_pir_parameters(ITEMS, ITEM_BYTES, DIMS, ep), device)
+        ct = random_residues(ctx.ct_moduli, (replies, 2), n, device, gen)
+        run(label, "F3", lambda: modswitch.mod_switch_cuda(ctx, ct, keep),
+            lambda: modswitch.mod_switch_plain(ctx, ct, keep),
+            upper_bounds("F3", R=replies * 2, cur=ctx.L, keep=keep, N=n), n == SERVED_N)
+        del ct
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def keyswitch_line(r) -> str:
+    """A kernel E or F row (time_keyswitch's, time_upper's) as a log line."""
     return (f"kernel {r['entry']} {r['label']} -> {r['shape']}: bit-equal to plain "
             f"(max_abs_err {r['max_abs_err']}); {r['ms']:.4f} ms"
             + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
@@ -820,16 +974,17 @@ def main(argv=None) -> int:
     wide = time_wide(device, gen)
     shoup = time_shoup(device, gen)
     keyswitch = time_keyswitch(device, gen) if hasattr(kernels, "KEYSWITCH") else []
+    upper = time_upper(device, gen) if hasattr(kernels, "UPPER") else []
     request_ms, request_bound_ms = request_sums(ntt)
     result = {"label": args.label, "package": pir_tpu_torch.__file__, "card": card,
               "ntt": ntt, "ntt_large": large, "ntt_served": served,
               "ntt_served_ct_mult": served_ct, "scan": scan, "wide": wide, "shoup": shoup,
-              "keyswitch": keyswitch,
+              "keyswitch": keyswitch, "upper": upper,
               "ntt_request_ms": request_ms, "ntt_request_bound_ms": request_bound_ms}
     for line in ([ntt_line(r) for r in ntt + large + served + served_ct]
                  + [scan_line(r) for r in scan]
                  + [wide_line(r) for r in wide] + [shoup_line(r) for r in shoup]
-                 + [keyswitch_line(r) for r in keyswitch]):
+                 + [keyswitch_line(r) for r in keyswitch + upper]):
         print(f"[{args.label}] {line}", flush=True)
     print(f"[{args.label}] kernel A over one request's 22 launches: "
           f"{request_ms:.4f} ms (bound {request_bound_ms:.4f}); {card}")

@@ -14,8 +14,9 @@ of the variant it launched (``entry_point.variant``, e.g. ``pir_scan.u32``,
 ``pir_scan.hi.dyn`` for the runtime-moduli entry of a limb-sharded mesh, or
 ``pir_ntt.grow`` / ``pir_ntt.reduce`` for kernel A's two butterflies; a
 kernel may count an entry point under a name of its own, e.g. kernel E's
-``pir_ks.inner``) — the counts a run reads to show that its main path went
-through each kernel and each of its variants.
+``pir_ks.inner`` or kernel F's ``pir_upper.contract``) — the counts a run
+reads to show that its main path went through each kernel and each of its
+variants.
 """
 
 from __future__ import annotations
@@ -137,6 +138,16 @@ def variant_launch_counts() -> "dict[str, int]":
     return {v: c for k in REGISTRY.values() for v, c in k.variant_launches.items()}
 
 
+def require_cuda(x, name: str, kernel: str) -> None:
+    """Raise unless x is an int64 CUDA tensor (the operands of kernel
+    `kernel`'s entries)."""
+    import torch
+
+    if not x.is_cuda or x.dtype != torch.int64:
+        raise ValueError(f"kernel {kernel} needs int64 CUDA tensors; {name} is {x.dtype} "
+                         f"on {x.device}")
+
+
 def stream_handle(t) -> int:
     """The current CUDA stream of tensor t's device, as a pointer int."""
     import torch
@@ -179,4 +190,19 @@ KEYSWITCH = CudaKernel(
      "pir_expand_combine": [_P] * 4 + [_I64, _I64, _I32, _I32, _I64, _I64, _I64, _P]},
     counted_as={"pir_ks_decompose": "pir_ks.decompose", "pir_ks_inner": "pir_ks.inner",
                 "pir_ks_moddown": "pir_ks.moddown", "pir_expand_combine": "pir_ks.combine"},
+)
+# kernel F, the decomposition-mode scan's upper levels and the reply's mod
+# switch:
+# in, cols, out, lead_prefix, dim, C, L, N, c0, k, er2, stream
+# sv, items, lq, out, P, D, L, N, chunk, stream
+# in, consts, out, R, cur, keep, N, stream
+# items, lo, hi, hi_bytes, P, D, L, N, stream
+UPPER = CudaKernel(
+    "upper", "upper.cu",
+    {"pir_digits_lift": [_P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I64, _I64, _I64, _P],
+     "pir_contract": [_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P],
+     "pir_mod_switch": [_P, _P, _P, _I64, _I32, _I32, _I64, _P],
+     "pir_split_planes": [_P, _P, _P, _I32, _I64, _I64, _I32, _I64, _P]},
+    counted_as={"pir_digits_lift": "pir_upper.lift", "pir_contract": "pir_upper.contract",
+                "pir_mod_switch": "pir_upper.modswitch", "pir_split_planes": "pir_upper.split"},
 )

@@ -3,13 +3,16 @@ N=32768 path's memory, at a 2^20-item request's shapes on SEAL's chain (15 ×
 55-bit primes and a 56-bit special prime): one key switch over 2^j
 ciphertexts in a single step (``ops/keyswitch.py::apply_galois`` with
 SWITCH_CHUNK_BYTES lifted: kernels E and A, its transients per ciphertext
-beside its digit products'), one upper-level contraction of k digit
-columns over D_0 rows (``ops/scan.py::contract_dim``), and one
+beside its digit products'), one upper-level step of k digit columns over
+D_0 rows (``ops/scan.py::_upper_level``'s step on the card: kernel F1's
+lift, kernel A's forward, kernel F2's contraction and kernel A's inverse,
+beside the bytes of the lifted digits), and one
 ciphertext-multiplication step over r rows of the upper dimension
 (``bfv/multiply.py::bfv_multiply`` of r ciphertexts by r selection
 ciphertexts, then ``ops/keyswitch.py::relinearize``), each beside the
 bytes of its products (for the multiply, of its widest BEHZ sum product,
-[r, 3, L + 1, L, N]).  The measurements behind
+[r, 3, L + 1, L, N]).  Then the whole upper level's device time in steps of
+each of UPPER_STEP_CANDIDATES bytes.  The measurements behind
 ``keyswitch.SWITCH_CHUNK_BYTES``, ``scan.UPPER_STEP_BYTES`` and
 ``scan.CTMULT_STEP_BYTES``.
 
@@ -27,7 +30,8 @@ import subprocess
 import sys
 
 SWITCH_CIPHERTEXTS = (8, 16, 32, 64)
-UPPER_COLUMNS = (1, 2, 4, 8)
+UPPER_COLUMNS = (1, 2, 4, 8, 16, 32)
+UPPER_STEP_CANDIDATES = (1 << 30, 1 << 31, 1 << 32)
 CTMULT_ROWS = (1, 2, 4, 8)
 
 
@@ -63,7 +67,7 @@ def main(argv=None) -> int:
     from pir_tpu_torch.bfv.multiply import bfv_multiply, rns_tool_for
     from pir_tpu_torch.core.context import PirContext
     from pir_tpu_torch.core.params import create_pir_parameters
-    from pir_tpu_torch.ops import keyswitch, scan
+    from pir_tpu_torch.ops import decompose, keyswitch, scan
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -96,16 +100,35 @@ def main(argv=None) -> int:
     del key
 
     sv = kt.random_residues(ep.ct_modulus, (d0, 2), n, device, gen)
+    lower = kt.random_residues(ep.ct_modulus, (d0, 1, 2), n, device, gen)  # lower ciphertexts
+
+    def upper_step(cols):
+        items = ctx.ntt_q.forward(decompose.lift_columns(ctx, lower, 1, d0, 0, cols))
+        return ctx.ntt_q.inverse(scan.contract_dim(ctx, sv, items))
+
     for cols in UPPER_COLUMNS:
-        items = kt.random_residues(ep.ct_modulus, (cols, d0), n, device, gen)
-        row = {"columns": cols, "lifted_gb": items.numel() * 8 / 1e9,
-               "products_gb": cols * d0 * 2 * L * n * 8 / 1e9,
-               **_transient(lambda: scan.contract_dim(ctx, sv, items), device)}
+        row = {"columns": cols, "lifted_gb": cols * d0 * L * n * 8 / 1e9,
+               **_transient(lambda: upper_step(cols), device)}
+        if "transient_gb" in row:
+            row["transient_per_lifted"] = row["transient_gb"] / row["lifted_gb"]
         result["upper"].append(row)
-        print(f"upper contraction of {cols} digit column(s) over {d0} rows at N={n}: {row} "
+        print(f"upper-level step of {cols} digit column(s) over {d0} rows at N={n}: {row} "
               f"({card})", flush=True)
-        del items
-    del sv
+    result["upper_level_ms"] = []
+    step_bytes = scan.UPPER_STEP_BYTES
+    try:
+        for candidate in UPPER_STEP_CANDIDATES:
+            scan.UPPER_STEP_BYTES = candidate
+            ms = kt.device_ms(lambda: scan._upper_level(
+                ctx, lower, 1, d0, lambda items: scan.contract_dim(ctx, sv, items)), 3)
+            row = {"step_bytes": candidate, "columns": scan.upper_step_columns(d0, L, n),
+                   "ms": ms}
+            result["upper_level_ms"].append(row)
+            print(f"the whole upper level at N={n} in steps of {candidate} bytes: {row} ({card})",
+                  flush=True)
+    finally:
+        scan.UPPER_STEP_BYTES = step_bytes
+    del sv, lower
 
     rns_tool_for(ctx)  # the BEHZ tool's tables are held, not transient
     relin = kt.random_residues(ep.coeff_modulus, (L, 2), n, device, gen)

@@ -62,8 +62,8 @@ def combine_cuda(ctx, cts: torch.Tensor, sub: torch.Tensor, j: int, axis: int = 
     """Kernel E4 (``pir_expand_combine``): both halves written straight into
     the doubled output, the Q = prod(shape[:axis]) trees interleaved as
     [Q, 2B, ...]."""
-    keyswitch.require_cuda(cts, "cts")
-    keyswitch.require_cuda(sub, "sub")
+    kernels.require_cuda(cts, "cts", "E")
+    kernels.require_cuda(sub, "sub", "E")
     if cts.shape != sub.shape:
         raise ValueError(f"combine needs two tensors of one shape, got {tuple(cts.shape)} "
                          f"and {tuple(sub.shape)}")

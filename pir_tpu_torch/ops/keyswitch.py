@@ -114,16 +114,10 @@ def _perm_ptrs(perm, device) -> "tuple[int, int]":
     return src.data_ptr(), flip.data_ptr()
 
 
-def require_cuda(x: torch.Tensor, name: str) -> None:
-    """Raise unless x is an int64 CUDA tensor (kernel E's operands)."""
-    if not x.is_cuda or x.dtype != torch.int64:
-        raise ValueError(f"kernel E needs int64 CUDA tensors; {name} is {x.dtype} on {x.device}")
-
-
 def decompose_cuda(ctx, c: torch.Tensor, perm=None) -> torch.Tensor:
     """Kernel E1 (``pir_ks_decompose``) on a CUDA tensor: the output is
     contiguous [..., L, Lp, N], the layout kernel A's forward takes."""
-    require_cuda(c, "c")
+    kernels.require_cuda(c, "c", "E")
     L, n = c.shape[-2:]
     Lp = len(ctx.limbs_qp.moduli)
     if L != len(ctx.limbs_q.moduli):
@@ -217,8 +211,8 @@ def inner_product_cuda(qp, digits: torch.Tensor, ksk: torch.Tensor) -> torch.Ten
     """Kernel E2 (``pir_ks_inner``): digits [..., L, Lp, N] against ksk
     [L, 2, Lp, N] over key chain qp (LimbConstants), reduced
     [..., 2, Lp, N], with no collective."""
-    require_cuda(digits, "digits")
-    require_cuda(ksk, "ksk")
+    kernels.require_cuda(digits, "digits", "E")
+    kernels.require_cuda(ksk, "ksk", "E")
     L, Lp, n = digits.shape[-3:]
     if ksk.shape != (L, 2, Lp, n) or len(qp.moduli) != Lp:
         raise ValueError(f"digits [..., {L}, {Lp}, {n}] need a key [{L}, 2, {Lp}, {n}] "
@@ -285,7 +279,7 @@ def mod_down_cuda(ctx, acc: torch.Tensor, addends=(None, None), perm=None,
                   out: "torch.Tensor | None" = None) -> torch.Tensor:
     """Kernel E3 (``pir_ks_moddown``) on a CUDA tensor; ``out``, where
     given, must be a contiguous int64[..., 2, L, N] of acc's rows."""
-    require_cuda(acc, "acc")
+    kernels.require_cuda(acc, "acc", "E")
     Lp, n = acc.shape[-2:]
     lq = ctx.limbs_q
     L = len(lq.moduli)
@@ -303,7 +297,7 @@ def mod_down_cuda(ctx, acc: torch.Tensor, addends=(None, None), perm=None,
     rows = []
     for add in addends:
         if add is not None:
-            require_cuda(add, "an addend")
+            kernels.require_cuda(add, "an addend", "E")
             if add.shape != (*lead, L, n):
                 raise ValueError(f"an addend must be [..., {L}, {n}], got {tuple(add.shape)}")
             add = _rows(add, L, n)

@@ -9,16 +9,26 @@ round(c / q_{L-1}), computed purely in RNS:
 with h = floor(q_last / 2).  Switching the final reply ciphertexts down
 before serialization shrinks the reply by L/keep; the client reads the limb
 count from the array shape.
+
+:func:`mod_switch_to` drops the limbs of a CUDA tensor in one launch of
+kernel F3 (``csrc/upper.cu``, :func:`mod_switch_cuda`: every drop in
+registers, in pir_tpu's order), and of a CPU tensor one limb at a time
+(:func:`mod_switch_plain`, the plain version).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from pir_tpu_torch import kernels
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import modular
 from pir_tpu_torch.ops.modular import tensor_u64
+
+MAX_LIMBS = 32  # the words one thread of kernel F3 holds (csrc/upper.cu::kMaxLimbs)
 
 
 def _drop_consts(ctx: PirContext, level: int):
@@ -62,9 +72,64 @@ def mod_switch_drop_last(ctx: PirContext, ct: torch.Tensor) -> torch.Tensor:
 
 
 def mod_switch_to(ctx: PirContext, ct: torch.Tensor, keep: int) -> torch.Tensor:
-    """Drop trailing RNS limbs until `keep` remain (no-op if already there)."""
+    """Drop trailing RNS limbs until `keep` remain (no-op if already there):
+    kernel F3 on a CUDA tensor, the plain version on a CPU one."""
     if keep < 1:
         raise ValueError("must keep at least one modulus")
+    if ct.is_cuda:
+        return mod_switch_cuda(ctx, ct, keep)
+    return mod_switch_plain(ctx, ct, keep)
+
+
+def mod_switch_plain(ctx: PirContext, ct: torch.Tensor, keep: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`mod_switch_to`: one
+    :func:`mod_switch_drop_last` a limb."""
     while ct.shape[-2] > keep:
         ct = mod_switch_drop_last(ctx, ct)
     return ct
+
+
+def switch_table(ctx: PirContext) -> torch.Tensor:
+    """Kernel F3's constants for every drop of the chain, cached on the
+    context: for each stage s = 1 .. L-1 (dropping q_s from q_0..q_s), q_s
+    and floor(q_s / 2), then for every j < s (q_j, floor(2^64 / q_j),
+    floor(q_s / 2) mod q_j, q_s^-1 mod q_j, its Shoup companion) — the
+    words of :func:`_drop_consts` — as one int64 vector (u64 bits)."""
+    key = ("modswitch", "table")
+    hit = ctx.derived.get(key)
+    if hit is None:
+        words = []
+        moduli = [int(m) for m in ctx.ct_moduli]
+        for s, q_last in enumerate(moduli[1:], start=1):
+            half = q_last >> 1
+            words += [q_last, half]
+            for m in moduli[:s]:
+                inv = pow(q_last % m, -1, m)
+                words += [m, modular.barrett_ratio(m)[0], half % m, inv, (inv << 64) // m]
+        hit = ctx.derived[key] = tensor_u64(np.array(words, dtype=np.uint64), ctx.device)
+    return hit
+
+
+def mod_switch_cuda(ctx: PirContext, ct: torch.Tensor, keep: int) -> torch.Tensor:
+    """Kernel F3 (``pir_mod_switch``): ct int64[..., L', N] mod
+    q_0..q_{L'-1} -> int64[..., keep, N], every drop in one launch."""
+    kernels.require_cuda(ct, "ct", "F")
+    cur, n = ct.shape[-2:]
+    if keep < 1:
+        raise ValueError("must keep at least one modulus")
+    if cur <= keep:
+        return ct
+    if cur > len(ctx.ct_moduli) or cur > MAX_LIMBS:
+        raise ValueError(f"kernel F3 drops from at most {min(len(ctx.ct_moduli), MAX_LIMBS)} "
+                         f"limbs, got {cur}")
+    table = switch_table(ctx)
+    if table.device != ct.device:
+        raise ValueError(f"the context's tables live on {table.device}, ct on {ct.device}")
+    ct = ct.contiguous()
+    out = torch.empty((*ct.shape[:-2], keep, n), dtype=torch.int64, device=ct.device)
+    rows = math.prod(ct.shape[:-2])
+    if rows == 0 or n == 0:
+        return out
+    kernels.UPPER.launch("pir_mod_switch", ct.data_ptr(), table.data_ptr(), out.data_ptr(),
+                         rows, cur, keep, n, kernels.stream_handle(ct))
+    return out

@@ -20,14 +20,20 @@ The database comes in one of two layouts (``PirDatabase.scan_impl``):
   pass over the database for all its queries;
 * ``db_ntt`` + ``db_shoup`` [padded, L, N]: the inner contraction is
   :func:`scan_kernel.contract_dim_shoup` (kernel D, K7); the upper levels
-  contract digit plaintexts with no companions, in plain torch
-  (:func:`contract_dim`), as ``pir_tpu`` does outside Pallas.
+  contract digit plaintexts with no companions (:func:`contract_dim`), as
+  ``pir_tpu`` does outside Pallas: kernel F2 on the card.
+
+Each upper-level step lifts its digit columns with kernel F1
+(:func:`decompose.lift_columns`) and, on the planes layout, splits the
+transformed items into planes with kernel F4 (:func:`items_to_planes`); on
+the CPU their plain versions run.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pir_tpu_torch import kernels
 from pir_tpu_torch.bfv.multiply import bfv_multiply
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import decompose, modular, scan_kernel
@@ -35,8 +41,12 @@ from pir_tpu_torch.ops.keyswitch import relinearize
 
 # Lifted NTT-form digit plaintexts of one query an upper-level step holds.
 # A whole level's are 2·ER·L times its lower ciphertexts (20.2 GB at
-# N=32768 on SEAL's chain), and the plain contraction's temporaries are 36
-# times a step's (``memory_peaks.py`` on an NVIDIA H100 80GB HBM3).
+# N=32768 on SEAL's chain).  On the card a step (kernels F1, A, F2, A)
+# holds 2.0 times its lifted digits (the lift and its transform), 1.80 GB
+# at this size; the whole level took 67.96 ms in 1 GiB steps (23 of them)
+# against 67.13 ms in 4 GiB steps (5) (``memory_peaks.py`` on an NVIDIA
+# H100 80GB HBM3, 700 W): fewer steps save ~1%, so the step stays 1 GiB.
+# The plain contraction's temporaries are 36 times a step's.
 UPPER_STEP_BYTES = 1 << 30
 
 
@@ -82,12 +92,22 @@ def contract_dim(ctx: PirContext, sv_ntt, items_ntt, items_shoup=None) -> torch.
     their Shoup companions (the database's, precomputed at setup), which
     route the contraction to :func:`scan_kernel.contract_dim_shoup` (kernel
     D on the card).  Without companions (the upper levels' digit
-    plaintexts) each product is a Barrett multiply, in plain torch.
-    Returns int64[P, 2, L, N].
+    plaintexts): kernel F2 (:func:`contract_dim_cuda`) on the card,
+    :func:`contract_dim_plain` on the CPU.  Returns int64[P, 2, L, N].
     """
     lq = ctx.limbs_q
     if items_shoup is not None:
         return scan_kernel.contract_dim_shoup(sv_ntt, items_ntt, items_shoup, lq)
+    if items_ntt.is_cuda:
+        return contract_dim_cuda(lq, sv_ntt, items_ntt)
+    return contract_dim_plain(ctx, sv_ntt, items_ntt)
+
+
+def contract_dim_plain(ctx: PirContext, sv_ntt, items_ntt) -> torch.Tensor:
+    """The plain PyTorch version of the companion-free contraction: a
+    Barrett multiply a product, u64 sums of _max_chunk rows, each reduced,
+    combined mod q."""
+    lq = ctx.limbs_q
 
     def part(start, end):
         prod = modular.mul_mod(
@@ -99,6 +119,38 @@ def contract_dim(ctx: PirContext, sv_ntt, items_ntt, items_shoup=None) -> torch.
 
     D = items_ntt.shape[1]
     return scan_kernel.sum_row_chunks(part, D, min(_max_chunk(ctx), max(D, 1)), lq.q)
+
+
+def contract_chunk(moduli) -> int:
+    """Rows whose full products kernel F2 sums exactly in 128 bits:
+    the most c with c (q - 1)^2 < 2^127 for the widest q."""
+    return max(1, ((1 << 127) - 1) // (max(int(q) for q in moduli) - 1) ** 2)
+
+
+def contract_dim_cuda(limbs, sv_ntt, items_ntt) -> torch.Tensor:
+    """Kernel F2 (``csrc/upper.cu``, ``pir_contract``): sv int64[D, 2, L, N]
+    against items int64[P, D, L, N] over the limbs' moduli, in exact
+    128-bit sums of contract_chunk rows, each reduced and added mod q ->
+    int64[P, 2, L, N]."""
+    kernels.require_cuda(sv_ntt, "sv", "F")
+    kernels.require_cuda(items_ntt, "items", "F")
+    D, S, L, N = sv_ntt.shape
+    P = items_ntt.shape[0]
+    if S != 2 or items_ntt.shape != (P, D, L, N) or len(limbs) != L:
+        raise ValueError(f"kernel F2 takes sv [D, 2, L, N] and items [P, D, L, N] over L moduli, "
+                         f"got {tuple(sv_ntt.shape)}, {tuple(items_ntt.shape)}, {len(limbs)}")
+    if max(limbs.moduli).bit_length() > 61:
+        raise ValueError("kernel F2 takes moduli below 2^61")
+    sv_ntt, items_ntt = sv_ntt.contiguous(), items_ntt.contiguous()
+    out = torch.empty((P, 2, L, N), dtype=torch.int64, device=sv_ntt.device)
+    if out.numel() == 0:
+        return out
+    if D == 0:
+        return out.zero_()
+    kernels.UPPER.launch(
+        "pir_contract", sv_ntt.data_ptr(), items_ntt.data_ptr(), limbs.table.data_ptr(),
+        out.data_ptr(), P, D, L, N, contract_chunk(limbs.moduli), kernels.stream_handle(sv_ntt))
+    return out
 
 
 def contract_dim_planes(ctx: PirContext, sv_ntt, db_hi, db_lo) -> torch.Tensor:
@@ -123,9 +175,11 @@ def contract_dim_planes_wide(ctx: PirContext, sv_wide, db_hi, db_lo) -> torch.Te
 
 
 def items_to_planes(ctx: PirContext, items_ntt: torch.Tensor):
-    """[P, D, L, N] int64 items -> transposed (hi, lo) planes [P, L, D, N]."""
-    t = items_ntt.transpose(1, 2).contiguous()
-    return scan_kernel.split_planes(t, bits=_ct_moduli_bits(ctx))
+    """[P, D, L, N] int64 items -> transposed (hi, lo) planes [P, L, D, N]
+    of the whole chain's width: kernel F4 on the card."""
+    if items_ntt.is_cuda:
+        return scan_kernel.items_to_planes_cuda(items_ntt, _ct_moduli_bits(ctx))
+    return scan_kernel.items_to_planes_plain(items_ntt, _ct_moduli_bits(ctx))
 
 
 def _upper_level(ctx: PirContext, result, prefix: int, dim: int, contract) -> torch.Tensor:
@@ -136,7 +190,8 @@ def _upper_level(ctx: PirContext, result, prefix: int, dim: int, contract) -> to
     plaintexts; the (lower-ct, digit) columns, flattened C-order like the
     reference's ``for ct in lower_result: for pt in Encode(ct)``, form the
     newC axis.  upper_step_columns() columns at a time are lifted to L
-    limbs, NTT'd and handed to ``contract`` as int64[..., prefix·k, dim, L, N] NTT-form
+    limbs (:func:`decompose.lift_columns`), NTT'd and handed to ``contract``
+    as int64[..., prefix·k, dim, L, N] NTT-form
     items, which returns their NTT-form contraction [..., prefix·k, 2, L,
     N] over `dim`.  The contraction is linear in those columns, so the
     steps give the same words as one pass.  Returns int64[..., prefix,
@@ -147,17 +202,26 @@ def _upper_level(ctx: PirContext, result, prefix: int, dim: int, contract) -> to
     # a limb-shard view swaps in the all-gathering decomposition
     # (parallel/sharded.py): digits live per limb, but every digit
     # plaintext must reach every limb for the next contraction
-    decompose_fn = getattr(ctx, "decompose_fn", None) or (lambda x: decompose.decompose_ct(ctx, x))
-    pts = decompose_fn(result)  # [..., prefix·dim, C, 2·ER, N]
-    pts = pts.reshape(*lead, prefix, dim, -1, n)  # [..., prefix, dim, newC, N]
-    new_c = pts.shape[-2]
+    decompose_fn = getattr(ctx, "decompose_fn", None)
+    if decompose_fn is None:
+        new_c = result.shape[-4] * 2 * decompose.expansion_ratio(ctx)
+
+        def lift(c0, c1):
+            return decompose.lift_columns(ctx, result, prefix, dim, c0, c1)
+    else:
+        pts = decompose_fn(result)  # [..., prefix·dim, C, 2·ER, N]
+        pts = pts.reshape(*lead, prefix, dim, -1, n)  # [..., prefix, dim, newC, N]
+        new_c = pts.shape[-2]
+
+        def lift(c0, c1):
+            digits = pts[..., c0:c1, :].transpose(-3, -2)  # [..., prefix, k, dim, N]
+            lifted = digits[..., None, :].expand(*digits.shape[:-1], L, n)
+            return lifted.reshape(*lead, prefix * (c1 - c0), dim, L, n)
     step = upper_step_columns(prefix * dim, L, n)
     out = torch.empty((*lead, prefix, new_c, 2, L, n), dtype=torch.int64, device=result.device)
     for c0 in range(0, new_c, step):
         c1 = min(new_c, c0 + step)
-        digits = pts[..., c0:c1, :].transpose(-3, -2)  # [..., prefix, k, dim, N]
-        items = ctx.ntt_q.forward(digits[..., None, :].expand(*digits.shape[:-1], L, n))
-        res = contract(items.reshape(*lead, prefix * (c1 - c0), dim, L, n))
+        res = contract(ctx.ntt_q.forward(lift(c0, c1)))
         out[..., c0:c1, :, :, :] = ctx.ntt_q.inverse(res).reshape(*lead, prefix, c1 - c0, 2, L, n)
     return out
 

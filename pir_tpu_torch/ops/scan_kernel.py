@@ -13,7 +13,10 @@ with moduli below 2^48.  The database is held as two planes of layout
 [P, L, D, N]: a narrow hi plane (``torch.uint8`` for moduli of 33-40 bits,
 ``torch.uint16`` up to 48) and a ``torch.int32`` lo plane holding u32 bits —
 5 bytes per coefficient at SEAL's 36-bit chain.  Moduli of at most 32 bits
-(the tpu32 profile) have no hi plane: ``db_hi`` is None.
+(the tpu32 profile) have no hi plane: ``db_hi`` is None.  An upper
+level's NTT-form items become planes through :func:`items_to_planes_cuda`
+(kernel F4, ``csrc/upper.cu``) on the card and
+:func:`items_to_planes_plain` on the CPU.
 
 A CUDA tensor goes through a kernel: B (``csrc/scan.cu``,
 :func:`contract_cuda`) for the single query's S = 2 columns, C
@@ -68,6 +71,33 @@ def split_planes(x: torch.Tensor, moduli=None, bits: "int | None" = None):
     if bits <= 32:
         return None, lo
     return modular.shr(x, 32).to(hi_plane_dtype(bits=bits)), lo
+
+
+def items_to_planes_plain(items: torch.Tensor, bits: int):
+    """[P, D, L, N] int64 items -> (hi, lo) planes [P, L, D, N] of a
+    `bits`-bit chain: the transpose, then :func:`split_planes` (the plain
+    version of :func:`items_to_planes_cuda`)."""
+    return split_planes(items.transpose(1, 2).contiguous(), bits=bits)
+
+
+def items_to_planes_cuda(items: torch.Tensor, bits: int):
+    """Kernel F4 (``csrc/upper.cu``, ``pir_split_planes``): the transpose
+    and the split in one pass, each item word read once and its planes'
+    words written once."""
+    kernels.require_cuda(items, "items", "F")
+    if items.dim() != 4:
+        raise ValueError(f"items must be [P, D, L, N], got {tuple(items.shape)}")
+    hi_dtype = None if bits <= 32 else hi_plane_dtype(bits=bits)
+    items = items.contiguous()
+    P, D, L, N = items.shape
+    lo = torch.empty((P, L, D, N), dtype=torch.int32, device=items.device)
+    hi = None if hi_dtype is None else torch.empty(lo.shape, dtype=hi_dtype, device=items.device)
+    if lo.numel():
+        kernels.UPPER.launch(
+            "pir_split_planes", items.data_ptr(), lo.data_ptr(),
+            0 if hi is None else hi.data_ptr(), 0 if hi is None else hi.element_size(),
+            P, D, L, N, kernels.stream_handle(items))
+    return hi, lo
 
 
 def join_planes(db_hi, db_lo) -> torch.Tensor:

@@ -29,7 +29,7 @@ measures warm single-query requests, or with ``--batched Q`` warm
   device kernels and copies launched, their summed and merged device time,
   the wall time, the busy share (merged device time / wall), the device
   time by kernel name, a request's device time in each hand-written kernel
-  (A-E) and in everything else (plain-torch kernels, copies), and the
+  (A-F) and in everything else (plain-torch kernels, copies), and the
   device kernels a request launched (``device_kernels``: copies and fills
   apart);
 * ``stage_kernels``: the device kernels each stage of one more staged
@@ -76,7 +76,8 @@ CLIENT_SEED = 7
 HAND_KERNELS = {"ntt_kernel": "A", "ntt_cluster_kernel": "A", "ntt_top_kernel": "A",
                 "scan_kernel": "B", "scan_wide_kernel": "C", "scan_shoup_kernel": "D",
                 "ks_decompose_kernel": "E", "ks_inner_kernel": "E", "ks_moddown_kernel": "E",
-                "expand_combine_kernel": "E"}
+                "expand_combine_kernel": "E", "digits_lift_kernel": "F", "contract_kernel": "F",
+                "mod_switch_kernel": "F", "split_planes_kernel": "F"}
 _HAND_KERNEL = re.compile(r"\b(" + "|".join(HAND_KERNELS) + r")\b")
 _NOT_A_KERNEL = ("Memcpy", "Memset")  # device events that are copies and fills
 LAP_MARK = "stage done: "

@@ -1,10 +1,13 @@
 """Kernels A (NTT, N=64..32768, and over the BEHZ base at the large rings'
 ciphertext-multiplication shapes), B (scan, with and without a hi plane, and
 its runtime-moduli entry K6), C (the wide scan of batched serving, both
-variants), D (the Shoup-table scan, K7) and E (the key switch's four
-entries, at every served shape of kernel_times.keyswitch_cases) on the card
+variants), D (the Shoup-table scan, K7), E (the key switch's four
+entries, at every served shape of kernel_times.keyswitch_cases) and F (the
+upper level's lift, contraction and plane split and the mod switch, at
+kernel_times.upper_cases and modswitch_cases) on the card
 against their plain PyTorch versions, bit for bit (tolerance 0); the
-expansion and relinearization on the card through kernel E alone; the port's server on the card
+expansion and relinearization on the card through kernel E alone, the
+upper levels and the mod switch through kernel F alone; the port's server on the card
 (both layouts, ciphertext-multiplication mode, and SEAL-stream requests),
 negacyclic_polymul and the noise-budget probe against the same on the CPU;
 and meshes of two gloo ranks sharing the card (decomposition and
@@ -334,7 +337,7 @@ def test_launch_counts(dev):
     assert kernels.NTT.launches == before + 2
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {"ntt": 0, "scan": 0, "scan_wide": 0, "scan_shoup": 0,
-                                       "keyswitch": 0}
+                                       "keyswitch": 0, "upper": 0}
     assert kernels.variant_launch_counts() == {}
     limbs = modular.LimbConstants(tables.moduli[:1], dev)
     sv = residues(tables.moduli[:1], (3, 4), 64, dev, seed=4)
@@ -342,8 +345,11 @@ def test_launch_counts(dev):
     scan_kernel.contract_dim_raw(sv[:, :2], None, lo, limbs)
     scan_kernel.contract_dim_raw_wide(sv, None, lo, limbs)
     assert kernels.launch_counts() == {"ntt": 0, "scan": 1, "scan_wide": 1, "scan_shoup": 0,
-                                       "keyswitch": 0}
+                                       "keyswitch": 0, "upper": 0}
     assert kernels.variant_launch_counts() == {"pir_scan.u32": 1, "pir_scan_wide.u32": 1}
+    scan_kernel.items_to_planes_cuda(residues(tables.moduli[:1], (2, 3), 64, dev, 6), 27)
+    assert kernels.launch_counts()["upper"] == 1
+    assert kernels.variant_launch_counts()["pir_upper.split"] == 1
 
 
 @pytest.mark.parametrize("dims", [1, 2])
@@ -814,3 +820,73 @@ def test_keyswitch_kernel_launch_failure_raises(dev):
     with pytest.raises(RuntimeError, match="keyswitch kernel launch failed"):
         keyswitch.inner_product_cuda(qp, digits, key)
     assert kernels.KEYSWITCH.launches == before
+
+
+@pytest.mark.parametrize("case", [c[0] for c in kernel_times.upper_cases()
+                                  + kernel_times.modswitch_cases()])
+def test_upper_kernels_match_plain_at_served_shapes(dev, case):
+    """Kernel F's entries (F1 lift, F2 contraction, F3 mod switch, F4 plane
+    split) at a served shape: bit-equal to their plain versions, each
+    launched and counted."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(case))
+    kernels.reset_launch_counts()
+    rows = kernel_times.time_upper(dev, gen, labels={case}, plain=False, reps=1)
+    torch.cuda.synchronize()
+    assert rows and all(r["max_abs_err"] == 0 for r in rows)
+    counts = kernels.variant_launch_counts()
+    names = {"F1": "pir_upper.lift", "F2": "pir_upper.contract", "F3": "pir_upper.modswitch",
+             "F4": "pir_upper.split"}
+    assert all(counts[names[r["entry"]]] > 0 for r in rows)
+
+
+@pytest.mark.parametrize("scan_impl", ["pallas", "xla"])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_upper_levels_and_mod_switch_on_card_use_kernel_f_only(dev, monkeypatch, scan_impl,
+                                                                dims):
+    """A served request with replies at one limb, on both layouts and at
+    d = 2 and 3 (a second upper level: C > 1), single-query and batched on
+    the planes: Response bytes equal to the CPU server's, kernel F launched,
+    and no plain piece of the upper levels or the mod switch reached."""
+    from pir_tpu_torch.ops import decompose, modswitch, scan
+
+    params = _small_params((34, 36, 37), dims=dims)
+    rng = np.random.default_rng(dims)
+    raw = [rng.integers(0, 256, 8, dtype=np.uint8).tobytes() for _ in range(50)]
+    client = pt.PirClient(params, seed=9, compress_queries=True, device="cpu")
+    requests = [client.create_request([3]), client.create_request([3, 44])]
+    cpu = pt.PirServer(pt.PirDatabase.create(raw, params, scan_impl=scan_impl, device="cpu"),
+                       params, reply_limbs=1)
+    want = [cpu.process_request(r).SerializeToString() for r in requests]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain piece of the upper level")
+
+    for mod, name in ((decompose, "decompose_ct"), (decompose, "lift_columns_plain"),
+                      (scan, "contract_dim_plain"), (scan_kernel, "items_to_planes_plain"),
+                      (modswitch, "mod_switch_plain"), (modswitch, "mod_switch_drop_last")):
+        monkeypatch.setattr(mod, name, refuse)
+    card = pt.PirServer(pt.PirDatabase.create(raw, params, scan_impl=scan_impl, device=dev),
+                        params, reply_limbs=1)
+    kernels.reset_launch_counts()
+    got = [card.process_request(r).SerializeToString() for r in requests]
+    torch.cuda.synchronize()
+    assert got == want
+    counts = kernels.variant_launch_counts()
+    upper = "pir_upper.split" if scan_impl == "pallas" else "pir_upper.contract"
+    assert counts["pir_upper.lift"] > 0 and counts[upper] > 0
+    assert counts["pir_upper.modswitch"] == (2 if scan_impl == "pallas" else 3)
+
+
+def test_upper_kernel_launch_failure_raises(dev):
+    """A launch kernel F refuses (here a grid past the card's limit of
+    prefix tiles) raises; nothing falls back."""
+    from pir_tpu_torch.ops import scan
+
+    limbs = modular.LimbConstants(primes.coeff_modulus_from_bits(64, [34]), dev)
+    sv = torch.zeros((1, 2, 1, 64), dtype=torch.int64, device=dev)
+    items = torch.zeros((8 * 65536, 1, 1, 64), dtype=torch.int64, device=dev)
+    before = kernels.UPPER.launches
+    with pytest.raises(RuntimeError, match="upper kernel launch failed"):
+        scan.contract_dim_cuda(limbs, sv, items)
+    assert kernels.UPPER.launches == before

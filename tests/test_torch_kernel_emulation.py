@@ -1,5 +1,6 @@
-"""Kernels A (csrc/ntt.cu), B (csrc/scan.cu), C (csrc/scan_wide.cu) and E
-(csrc/keyswitch.cu, through its Python wrappers) run on the CPU: the CUDA sources themselves, their csrc/*.cuh headers inlined,
+"""Kernels A (csrc/ntt.cu), B (csrc/scan.cu), C (csrc/scan_wide.cu), E
+(csrc/keyswitch.cu) and F (csrc/upper.cu), E and F through their Python
+wrappers, run on the CPU: the CUDA sources themselves, their csrc/*.cuh headers inlined,
 compiled by g++ against a small emulation of the CUDA runtime (one
 std::thread per CUDA thread, a std::barrier for __syncthreads, a byte
 buffer for the block's shared memory; a thread-block cluster's blocks run
@@ -9,9 +10,11 @@ replaced by C equivalents), held bit for bit to the plain versions at
 every radix and row split their plans can choose, kernel A at every ring
 up to N=32768 (one cluster of 4 or 8 blocks a limb above N=8192, grids
 with clusters past the last polynomial) on growing and reducing chains,
-kernel C at every edge of scan_wide_plan's layout, and kernel E's four
-entries at tiny rings under each of pir_tpu's inner-product methods, with
-every word at q - 1 too.
+kernel C at every edge of scan_wide_plan's layout, kernel E's four
+entries at tiny rings under each of pir_tpu's inner-product methods, and
+kernel F's four (the upper level's lift, contraction and plane split, and
+the mod switch) on SEAL-like, tpu32-like and 60-bit chains in both
+re-encode modes, with every word at q - 1 too.
 
 What this shows is the kernels' index arithmetic, twiddle choice,
 exchange layout, lazy-reduction bounds, row-split sums and kernel C's ring
@@ -237,15 +240,17 @@ def _compile(d: pathlib.Path, name: str, source: str):
 def libs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cuda_emulation")
     out = {name: _compile(d, name, emulation_source(name))
-           for name in ("ntt", "scan", "scan_wide", "keyswitch")}
+           for name in ("ntt", "scan", "scan_wide", "keyswitch", "upper")}
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     out["ntt"].pir_ntt.argtypes = kernels.NTT_ARGS
     out["scan"].pir_scan.argtypes = [P, P, P, P, P, I32, I64, I32, I32, I64, I64, I64, I64,
                                      I32, I32, I32, I32, P]
     out["scan_wide"].pir_scan_wide.argtypes = kernels.SCAN_WIDE._entry_points["pir_scan_wide"]
-    for fn, argtypes in kernels.KEYSWITCH._entry_points.items():
-        getattr(out["keyswitch"], fn).argtypes = argtypes
-    out["keyswitch"].cuda_error_string.restype = ctypes.c_char_p
+    for kernel in (kernels.KEYSWITCH, kernels.UPPER):
+        lib = out[kernel.source.stem]
+        for fn, argtypes in kernel._entry_points.items():
+            getattr(lib, fn).argtypes = argtypes
+        lib.cuda_error_string.restype = ctypes.c_char_p
     return out
 
 
@@ -587,22 +592,20 @@ def test_ntt_cluster_variant_half_the_ctas_equals_plain(tmp_path, n, bits):
 KS_CHAINS = [(64, (26, 27, 28)), (128, (34, 36, 37)), (64, (58, 60, 61)), (64, (30,) * 29)]
 
 
-def _ks_ctx(n, bits):
+def _ks_ctx(n, bits, reencode="balanced"):
     from pir_tpu_torch.core.context import PirContext
     from pir_tpu_torch.core.params import EncryptionParams, create_pir_parameters
 
     ep = EncryptionParams(poly_modulus_degree=n, plain_modulus=primes.get_prime(2 * n, 12),
                           coeff_modulus=tuple(primes.coeff_modulus_from_bits(n, list(bits))))
-    return PirContext(create_pir_parameters(40, 8, 2, ep), "cpu")
+    return PirContext(create_pir_parameters(40, 8, 2, ep, reencode_digits=reencode), "cpu")
 
 
 @pytest.fixture
 def emulated_e(libs, monkeypatch):
     """Kernel E's wrappers on CPU tensors, launching the emulation."""
-    from pir_tpu_torch.ops import keyswitch
-
     monkeypatch.setattr(kernels.KEYSWITCH, "_lib", libs["keyswitch"])
-    monkeypatch.setattr(keyswitch, "require_cuda", lambda x, name: None)
+    monkeypatch.setattr(kernels, "require_cuda", lambda x, name, kernel: None)
     monkeypatch.setattr(kernels, "stream_handle", lambda t: None)
     kernels.KEYSWITCH.variant_launches.clear()
     return kernels.KEYSWITCH.variant_launches
@@ -727,3 +730,128 @@ def test_kernel_e_refuses_what_it_cannot_take(libs, emulated_e):
     with pytest.raises(ValueError, match="127-bit"):
         keyswitch.inner_product_cuda(qp, torch.zeros((1, 64, 2, 64), dtype=torch.int64),
                                      torch.zeros((64, 2, 2, 64), dtype=torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# kernel F: the upper level's lift (F1), contraction (F2) and plane split
+# (F4), and the reply's mod switch (F3)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def emulated_f(libs, monkeypatch):
+    """Kernel F's wrappers on CPU tensors, launching the emulation."""
+    monkeypatch.setattr(kernels.UPPER, "_lib", libs["upper"])
+    monkeypatch.setattr(kernels, "require_cuda", lambda x, name, kernel: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda t: None)
+    kernels.UPPER.variant_launches.clear()
+    return kernels.UPPER.variant_launches
+
+
+@pytest.mark.parametrize("top", [False, True], ids=["random", "q-1"])
+@pytest.mark.parametrize("reencode", ["balanced", "legacy"])
+@pytest.mark.parametrize("n,bits", KS_CHAINS)
+def test_kernel_f_emulated_equals_plain(emulated_f, n, bits, reencode, top):
+    """On KS_CHAINS (tpu32-like: no hi plane; SEAL-like: a u8 one; 60-bit:
+    above the planes' 48 bits, no F4; 28 tpu32 limbs: F3 from 28 down to 1),
+    F1 on a second upper level's lower ciphertexts (C = 2, as at d = 3;
+    two leading lanes, prefix 2 x dim 3) over column ranges at the start,
+    across a lower ciphertext's edge and at a ragged end; F2 on 9 prefixes
+    (a ragged third tile of 4) over 5 rows; F3 from L limbs to every keep and from
+    fewer limbs; F4 with the chain's plane form: each bit for bit equal to
+    its plain version."""
+    from pir_tpu_torch.ops import decompose, modswitch, scan
+
+    ctx = _ks_ctx(n, bits, reencode)
+    L = ctx.L
+    er2 = 2 * decompose.expansion_ratio(ctx)
+    result = _ks_words(ctx, (2, 6, 2, 2), n, top=top)  # [lead, prefix * dim, C, 2, L, N]
+    ranges = [(0, 3), (er2 - 1, er2 + 2), (2 * er2 - 2, 2 * er2)]
+    if er2 <= 24:
+        ranges.append((0, 2 * er2))
+    for c0, c1 in ranges:
+        got = decompose.lift_columns_cuda(ctx, result, 2, 3, c0, c1)
+        assert torch.equal(got, decompose.lift_columns_plain(ctx, result, 2, 3, c0, c1))
+
+    sv = _ks_words(ctx, (5, 2), n + 1, top=top)
+    items = _ks_words(ctx, (9, 5), n + 2, top=top)
+    assert torch.equal(scan.contract_dim_cuda(ctx.limbs_q, sv, items),
+                       scan.contract_dim_plain(ctx, sv, items))
+
+    ct = _ks_words(ctx, (3, 2), n + 3, top=top)
+    switches = [(L, k) for k in range(1, L + 1)] + [(L - 1, 1)]
+    for cur, keep in switches:
+        part = ct[..., :cur, :].contiguous()
+        assert torch.equal(modswitch.mod_switch_cuda(ctx, part, keep),
+                           modswitch.mod_switch_plain(ctx, part, keep))
+
+    bits_q = max(bits[:-1])
+    if bits_q <= scan_kernel.PLANES_MAX_BITS:
+        hi, lo = scan_kernel.items_to_planes_cuda(items, bits_q)
+        want_hi, want_lo = scan_kernel.items_to_planes_plain(items, bits_q)
+        assert torch.equal(lo, want_lo)
+        assert (hi is None) == (want_hi is None) == (bits_q <= 32)
+        assert hi is None or (hi.dtype == want_hi.dtype and torch.equal(hi, want_hi))
+    assert emulated_f == {"pir_upper.lift": len(ranges), "pir_upper.contract": 1,
+                          "pir_upper.modswitch": sum(keep < cur for cur, keep in switches),
+                          **({"pir_upper.split": 1} if bits_q <= 48 else {})}
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 1, 33])
+def test_kernel_f_contraction_exact_at_the_127_bit_edge(emulated_f, extra):
+    """F2 with every word at q - 1 on a 61-bit chain, over D rows just under,
+    at, just over and well over the rows its 128-bit sums hold
+    (scan.contract_chunk): equal to the plain version."""
+    from pir_tpu_torch.ops import scan
+
+    ctx = _ks_ctx(64, (61, 61, 61))
+    chunk = scan.contract_chunk(ctx.ct_moduli)
+    m = (max(ctx.ct_moduli) - 1) ** 2
+    assert chunk * m < 1 << 127 <= (chunk + 1) * m
+    sv = _ks_words(ctx, (chunk + extra, 2), 0, top=True)
+    items = _ks_words(ctx, (3, chunk + extra), 0, top=True)
+    assert torch.equal(scan.contract_dim_cuda(ctx.limbs_q, sv, items),
+                       scan.contract_dim_plain(ctx, sv, items))
+
+
+def test_kernel_f_refuses_what_it_cannot_take(libs, emulated_f):
+    """Launches that would read past their operands are refused before
+    anything runs; the wrappers refuse shapes, chains and views the kernels
+    do not take."""
+    from pir_tpu_torch.ops import decompose, modswitch, scan
+    from pir_tpu_torch.parallel.sharded import _LimbShardView
+
+    lib = libs["upper"]
+    assert lib.pir_digits_lift(None, None, None, 1, 3, 1, 2, 64, 7, 2, 8, None) != 0
+    assert lib.pir_contract(None, None, None, None, 8 * 65536, 2, 2, 64, 4, None) != 0
+    assert lib.pir_contract(None, None, None, None, 1, 2, 2, 64, 0, None) != 0
+    assert lib.pir_mod_switch(None, None, None, 1, 33, 1, 64, None) != 0
+    assert lib.pir_mod_switch(None, None, None, 1, 3, 3, 64, None) != 0
+    assert lib.pir_split_planes(None, None, None, 3, 1, 1, 1, 64, None) != 0
+    assert lib.pir_split_planes(None, None, None, 1, 1, 1, 1, 64, None) != 0
+
+    ctx = _ks_ctx(64, (34, 36, 37))
+    result = _ks_words(ctx, (6, 1, 2), 1)
+    with pytest.raises(ValueError, match="result must be"):
+        decompose.lift_columns_cuda(ctx, result, 2, 2, 0, 1)
+    with pytest.raises(ValueError, match="outside"):
+        decompose.lift_columns_cuda(ctx, result, 2, 3, 0, 2 * decompose.expansion_ratio(ctx) + 1)
+
+    class Mesh:
+        def size(self, axis):
+            return 2
+
+        def coord(self, axis):
+            return 0
+
+    view = _LimbShardView(_ks_ctx(64, (34, 35, 36, 37)), Mesh())
+    with pytest.raises(ValueError, match="limb shard"):
+        decompose.lift_columns_cuda(view, _ks_words(view, (6, 1, 2), 2), 2, 3, 0, 1)
+    sv = _ks_words(ctx, (5, 2), 3)
+    with pytest.raises(ValueError, match="kernel F2 takes"):
+        scan.contract_dim_cuda(ctx.limbs_q, sv, _ks_words(ctx, (2, 4), 4))
+    long = _ks_ctx(64, (30,) * 34)
+    with pytest.raises(ValueError, match="at most 32"):
+        modswitch.mod_switch_cuda(long, _ks_words(long, (1,), 5), 1)
+    with pytest.raises(ValueError, match="up to 48 bits"):
+        scan_kernel.items_to_planes_cuda(_ks_words(ctx, (1, 2), 6), 60)
+    assert emulated_f == {}

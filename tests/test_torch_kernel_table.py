@@ -1,4 +1,6 @@
-"""chip_smoke.py's kernel table names every TPU kernel of pir_tpu.
+"""chip_smoke.py's kernel table names every TPU kernel of pir_tpu, and its
+table of kernels for work pir_tpu leaves to XLA (kernels E and F) names
+what each entry replaces.
 
 Every kernel body that a ``pl.pallas_call`` in ``pir_tpu/ops/pallas_*.py``
 reaches is found by reading the sources as text (``ast``, no JAX import) and
@@ -85,19 +87,60 @@ def test_kernel_rows_are_complete():
     assert {r.check for r in rows} == {"K1", "K2", "K3", "K4", "K4-u32", "K5", "K6", "K7"}
 
 
+def _names_existing_lines(row) -> bool:
+    for ref in row.replaces:
+        path, line = ref.split(":")
+        assert path.startswith("pir_tpu/ops/")
+        assert (REPO / path).read_text().splitlines()[int(line) - 1].strip(), ref
+    return True
+
+
 def test_xla_kernel_rows_name_kernel_e():
     """Kernel E's rows, a table of their own (they replace code pir_tpu
     leaves to XLA, not Pallas bodies): one row per entry, each naming lines
     of pir_tpu's key switch, Galois permutation or expansion that exist,
     counted on every served path."""
-    rows = chip_smoke.XLA_KERNEL_ROWS
+    rows = chip_smoke.XLA_KERNEL_ROWS[:4]
     assert [r.check for r in rows] == ["E1", "E2", "E3", "E4"]
     assert not {r.name for r in rows} & {r.name for r in chip_smoke.KERNEL_ROWS}
     for row in rows:
         assert (REPO / "pir_tpu_torch" / "csrc" / row.source).exists()
         assert [path for path, _ in row.launches] == ["*"]
+        assert _names_existing_lines(row)
+    assert {v for r in rows for _, v in r.launches} == set(chip_smoke.KEYSWITCH_VARIANTS)
+
+
+def test_xla_kernel_rows_name_kernel_f():
+    """Kernel F's rows follow kernel E's: one row per entry (F1 lift, F2
+    contraction, F3 mod switch, F4 plane split) in csrc/upper.cu, each
+    naming the lines of pir_tpu's decomposition, upper level, contraction,
+    plane split or mod switch it replaces (the functions' defs, and the
+    upper level's decomposition block), counted
+    under its own name on the served paths chip_smoke.py drives, every path
+    with an upper level lifting (F1) and splitting (F4, planes) or
+    contracting (F2, Shoup table), and a headline case for each."""
+    import ast
+
+    rows = chip_smoke.XLA_KERNEL_ROWS[4:]
+    assert [r.check for r in rows] == ["F1", "F2", "F3", "F4"]
+    variants = ["pir_upper.lift", "pir_upper.contract", "pir_upper.modswitch", "pir_upper.split"]
+    assert [{v for _, v in r.launches} for r in rows] == [{v} for v in variants]
+    for row in rows:
+        assert row.source == "upper.cu"
+        assert _names_existing_lines(row)
         for ref in row.replaces:
             path, line = ref.split(":")
-            assert path.startswith("pir_tpu/ops/")
-            assert (REPO / path).read_text().splitlines()[int(line) - 1].strip(), ref
-    assert {v for r in rows for _, v in r.launches} == set(chip_smoke.KEYSWITCH_VARIANTS)
+            defs = {f.lineno for f in ast.walk(ast.parse((REPO / path).read_text()))
+                    if isinstance(f, ast.FunctionDef)}
+            # F1's second line is the upper level's decomposition block
+            assert int(line) in defs or ref == "pir_tpu/ops/scan.py:206", ref
+        paths = [p for p, _ in row.launches]
+        assert paths and "*" not in paths and len(paths) == len(set(paths))
+    lift, contract, _, split = ({p for p, _ in r.launches} for r in rows)
+    assert contract <= lift and lift == (split - {"mesh", "mesh32", "shard_mesh"}) | contract
+    assert not split & contract
+    assert set(chip_smoke.UPPER_HEAD) == {"F1", "F2", "F3", "F4"}
+    import pir_tpu_torch.kernel_times as kt
+
+    labels = {c[0] for c in kt.upper_cases()} | {c[0] for c in kt.modswitch_cases()}
+    assert set(chip_smoke.UPPER_HEAD.values()) <= labels

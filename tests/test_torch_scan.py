@@ -146,6 +146,33 @@ def test_mod_switch_to(keep):
         tms.mod_switch_to(tc, tensor_u64(ct), 0)
 
 
+@pytest.mark.parametrize("cur", [2, 3, 4, 5])
+def test_mod_switch_from_every_level_to_every_keep(cur):
+    """A ciphertext at L' = cur of the chain's 5 limbs, switched to every
+    keep (keep = cur: unchanged), equals pir_tpu's."""
+    jc, tc = contexts((26, 27, 28, 29, 30, 31), n=64, t_bits=12)
+    ct = residues(np.random.default_rng(cur), jc.ct_moduli[:cur], (2, 2), 64)
+    for keep in range(1, cur + 1):
+        ref = jms.mod_switch_to(jc, jnp.asarray(ct), keep)
+        got = tms.mod_switch_to(tc, tensor_u64(ct), keep)
+        assert np.array_equal(numpy_u64(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize("q_bits", [(26, 27, 28), (26, 34, 36), (40, 44, 46)])
+def test_items_to_planes_matches_pir_tpu(q_bits):
+    """An upper level's [P, D, L, N] items as transposed planes of the
+    chain's width, equal to pir_tpu's items_to_planes."""
+    jc, tc = contexts(q_bits, n=64)
+    items = residues(np.random.default_rng(7), jc.ct_moduli, (3, 5), 64)
+    jh, jl = jscan.items_to_planes(jc, jnp.asarray(items))
+    th, tl = tscan.items_to_planes(tc, tensor_u64(items))
+    assert tl.shape == (3, len(jc.ct_moduli), 5, 64)
+    assert np.array_equal(tl.numpy().view(np.uint32), np.asarray(jl))
+    assert (th is None) == (jh is None)
+    if jh is not None:
+        assert np.array_equal(th.to(torch.int64).numpy(), np.asarray(jh).astype(np.int64))
+
+
 @pytest.mark.parametrize(
     "dbsize,item,dims,q_bits",
     [(40, 8, 2, (26, 34, 36)), (90, 88, 1, (26, 27, 28)), (33, 5, 2, (26, 34, 36))],
