@@ -1,5 +1,6 @@
 // Asynchronous copies from device memory into shared memory (cp.async),
-// shared by the scan kernels (csrc/scan.cu, csrc/scan_wide.cu).  A thread
+// shared by the scan kernels (csrc/scan.cu, csrc/scan_wide.cu) and the wide
+// contraction (csrc/contract.cuh).  A thread
 // commits the copies it issued as one group and waits until at most
 // kPending of its groups are still in flight; copies of other threads are
 // seen only after a barrier.

@@ -19,15 +19,11 @@
 // Every word is a u64 residue below 2^61; tensors are row-major.  The moduli
 // arrive as u64 [L, 3] tables of (q, floor(2^128/q) hi word, lo word) rows.
 //
-// E2 runs one exact scheme for all three of pir_tpu's inner-product methods
-// ("u32" for the tpu32 chain, "48-bit" for SEAL's 36/37-bit chain, "generic"
-// up to 61 bits): each product of two reduced words (< 2^122) is added in
-// full into a 128-bit sum, and L <= 29 terms stay below 2^127, where the
-// two-word Barrett reduction of modarith.cuh is exact (its quotient is at
-// most one short, so one conditional subtract ends it).  A reduced residue is
-// unique, so the one reduction per output gives the words of every one of
-// pir_tpu's branches, as csrc/scan.cu's one reduction per output does for
-// its wide sums.  The wrapper refuses a chain where L (q - 1)^2 reaches 2^127.
+// E2 is the exact wide contraction of csrc/contract.cuh with x = the digits
+// [R, L, Lp, N] and w = the key [L, 2, Lp, N]: one scheme for all three of
+// pir_tpu's inner-product methods ("u32" for the tpu32 chain, "48-bit" for
+// SEAL's 36/37-bit chain, "generic" up to 61 bits), since a reduced residue
+// is unique.  The wrapper refuses a chain where L (q - 1)^2 reaches 2^127.
 //
 // Design: E1, E3 and E4 are element-wise, one thread per output word, a
 // warp on 32 consecutive coefficients.  E1 gathers its input word through
@@ -41,26 +37,22 @@
 // so the key switch writes the finished ciphertext.  E4 computes both
 // negacyclic shifts' source index and sign from the shift itself and writes
 // the doubled ciphertexts straight into their places (Q trees of B
-// ciphertexts each -> [Q, 2B, ...]).  E2 gives a thread one coefficient of
-// one key prime and kRowTile rows: it loads the two key words of digit i
-// once and uses them for every row of its tile, so a block reads its key
-// columns once, and the digits once.
+// ciphertexts each -> [Q, 2B, ...]).
 //
 // What bounds it on the H100: bytes.  E1, E3 and E4 move 16-40 bytes a word
-// for at most 28 32-bit multiplies; E2 moves the digits and the key (8 bytes
-// each) for 12 multiplies a product.
+// for at most 28 32-bit multiplies; E2 moves the digits and the output (8
+// bytes each) for 7-12 multiplies a product.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "contract.cuh"
 #include "modarith.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;       // element-wise kernels
-constexpr int kInnerThreads = 128;  // E2: coefficients a block
-constexpr int kRowTile = 8;         // E2: rows a thread
+constexpr int kThreads = 256;  // element-wise kernels
 
 __device__ __forceinline__ uint64_t neg_if(uint64_t x, bool neg, uint64_t q) {
   return neg && x != 0 ? q - x : x;
@@ -95,46 +87,6 @@ ks_decompose_kernel(const uint64_t* __restrict__ in, int64_t in_row_stride,
   uint64_t* o = out + ri * Lp * N + n;
   for (int j = 0; j < Lp; ++j)
     o[j * N] = barrett_reduce_64(x, qp[3 * j], qp[3 * j + 1]);
-}
-
-// E2: digits [R, L, Lp, N], key [L, 2, Lp, N], out [R, 2, Lp, N].
-__global__ void __launch_bounds__(kInnerThreads)
-ks_inner_kernel(const uint64_t* __restrict__ digits,
-                const uint64_t* __restrict__ key,
-                const uint64_t* __restrict__ qp, uint64_t* __restrict__ out,
-                int64_t R, int L, int Lp, int64_t N) {
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * kInnerThreads + threadIdx.x;
-  if (n >= N) return;
-  const int j = blockIdx.y;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.z) * kRowTile;
-  const int64_t rows = R - r0 < kRowTile ? R - r0 : kRowTile;
-  const int64_t plane = static_cast<int64_t>(Lp) * N;  // one (r, i) or (i, k) of Lp limbs
-  const int64_t col = static_cast<int64_t>(j) * N + n;
-  uint64_t lo0[kRowTile], hi0[kRowTile], lo1[kRowTile], hi1[kRowTile];
-#pragma unroll
-  for (int t = 0; t < kRowTile; ++t) lo0[t] = hi0[t] = lo1[t] = hi1[t] = 0;
-  for (int i = 0; i < L; ++i) {
-    const uint64_t k0 = key[2 * i * plane + col];
-    const uint64_t k1 = key[(2 * i + 1) * plane + col];
-    const uint64_t* d = digits + (r0 * L + i) * plane + col;
-#pragma unroll
-    for (int t = 0; t < kRowTile; ++t) {
-      if (t < rows) {
-        const uint64_t x = d[t * L * plane];
-        mac128(lo0[t], hi0[t], x, k0);
-        mac128(lo1[t], hi1[t], x, k1);
-      }
-    }
-  }
-  const uint64_t q = qp[3 * j], ratio_hi = qp[3 * j + 1], ratio_lo = qp[3 * j + 2];
-#pragma unroll
-  for (int t = 0; t < kRowTile; ++t) {
-    if (t < rows) {
-      uint64_t* o = out + (r0 + t) * 2 * plane + col;
-      o[0] = barrett_reduce_128(hi0[t], lo0[t], q, ratio_hi, ratio_lo);
-      o[plane] = barrett_reduce_128(hi1[t], lo1[t], q, ratio_hi, ratio_lo);
-    }
-  }
 }
 
 // E3: acc [R, 2, Lp, N] (coefficient form), out [R, 2, L, N]; output limb j
@@ -224,18 +176,15 @@ int pir_ks_decompose(const void* in, int64_t in_row_stride, const void* src,
   return static_cast<int>(cudaGetLastError());
 }
 
-// E2.
+// E2: the contraction of digits [R, L, Lp, N] with the key [L, 2, Lp, N]
+// into [R, 2, Lp, N], `chunk` digits a reduction, laid out by
+// ops/scan_kernel.py::contract_plan (csrc/contract.cuh::run).
 int pir_ks_inner(const void* digits, const void* key, const void* qp, void* out, int64_t R,
-                 int L, int Lp, int64_t N, void* stream) {
-  const int64_t row_tiles = (R + kRowTile - 1) / kRowTile;
-  if (R < 1 || L < 1 || Lp < 1 || Lp > 65535 || row_tiles > 65535 || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(blocks_for(N, kInnerThreads), static_cast<unsigned>(Lp),
-                  static_cast<unsigned>(row_tiles));
-  ks_inner_kernel<<<grid, kInnerThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(digits), static_cast<const uint64_t*>(key),
-      static_cast<const uint64_t*>(qp), static_cast<uint64_t*>(out), R, L, Lp, N);
-  return static_cast<int>(cudaGetLastError());
+                 int L, int Lp, int64_t N, int64_t chunk, int path, int rows, int terms,
+                 int coeff_warps, int splits, int stages, int shared_bytes, int64_t grid_x,
+                 int grid_y, void* stream) {
+  return contract::run(digits, key, qp, out, R, L, Lp, N, chunk, path, rows, terms, coeff_warps,
+                       splits, stages, shared_bytes, grid_x, grid_y, stream);
 }
 
 // E3.

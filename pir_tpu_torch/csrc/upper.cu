@@ -31,14 +31,12 @@
 // flattening, the transpose and the broadcast lift in one write, in the
 // layout kernel A's forward takes as it is.
 //
-// F2 is kernel E2's scheme (csrc/keyswitch.cu) over (P, D, L) in place of
-// (R, L, Lp): a thread owns one coefficient of one limb for kPrefixTile
-// prefixes, loads the two selection-vector words of row d once for all of
-// them, and adds the full 64 x 64 products into 128-bit sums; after every
-// `chunk` rows (chunk (q - 1)^2 < 2^127, set by the wrapper) the sums take
-// one two-word Barrett reduction and are added mod q into the result, as
-// scan_kernel.sum_row_chunks adds the plain version's reduced partials.  A
-// reduced residue is unique, so the words are the plain version's.
+// F2 is the exact wide contraction of csrc/contract.cuh, kernel E2's, with
+// x = the items [P, D, L, N] and w = the selection vector [D, 2, L, N]:
+// exact sums of `chunk` rows (ops/scan_kernel.py::contract_chunk), each
+// reduced and added mod q, as scan_kernel.sum_row_chunks adds the plain
+// version's reduced partials.  A reduced residue is unique, so the words are
+// the plain version's.
 //
 // F3 gives a thread one coefficient column of one ciphertext polynomial:
 // it holds the column's L' words in registers and runs pir_tpu's drops in
@@ -53,7 +51,7 @@
 // 32.. as one or two bytes.
 //
 // What bounds them on the H100: bytes for F1, F2 and F4 (8 bytes read and
-// L * 8 written a digit; F2 reads 8 bytes a product for 12 multiplies; F4
+// L * 8 written a digit; F2 reads 8-16 bytes a product for 7-12 multiplies; F4
 // 8 bytes in, 4-6 out), and multiplies for F3 at the large chains (28 a
 // limb update, L'^2 / 2 updates a column).
 
@@ -61,14 +59,13 @@
 
 #include <cuda_runtime.h>
 
+#include "contract.cuh"
 #include "modarith.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;          // F1, F3, F4
-constexpr int kContractThreads = 128;  // F2: coefficients a block
-constexpr int kPrefixTile = 4;         // F2: prefixes a thread
-constexpr int kMaxLimbs = 32;          // F3: the words a thread holds
+constexpr int kThreads = 256;  // F1, F3, F4
+constexpr int kMaxLimbs = 32;  // F3: the words a thread holds
 
 // F1: in is the lower ciphertexts [lead, prefix * dim, C, 2, L, N];
 // cols [er2, 3] the per-column (source row, shift, width); out
@@ -92,56 +89,6 @@ digits_lift_kernel(const uint64_t* __restrict__ in, const int64_t* __restrict__ 
   const uint64_t word = (__ldg(src) >> col[1]) & ((uint64_t{1} << col[2]) - 1);
   uint64_t* o = out + ((bp * k + kk) * dim + d) * L * N + n;
   for (int l = 0; l < L; ++l) o[static_cast<int64_t>(l) * N] = word;
-}
-
-// F2: sv [D, 2, L, N], items [P, D, L, N], out [P, 2, L, N].
-__global__ void __launch_bounds__(kContractThreads)
-contract_kernel(const uint64_t* __restrict__ sv, const uint64_t* __restrict__ items,
-                const uint64_t* __restrict__ lq, uint64_t* __restrict__ out, int64_t P,
-                int64_t D, int L, int64_t N, int64_t chunk) {
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * kContractThreads + threadIdx.x;
-  if (n >= N) return;
-  const int j = blockIdx.y;
-  const int64_t p0 = static_cast<int64_t>(blockIdx.z) * kPrefixTile;
-  const int64_t prefixes = P - p0 < kPrefixTile ? P - p0 : kPrefixTile;
-  const int64_t plane = static_cast<int64_t>(L) * N;  // one (d, k) or (p, d) of L limbs
-  const int64_t col = static_cast<int64_t>(j) * N + n;
-  const uint64_t q = lq[3 * j], ratio_hi = lq[3 * j + 1], ratio_lo = lq[3 * j + 2];
-  uint64_t acc0[kPrefixTile], acc1[kPrefixTile];
-#pragma unroll
-  for (int t = 0; t < kPrefixTile; ++t) acc0[t] = acc1[t] = 0;
-  for (int64_t d0 = 0; d0 < D; d0 += chunk) {
-    const int64_t d1 = D - d0 < chunk ? D : d0 + chunk;
-    uint64_t lo0[kPrefixTile], hi0[kPrefixTile], lo1[kPrefixTile], hi1[kPrefixTile];
-#pragma unroll
-    for (int t = 0; t < kPrefixTile; ++t) lo0[t] = hi0[t] = lo1[t] = hi1[t] = 0;
-    for (int64_t d = d0; d < d1; ++d) {
-      const uint64_t k0 = sv[2 * d * plane + col];
-      const uint64_t k1 = sv[(2 * d + 1) * plane + col];
-      const uint64_t* x = items + (p0 * D + d) * plane + col;
-#pragma unroll
-      for (int t = 0; t < kPrefixTile; ++t) {
-        if (t < prefixes) {
-          const uint64_t w = x[t * D * plane];
-          mac128(lo0[t], hi0[t], w, k0);
-          mac128(lo1[t], hi1[t], w, k1);
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kPrefixTile; ++t) {
-      acc0[t] = add_mod(acc0[t], barrett_reduce_128(hi0[t], lo0[t], q, ratio_hi, ratio_lo), q);
-      acc1[t] = add_mod(acc1[t], barrett_reduce_128(hi1[t], lo1[t], q, ratio_hi, ratio_lo), q);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kPrefixTile; ++t) {
-    if (t < prefixes) {
-      uint64_t* o = out + (p0 + t) * 2 * plane + col;
-      o[0] = acc0[t];
-      o[plane] = acc1[t];
-    }
-  }
 }
 
 // F3's constants for dropping limb s (of s + 1): q_s and its half, then for
@@ -233,18 +180,16 @@ int pir_digits_lift(const void* in, const void* cols, void* out, int64_t lead_pr
   return static_cast<int>(cudaGetLastError());
 }
 
-// F2.
-int pir_contract(const void* sv, const void* items, const void* lq, void* out, int64_t P,
-                 int64_t D, int L, int64_t N, int64_t chunk, void* stream) {
-  const int64_t prefix_tiles = (P + kPrefixTile - 1) / kPrefixTile;
-  if (P < 1 || D < 1 || L < 1 || L > 65535 || prefix_tiles > 65535 || N < 1 || chunk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(blocks_for(N, kContractThreads), static_cast<unsigned>(L),
-                  static_cast<unsigned>(prefix_tiles));
-  contract_kernel<<<grid, kContractThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(sv), static_cast<const uint64_t*>(items),
-      static_cast<const uint64_t*>(lq), static_cast<uint64_t*>(out), P, D, L, N, chunk);
-  return static_cast<int>(cudaGetLastError());
+// F2: the contraction of items [P, D, L, N] with sv [D, 2, L, N] into
+// [P, 2, L, N], `chunk` rows a reduction, laid out by
+// ops/scan_kernel.py::contract_plan (csrc/contract.cuh::run).
+int pir_contract(const void* items, const void* sv, const void* lq, void* out, int64_t P,
+                 int64_t D, int L, int64_t N, int64_t chunk, int path, int rows, int terms,
+                 int coeff_warps, int splits, int stages, int shared_bytes, int64_t grid_x,
+                 int grid_y, void* stream) {
+  if (D > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  return contract::run(items, sv, lq, out, P, static_cast<int>(D), L, N, chunk, path, rows, terms,
+                       coeff_warps, splits, stages, shared_bytes, grid_x, grid_y, stream);
 }
 
 // F3.

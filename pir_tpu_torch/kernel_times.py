@@ -862,7 +862,7 @@ def time_upper(device, gen, labels=None, plain: bool = True, reps: int = 10) -> 
         items = random_residues(ctx.ct_moduli, (k, d0), n, device, gen)
         if "F2" in entries:
             sv = random_residues(ctx.ct_moduli, (d0, 2), n, device, gen)
-            chunks = -(-d0 // scan.contract_chunk(ctx.ct_moduli))
+            chunks = -(-d0 // scan_kernel.contract_chunk(ctx.ct_moduli))
             run(label, "F2", lambda: scan.contract_dim_cuda(ctx.limbs_q, sv, items),
                 lambda: _plain_by_prefix(lambda x: scan.contract_dim_plain(ctx, sv, x), items),
                 upper_bounds("F2", P=k, D=d0, L=L, N=n, chunks=chunks), big)

@@ -176,16 +176,21 @@ SCAN_SHOUP = CudaKernel(
     "scan_shoup", "scan_shoup.cu",
     {"pir_scan_shoup": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P]},
 )
+# The exact wide contraction of csrc/contract.cuh behind E2 and F2: x, w,
+# moduli, out, R, I, J, N, chunk, then ops/scan_kernel.py::contract_plan's
+# path, rows, terms, coeff_warps, splits, stages, shared_bytes and grid, and
+# the stream
+CONTRACT_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I64] + [_I32] * 7 + [_I64, _I32, _P]
 # kernel E, the key switch and the expansion's combine step:
 # in, in_row_stride, src, flip, q_in, qp, out, R, L, Lp, N, stream
-# digits, key, qp, out, R, L, Lp, N, stream
+# E2: CONTRACT_ARGS (digits, key, qp, out, R, L, Lp, N, chunk, ...)
 # acc, lq, p_half_mod_q, p_inv, p_inv_shoup, add0, add1, add_row_stride, src, flip,
 #   out, R, L, Lp, offset, N, P, p_half, stream
 # cts, sub, lq, out, Q, B, polys, L, N, shift_a, shift_b, stream
 KEYSWITCH = CudaKernel(
     "keyswitch", "keyswitch.cu",
     {"pir_ks_decompose": [_P, _I64, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _P],
-     "pir_ks_inner": [_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P],
+     "pir_ks_inner": CONTRACT_ARGS,
      "pir_ks_moddown": [_P] * 7 + [_I64, _P, _P, _P, _I64, _I32, _I32, _I32, _I64, _I64, _I64, _P],
      "pir_expand_combine": [_P] * 4 + [_I64, _I64, _I32, _I32, _I64, _I64, _I64, _P]},
     counted_as={"pir_ks_decompose": "pir_ks.decompose", "pir_ks_inner": "pir_ks.inner",
@@ -194,13 +199,13 @@ KEYSWITCH = CudaKernel(
 # kernel F, the decomposition-mode scan's upper levels and the reply's mod
 # switch:
 # in, cols, out, lead_prefix, dim, C, L, N, c0, k, er2, stream
-# sv, items, lq, out, P, D, L, N, chunk, stream
+# F2: CONTRACT_ARGS (items, sv, lq, out, P, D, L, N, chunk, ...), D as int64
 # in, consts, out, R, cur, keep, N, stream
 # items, lo, hi, hi_bytes, P, D, L, N, stream
 UPPER = CudaKernel(
     "upper", "upper.cu",
     {"pir_digits_lift": [_P, _P, _P, _I64, _I64, _I64, _I32, _I64, _I64, _I64, _I64, _P],
-     "pir_contract": [_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _P],
+     "pir_contract": CONTRACT_ARGS[:5] + [_I64] + CONTRACT_ARGS[6:],
      "pir_mod_switch": [_P, _P, _P, _I64, _I32, _I32, _I64, _P],
      "pir_split_planes": [_P, _P, _P, _I32, _I64, _I64, _I32, _I64, _P]},
     counted_as={"pir_digits_lift": "pir_upper.lift", "pir_contract": "pir_upper.contract",

@@ -43,7 +43,7 @@ import torch
 
 from pir_tpu_torch import kernels
 from pir_tpu_torch.core.context import PirContext
-from pir_tpu_torch.ops import modular, poly, wide32
+from pir_tpu_torch.ops import modular, poly, scan_kernel, wide32
 
 SWITCH_CHUNK_BYTES = 1 << 30  # a step's [rows, L, 2, Lp, N] digit products
 
@@ -208,9 +208,11 @@ def inner_product_plain(ctx, digits: torch.Tensor, data: torch.Tensor) -> torch.
 
 
 def inner_product_cuda(qp, digits: torch.Tensor, ksk: torch.Tensor) -> torch.Tensor:
-    """Kernel E2 (``pir_ks_inner``): digits [..., L, Lp, N] against ksk
-    [L, 2, Lp, N] over key chain qp (LimbConstants), reduced
-    [..., 2, Lp, N], with no collective."""
+    """Kernel E2 (``pir_ks_inner``, the exact wide contraction of
+    ``csrc/contract.cuh``): digits [..., L, Lp, N] against ksk [L, 2, Lp, N]
+    over key chain qp (LimbConstants), reduced [..., 2, Lp, N], with no
+    collective; L digits a reduction where the word path's sums hold them
+    (``scan_kernel.contract_chunk``)."""
     kernels.require_cuda(digits, "digits", "E")
     kernels.require_cuda(ksk, "ksk", "E")
     L, Lp, n = digits.shape[-3:]
@@ -223,12 +225,10 @@ def inner_product_cuda(qp, digits: torch.Tensor, ksk: torch.Tensor) -> torch.Ten
     digits = digits.contiguous()
     ksk = ksk.contiguous()
     out = torch.empty((*digits.shape[:-3], 2, Lp, n), dtype=torch.int64, device=digits.device)
-    R = math.prod(digits.shape[:-3])
-    if R == 0:
+    if out.numel() == 0:
         return out
-    kernels.KEYSWITCH.launch(
-        "pir_ks_inner", digits.data_ptr(), ksk.data_ptr(), qp.table.data_ptr(), out.data_ptr(),
-        R, L, Lp, n, kernels.stream_handle(digits))
+    scan_kernel.launch_contract(kernels.KEYSWITCH, "pir_ks_inner", digits, ksk, out, qp,
+                                min(L, scan_kernel.contract_chunk(qp.moduli)))
     return out
 
 

@@ -121,16 +121,11 @@ def contract_dim_plain(ctx: PirContext, sv_ntt, items_ntt) -> torch.Tensor:
     return scan_kernel.sum_row_chunks(part, D, min(_max_chunk(ctx), max(D, 1)), lq.q)
 
 
-def contract_chunk(moduli) -> int:
-    """Rows whose full products kernel F2 sums exactly in 128 bits:
-    the most c with c (q - 1)^2 < 2^127 for the widest q."""
-    return max(1, ((1 << 127) - 1) // (max(int(q) for q in moduli) - 1) ** 2)
-
-
 def contract_dim_cuda(limbs, sv_ntt, items_ntt) -> torch.Tensor:
-    """Kernel F2 (``csrc/upper.cu``, ``pir_contract``): sv int64[D, 2, L, N]
-    against items int64[P, D, L, N] over the limbs' moduli, in exact
-    128-bit sums of contract_chunk rows, each reduced and added mod q ->
+    """Kernel F2 (``csrc/upper.cu``, ``pir_contract``: the exact wide
+    contraction of ``csrc/contract.cuh``): sv int64[D, 2, L, N] against items
+    int64[P, D, L, N] over the limbs' moduli, in exact sums of
+    ``scan_kernel.contract_chunk`` rows, each reduced and added mod q ->
     int64[P, 2, L, N]."""
     kernels.require_cuda(sv_ntt, "sv", "F")
     kernels.require_cuda(items_ntt, "items", "F")
@@ -147,9 +142,8 @@ def contract_dim_cuda(limbs, sv_ntt, items_ntt) -> torch.Tensor:
         return out
     if D == 0:
         return out.zero_()
-    kernels.UPPER.launch(
-        "pir_contract", sv_ntt.data_ptr(), items_ntt.data_ptr(), limbs.table.data_ptr(),
-        out.data_ptr(), P, D, L, N, contract_chunk(limbs.moduli), kernels.stream_handle(sv_ntt))
+    scan_kernel.launch_contract(kernels.UPPER, "pir_contract", items_ntt, sv_ntt, out, limbs,
+                                min(D, scan_kernel.contract_chunk(limbs.moduli)))
     return out
 
 

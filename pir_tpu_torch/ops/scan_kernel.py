@@ -29,10 +29,16 @@ The Shoup-table database (``scan_impl="xla"``) is contracted by
 :func:`contract_dim_shoup`, the counterpart of ``contract_dim_pallas``
 (K7): kernel D (``csrc/scan_shoup.cu``) on the card, the plain
 :func:`contract_shoup_plain` on the CPU.
+
+:func:`contract_plan` lays out the exact wide contraction of
+``csrc/contract.cuh`` that kernels E2 (the key switch's digit inner product)
+and F2 (the Shoup layout's upper-level contraction) launch through
+:func:`launch_contract`.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -359,6 +365,131 @@ def contract_wide_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tenso
 
     return _launch(kernels.SCAN_WIDE, "pir_scan_wide", sv, db_hi, db_lo, limbs.table,
                    _limbs_bits(limbs), j_begin, plan=plan)
+
+
+# The exact wide contraction (csrc/contract.cuh, kernels E2 and F2):
+# CONTRACT_WARPS warps a block, split between coefficients and the summed
+# axis; a thread holds the w words of 2, 4 or 8 terms (CONTRACT_TERMS) and
+# sums row tiles of up to CONTRACT_ROWS rows, rows x terms at most 8
+# (CONTRACT_BUILT, the instances csrc/contract.cuh::run is built for; 4
+# rows of 2 terms spill at the register budget); a ring of up to
+# CONTRACT_STAGES steps in at most CONTRACT_RING_BYTES, so
+# CONTRACT_MIN_BLOCKS blocks share an SM.  Rows, stages and the budget are
+# contract_variants.py's choices (PERF.md): 2 rows and 2 stages
+# were the fastest at the served shapes, and 80 registers a thread (3
+# blocks) beat 128 (2) and 64 (4).
+SM_COUNT = 132  # the H100's streaming multiprocessors
+SHARED_SM_BYTES = 233472  # shared memory an SM holds (228 KB)
+SHARED_BLOCK_RESERVE = 1024  # the part of it the card keeps for each resident block
+CONTRACT_WARPS = 8
+CONTRACT_TERMS = (2, 4, 8)
+CONTRACT_ROWS = 2
+CONTRACT_STAGES = 2
+CONTRACT_MIN_BLOCKS = 3
+CONTRACT_RING_BYTES = SHARED_SM_BYTES // CONTRACT_MIN_BLOCKS - SHARED_BLOCK_RESERVE
+CONTRACT_BUILT = ((1, 2), (2, 2), (1, 4), (2, 4), (1, 8))
+
+
+def contract_path(bits: int) -> int:
+    """The contraction's word path for moduli below 2^bits: 32 (one-word
+    products into 96-bit sums), 48 (three-word products into 96-bit sums)
+    or 64 (128-bit sums)."""
+    return 32 if bits <= 32 else 48 if bits <= 48 else 64
+
+
+def contract_chunk(moduli) -> int:
+    """Terms whose products the contraction sums exactly on its word path
+    for these moduli: the most c with c (q - 1)^2 < 2^96 (paths 32 and 48)
+    or < 2^127 (path 64) for the widest q."""
+    q = max(int(m) for m in moduli)
+    sums = 127 if contract_path(q.bit_length()) == 64 else 96
+    return max(1, ((1 << sums) - 1) // (q - 1) ** 2)
+
+
+@dataclass(frozen=True)
+class ContractPlan:
+    """The contraction's launch: word `path`; `rows` rows a row tile and
+    `terms` terms a thread an i-block; a block of `coeff_warps` x `splits`
+    warps (32 coefficients a coefficient warp, the summed axis split
+    `splits` ways); a ring of `stages` steps and the split partials in
+    `shared_bytes`; the grid of (limbs x coefficient tiles, row groups)
+    blocks, each walking every row_groups-th row tile."""
+
+    path: int
+    rows: int
+    terms: int
+    coeff_warps: int
+    splits: int
+    stages: int
+    shared_bytes: int
+    grid: "tuple[int, int]"
+
+
+def contract_shared_bytes(rows: int, terms: int, coeff_warps: int, splits: int,
+                          stages: int) -> int:
+    """The ring of `stages` steps of [rows, terms, splits, 32 x coeff_warps]
+    words and, with splits > 1, the partials [splits, rows, 2, 2 words,
+    32 x coeff_warps]."""
+    width = 32 * coeff_warps
+    return 8 * (stages * rows * terms * splits * width
+                + (splits * rows * 4 * width if splits > 1 else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def contract_plan(R: int, I: int, J: int, N: int, bits: int) -> ContractPlan:
+    """Lay out x [R, I, J, N] against w [I, 2, J, N] over moduli below
+    2^bits: split the summed axis over 1, 2, 4 or 8 warps until each holds
+    at most 8 terms (F2's 162 rows at N=4096 take 8 warps and three
+    i-blocks), a thread the w words of the fewest of 2, 4 or 8 terms that
+    hold its share, give the other warps to coefficients (at most N / 32),
+    take 2 rows a tile (E2), fewer where R is smaller, the kernel is not
+    built for them or the ring would pass CONTRACT_RING_BYTES (1 with 8
+    terms), and split the row tiles over as many row groups as
+    fill the card's blocks once, while the extra reads of w stay below an
+    eighth of x's bytes (none where w is large: F2, and E2 at N=32768)."""
+    if min(R, I, J, N, bits) < 1:
+        raise ValueError(f"empty contraction R={R} I={I} J={J} N={N} bits={bits}")
+    if N % 32:
+        raise ValueError(f"the contraction takes N a multiple of 32, got {N}")
+    splits = 1
+    while splits < CONTRACT_WARPS and splits * CONTRACT_TERMS[-1] < I:
+        splits *= 2
+    terms = next(t for t in CONTRACT_TERMS if t * splits >= I or t == CONTRACT_TERMS[-1])
+    coeff_warps = 1
+    while coeff_warps * splits < CONTRACT_WARPS and (N // 32) % (2 * coeff_warps) == 0:
+        coeff_warps *= 2
+    rows = CONTRACT_ROWS
+    while rows > 1 and ((rows, terms) not in CONTRACT_BUILT or rows >= 2 * R or contract_shared_bytes(
+            rows, terms, coeff_warps, splits, CONTRACT_STAGES) > CONTRACT_RING_BYTES):
+        rows //= 2
+    width = 32 * coeff_warps
+    shared = contract_shared_bytes(rows, terms, coeff_warps, splits, CONTRACT_STAGES)
+    tiles = J * (N // width)
+    row_tiles = -(-R // rows)
+    # blocks an SM holds: the registers of CONTRACT_MIN_BLOCKS full blocks, and
+    # the shared memory
+    resident = SM_COUNT * min(CONTRACT_MIN_BLOCKS * CONTRACT_WARPS * 32 // (width * splits),
+                              SHARED_SM_BYTES // (shared + SHARED_BLOCK_RESERVE))
+    x_words, w_words = R * I, I * 2
+    groups = max(1, min(row_tiles, resident // tiles, 65535, 1 + x_words // (8 * w_words)))
+    steps = -(-I // (splits * terms)) * -(-row_tiles // groups)
+    stages = min(CONTRACT_STAGES, steps)
+    return ContractPlan(contract_path(bits), rows, terms, coeff_warps, splits, stages,
+                        contract_shared_bytes(rows, terms, coeff_warps, splits, stages),
+                        (tiles, groups))
+
+
+def launch_contract(kernel, entry: str, x, w, out, limbs, chunk: int) -> None:
+    """The exact wide contraction x [R, I, J, N] (leading axes folded) against
+    w [I, 2, J, N] into out [R, 2, J, N] over `limbs`' moduli, `chunk`
+    terms a reduction: kernel's C entry `entry` (E2's or F2's), laid out by
+    :func:`contract_plan`.  Operands contiguous int64 on one card."""
+    I, J, N = w.shape[0], w.shape[2], w.shape[3]
+    R = x.numel() // (I * J * N)
+    p = contract_plan(R, I, J, N, _limbs_bits(limbs))
+    kernel.launch(entry, x.data_ptr(), w.data_ptr(), limbs.table.data_ptr(), out.data_ptr(),
+                  R, I, J, N, chunk, p.path, p.rows, p.terms, p.coeff_warps, p.splits, p.stages,
+                  p.shared_bytes, *p.grid, kernels.stream_handle(x))
 
 
 def contract_dim_raw(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tensor:

@@ -70,14 +70,18 @@ from pir_tpu_torch.utils.math import ceil_log2
 ITEM_SIZE = 288
 DB_SEED = 42
 CLIENT_SEED = 7
-# the hand-written kernels' device functions (csrc/*.cu) by kernel
-# (ntt_top_kernel: the top-stage pass of kernel A's earlier two-kernel split
-# rings, so that an older tree profiles with this file too)
+# the hand-written kernels' device functions (csrc/*.cu) by kernel; E2 and F2
+# launch one function, csrc/contract.cuh's contract::contract_kernel, which
+# a device trace cannot split between them ("E2+F2").  So that an older tree
+# profiles with this file too: ntt_top_kernel, the top-stage pass of kernel
+# A's earlier two-kernel split rings, and ks_inner_kernel and
+# contract_kernel, E2 and F2 before csrc/contract.cuh
 HAND_KERNELS = {"ntt_kernel": "A", "ntt_cluster_kernel": "A", "ntt_top_kernel": "A",
                 "scan_kernel": "B", "scan_wide_kernel": "C", "scan_shoup_kernel": "D",
                 "ks_decompose_kernel": "E", "ks_inner_kernel": "E", "ks_moddown_kernel": "E",
-                "expand_combine_kernel": "E", "digits_lift_kernel": "F", "contract_kernel": "F",
-                "mod_switch_kernel": "F", "split_planes_kernel": "F"}
+                "expand_combine_kernel": "E", "contract::contract_kernel": "E2+F2",
+                "digits_lift_kernel": "F", "contract_kernel": "F", "mod_switch_kernel": "F",
+                "split_planes_kernel": "F"}
 _HAND_KERNEL = re.compile(r"\b(" + "|".join(HAND_KERNELS) + r")\b")
 _NOT_A_KERNEL = ("Memcpy", "Memset")  # device events that are copies and fills
 LAP_MARK = "stage done: "

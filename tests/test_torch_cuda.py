@@ -808,18 +808,52 @@ def test_expansion_and_relinearization_on_card_use_kernel_e_only(dev, monkeypatc
     assert counts["pir_ks.combine"] == 7
 
 
-def test_keyswitch_kernel_launch_failure_raises(dev):
-    """A launch kernel E refuses (here a grid past the card's limit of row
-    tiles) raises; nothing falls back."""
+def test_keyswitch_kernel_launch_failure_raises(dev, monkeypatch):
+    """A launch kernel E refuses (here E2 with a plan whose grid misses a
+    limb) raises; nothing falls back."""
+    import dataclasses
+
     from pir_tpu_torch.ops import keyswitch
 
+    plan = scan_kernel.contract_plan
+    monkeypatch.setattr(scan_kernel, "contract_plan", lambda *a: dataclasses.replace(
+        plan(*a), grid=(plan(*a).grid[0] - 1, 1)))
     qp = modular.LimbConstants(primes.coeff_modulus_from_bits(64, [34, 36]), dev)
-    digits = torch.zeros((8 * 65536, 1, 2, 64), dtype=torch.int64, device=dev)
+    digits = torch.zeros((8, 1, 2, 64), dtype=torch.int64, device=dev)
     key = torch.zeros((1, 2, 2, 64), dtype=torch.int64, device=dev)
     before = kernels.KEYSWITCH.launches
     with pytest.raises(RuntimeError, match="keyswitch kernel launch failed"):
         keyswitch.inner_product_cuda(qp, digits, key)
     assert kernels.KEYSWITCH.launches == before
+
+
+@pytest.mark.parametrize("entry,extra", [("F2", 1), ("F2", 5), ("E2", 1)])
+def test_contraction_at_the_96_bit_chunk_edge_on_card(dev, entry, extra):
+    """Kernels E2 and F2 on the 96-bit path with every word at q - 1 on
+    47-bit primes, whose sums hold scan_kernel.contract_chunk = 4 products,
+    over 4 + extra terms at N=8192: equal to the sums in Python integers
+    (and F2 to its plain version on the CPU)."""
+    from pir_tpu_torch.core.context import PirContext
+    from pir_tpu_torch.ops import keyswitch, scan
+
+    n, terms = 8192, 4 + extra
+    moduli = primes.coeff_modulus_from_bits(n, [47] * (terms + 1 if entry == "E2" else 2))
+    assert scan_kernel.contract_chunk(moduli) == 4
+    limbs = modular.LimbConstants(moduli, dev)
+    top = torch.tensor(moduli, dtype=torch.int64, device=dev)[:, None] - 1
+    x, w = top.expand(3, terms, -1, n), top.expand(terms, 2, -1, n)
+    if entry == "E2":
+        got = keyswitch.inner_product_cuda(limbs, x, w)
+    else:
+        got = scan.contract_dim_cuda(limbs, w, x)
+        ep = pt.EncryptionParams(poly_modulus_degree=n, plain_modulus=primes.get_prime(2 * n, 20),
+                                 coeff_modulus=tuple(moduli) + tuple(
+                                     primes.coeff_modulus_from_bits(n, [49])))
+        cpu = PirContext(pt.create_pir_parameters(50, 8, 2, ep), "cpu")
+        assert torch.equal(got.cpu(), scan.contract_dim_plain(cpu, w.cpu(), x.cpu()))
+    torch.cuda.synchronize()
+    want = [(terms * (q - 1) ** 2) % q for q in moduli]
+    assert torch.equal(got.cpu(), torch.tensor(want, dtype=torch.int64)[:, None].expand(3, 2, -1, n))
 
 
 @pytest.mark.parametrize("case", [c[0] for c in kernel_times.upper_cases()
@@ -878,14 +912,19 @@ def test_upper_levels_and_mod_switch_on_card_use_kernel_f_only(dev, monkeypatch,
     assert counts["pir_upper.modswitch"] == (2 if scan_impl == "pallas" else 3)
 
 
-def test_upper_kernel_launch_failure_raises(dev):
-    """A launch kernel F refuses (here a grid past the card's limit of
-    prefix tiles) raises; nothing falls back."""
+def test_upper_kernel_launch_failure_raises(dev, monkeypatch):
+    """A launch kernel F refuses (here F2 with a plan of more split warps
+    than a block holds) raises; nothing falls back."""
+    import dataclasses
+
     from pir_tpu_torch.ops import scan
 
+    plan = scan_kernel.contract_plan
+    monkeypatch.setattr(scan_kernel, "contract_plan",
+                        lambda *a: dataclasses.replace(plan(*a), splits=16))
     limbs = modular.LimbConstants(primes.coeff_modulus_from_bits(64, [34]), dev)
     sv = torch.zeros((1, 2, 1, 64), dtype=torch.int64, device=dev)
-    items = torch.zeros((8 * 65536, 1, 1, 64), dtype=torch.int64, device=dev)
+    items = torch.zeros((8, 1, 1, 64), dtype=torch.int64, device=dev)
     before = kernels.UPPER.launches
     with pytest.raises(RuntimeError, match="upper kernel launch failed"):
         scan.contract_dim_cuda(limbs, sv, items)

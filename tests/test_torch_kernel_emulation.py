@@ -168,9 +168,14 @@ REPLACED = {  # device functions written in PTX, and their C equivalents
     "mac96": "{ %s a += (unsigned __int128)(((uint64_t)xh << 32) | xl) * "
              "(((uint64_t)wh << 32) | wl); %s }" % (_WORDS, _SPLIT),
     "mac32": "{ %s a += (uint64_t)x * w; %s }" % (_WORDS, _SPLIT),
+    "mac128w": "{ unsigned __int128 a = ((unsigned __int128)(((uint64_t)a3 << 32) | a2) << 64) | "
+               "(((uint64_t)a1 << 32) | a0); a += (unsigned __int128)(((uint64_t)xh << 32) | xl) * "
+               "(((uint64_t)wh << 32) | wl); a0 = (uint32_t)a; a1 = (uint32_t)(a >> 32); "
+               "a2 = (uint32_t)(a >> 64); a3 = (uint32_t)(a >> 96); }",
     "add96": "{ %s a += ((unsigned __int128)b2 << 64) | ((uint64_t)b1 << 32) | b0; %s }"
              % (_WORDS, _SPLIT),
     "copy_async16": "{ memcpy(dst, src, 16); }",
+    "load_word": "{ return *p; }",
     "copy_async": "{ memcpy(dst, src, kBytes); }",
     "copy_commit": "{}",
     "copy_wait": "{}",
@@ -203,8 +208,11 @@ def emulation_source(name: str, src: "str | None" = None) -> str:
     """csrc/<name>.cu (or `src`, a variant of it) with its launches,
     dynamic shared memory and PTX turned into the emulation's C++."""
     src = (CSRC / f"{name}.cu").read_text() if src is None else src
-    for header in sorted(CSRC.glob("*.cuh")):  # inlined, so REPLACED reaches their helpers
-        src = src.replace(f'#include "{header.name}"', header.read_text().replace("#pragma once", ""))
+    seen = set()  # headers inlined, each where it is first included, so REPLACED reaches them
+    while (m := re.search(r'#include "(\w+\.cuh)"', src)) is not None:
+        text = "" if m[1] in seen else (CSRC / m[1]).read_text().replace("#pragma once", "")
+        seen.add(m[1])
+        src = src[:m.start()] + text + src[m.end():]
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(g_smem);", src)
     for fname, body in REPLACED.items():
@@ -559,6 +567,21 @@ def test_ntt_cluster_variants_edit_the_kernel_as_they_say():
         assert (ntt_cluster_variants.variant_source(name) == src) == (not edits), name
 
 
+def test_contract_variants_edit_the_kernel_as_they_say():
+    """pir_tpu_torch/contract_variants.py builds the contraction behind
+    kernels E2 and F2 with parts taken out by text edits of
+    csrc/contract.cuh: each edit must find its text in the source exactly
+    once, so that a change of the kernel cannot leave a variant timing
+    something else."""
+    from pir_tpu_torch import contract_variants
+
+    src = (CSRC / "contract.cuh").read_text()
+    for name, edits in contract_variants.EDITS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)
+        assert (contract_variants.variant_source(name) == src) == (not edits), name
+
+
 @pytest.mark.parametrize("n,bits", [(16384, (48, 49)), (32768, (55, 56))])
 def test_ntt_cluster_variant_half_the_ctas_equals_plain(tmp_path, n, bits):
     """The variants script's other cluster size, 8,192-word sub-blocks (2
@@ -723,7 +746,7 @@ def test_kernel_e_refuses_what_it_cannot_take(libs, emulated_e):
 
     lib = libs["keyswitch"]
     assert lib.pir_ks_decompose(None, 0, None, None, None, None, None, 0, 2, 3, 64, None) != 0
-    assert lib.pir_ks_inner(None, None, None, None, 8 * 65536, 2, 3, 64, None) != 0
+    _contract_refused(lib.pir_ks_inner)
     assert lib.pir_ks_moddown(*[None] * 7, 0, None, None, None, 1, 2, 3, 1, 64, 5, 2, None) != 0
     assert lib.pir_expand_combine(None, None, None, None, 1, 1, 2, 2, 64, 128, 0, None) != 0
     qp = modular.LimbConstants(primes.coeff_modulus_from_bits(64, [61, 61]), "cpu")
@@ -796,21 +819,37 @@ def test_kernel_f_emulated_equals_plain(emulated_f, n, bits, reencode, top):
                           **({"pir_upper.split": 1} if bits_q <= 48 else {})}
 
 
-@pytest.mark.parametrize("extra", [-1, 0, 1, 33])
-def test_kernel_f_contraction_exact_at_the_127_bit_edge(emulated_f, extra):
-    """F2 with every word at q - 1 on a 61-bit chain, over D rows just under,
-    at, just over and well over the rows its 128-bit sums hold
-    (scan.contract_chunk): equal to the plain version."""
-    from pir_tpu_torch.ops import scan
+@pytest.mark.parametrize("entry,extra", [("F2", -1), ("F2", 0), ("F2", 1), ("F2", 33),
+                                         ("E2", -1), ("E2", 0), ("E2", 1)])
+def test_kernel_f_contraction_exact_at_the_127_bit_edge(emulated_e, emulated_f, entry, extra):
+    """The contraction's 128-bit path with every word at q - 1 on a 61-bit
+    chain, over terms just under, at, just over and well over what its
+    128-bit sums hold (scan_kernel.contract_chunk): F2 over D rows, E2 over
+    L digits, each equal to its plain version; past the edge E2's wrapper
+    refuses the chain (a key switch never needs it)."""
+    from pir_tpu_torch.ops import keyswitch, scan
 
-    ctx = _ks_ctx(64, (61, 61, 61))
-    chunk = scan.contract_chunk(ctx.ct_moduli)
-    m = (max(ctx.ct_moduli) - 1) ** 2
+    probe = _ks_ctx(64, (61, 61, 61))
+    chunk = scan_kernel.contract_chunk(probe.ct_moduli)
+    m = (max(probe.ct_moduli) - 1) ** 2
     assert chunk * m < 1 << 127 <= (chunk + 1) * m
-    sv = _ks_words(ctx, (chunk + extra, 2), 0, top=True)
-    items = _ks_words(ctx, (3, chunk + extra), 0, top=True)
-    assert torch.equal(scan.contract_dim_cuda(ctx.limbs_q, sv, items),
-                       scan.contract_dim_plain(ctx, sv, items))
+    if entry == "F2":
+        ctx = probe
+        sv = _ks_words(ctx, (chunk + extra, 2), 0, top=True)
+        items = _ks_words(ctx, (3, chunk + extra), 0, top=True)
+        assert torch.equal(scan.contract_dim_cuda(ctx.limbs_q, sv, items),
+                           scan.contract_dim_plain(ctx, sv, items))
+        return
+    ctx = _ks_ctx(64, (61,) * (chunk + extra + 1))
+    assert scan_kernel.contract_chunk(ctx.key_moduli) == chunk  # the same widest prime
+    digits = _ks_words(ctx, (3, ctx.L), 1, ctx.key_moduli, top=True)
+    key = _ks_words(ctx, (ctx.L, 2), 2, ctx.key_moduli, top=True)
+    if extra > 0:
+        with pytest.raises(ValueError, match="127-bit"):
+            keyswitch.inner_product_cuda(ctx.limbs_qp, digits, key)
+        return
+    assert torch.equal(keyswitch.inner_product_cuda(ctx.limbs_qp, digits, key),
+                       keyswitch.inner_product_plain(ctx, digits, key))
 
 
 def test_kernel_f_refuses_what_it_cannot_take(libs, emulated_f):
@@ -822,8 +861,7 @@ def test_kernel_f_refuses_what_it_cannot_take(libs, emulated_f):
 
     lib = libs["upper"]
     assert lib.pir_digits_lift(None, None, None, 1, 3, 1, 2, 64, 7, 2, 8, None) != 0
-    assert lib.pir_contract(None, None, None, None, 8 * 65536, 2, 2, 64, 4, None) != 0
-    assert lib.pir_contract(None, None, None, None, 1, 2, 2, 64, 0, None) != 0
+    _contract_refused(lib.pir_contract)
     assert lib.pir_mod_switch(None, None, None, 1, 33, 1, 64, None) != 0
     assert lib.pir_mod_switch(None, None, None, 1, 3, 3, 64, None) != 0
     assert lib.pir_split_planes(None, None, None, 3, 1, 1, 1, 64, None) != 0
@@ -855,3 +893,168 @@ def test_kernel_f_refuses_what_it_cannot_take(libs, emulated_f):
     with pytest.raises(ValueError, match="up to 48 bits"):
         scan_kernel.items_to_planes_cuda(_ks_words(ctx, (1, 2), 6), 60)
     assert emulated_f == {}
+
+
+# ---------------------------------------------------------------------------
+# the exact wide contraction behind E2 and F2 (csrc/contract.cuh)
+# ---------------------------------------------------------------------------
+
+def _contract_refused(fn, R=64, I=2, J=3, N=64, bits=37):
+    """Launches of the contraction (an E2 or F2 entry) that do not cover
+    their work, or that it is not built for, each one field off a plan
+    that does: refused before anything runs."""
+    plan = scan_kernel.contract_plan(R, I, J, N, bits)
+    base = {"R": R, "I": I, "J": J, "N": N, "chunk": I, **dataclasses.asdict(plan)}
+    row_tiles = -(-R // plan.rows)
+    bad = [{"grid": (plan.grid[0] - 1, plan.grid[1])}, {"grid": (plan.grid[0], row_tiles + 1)},
+           {"grid": (plan.grid[0], 0)}, {"rows": 3}, {"rows": 4, "terms": 4}, {"terms": 3},
+           {"shared_bytes": plan.shared_bytes - 8}, {"coeff_warps": 4, "splits": 4},
+           {"stages": 5}, {"stages": 0}, {"chunk": 0}, {"path": 40}, {"N": 48}, {"R": 0}]
+    for change in bad:
+        a = {**base, **change}
+        assert fn(None, None, None, None, a["R"], a["I"], a["J"], a["N"], a["chunk"], a["path"],
+                  a["rows"], a["terms"], a["coeff_warps"], a["splits"], a["stages"],
+                  a["shared_bytes"], *a["grid"], None) != 0, change
+
+
+# (R, I, J, N, bits): the served shapes (kernel_times.keyswitch_cases: E2
+# at N=4096 on SEAL's and tpu32's chains, a 16-lane batch's step, N=32768's
+# step and relinearization step; upper_cases: F2 at N=4096 and N=32768) and
+# small ones at every edge the plan can choose
+PLAN_SHAPES = [(1, 2, 3, 4096, 37), (256, 2, 3, 4096, 37), (256, 3, 4, 4096, 30),
+               (2730, 2, 3, 4096, 37), (8, 15, 16, 32768, 55), (5, 15, 16, 32768, 55),
+               (8, 162, 2, 4096, 36), (4, 57, 15, 32768, 55), (2, 57, 15, 32768, 55),
+               (7, 2, 3, 64, 37), (64, 2, 3, 64, 37), (1, 3, 4, 64, 29), (3, 70, 2, 64, 36),
+               (5, 13, 2, 128, 60), (1, 20, 3, 64, 36), (9, 5, 2, 64, 27), (3, 600, 2, 32, 61),
+               (100000, 1, 1, 32, 20)]
+
+
+@pytest.mark.parametrize("R,I,J,N,bits", PLAN_SHAPES)
+def test_contract_plan_covers_the_work_once(R, I, J, N, bits):
+    """contract_plan's launch, walked as csrc/contract.cuh walks it, takes
+    every (limb, coefficient) in one block's thread, every row tile in one
+    row group and every term of the summed axis in one (i-block, split
+    warp, slot), with a kernel instance that is built, within the card's
+    threads and shared memory, and the word path of the moduli's width."""
+    p = scan_kernel.contract_plan(R, I, J, N, bits)
+    width = 32 * p.coeff_warps
+    assert p.coeff_warps * p.splits <= scan_kernel.CONTRACT_WARPS
+    assert (p.rows, p.terms) in scan_kernel.CONTRACT_BUILT
+    assert p.path == (32 if bits <= 32 else 48 if bits <= 48 else 64)
+    tiles = N // width
+    assert N % width == 0 and p.grid[0] == J * tiles
+    coeffs = np.arange(p.grid[0])[:, None] * width + np.arange(width)[None, :]
+    assert np.array_equal(np.sort(coeffs // N * N + coeffs % N, axis=None), np.arange(J * N))
+    row_tiles = -(-R // p.rows)
+    assert 1 <= p.grid[1] <= min(row_tiles, 65535)
+    walked = [t for g in range(p.grid[1]) for t in range(g, row_tiles, p.grid[1])]
+    assert sorted(walked) == list(range(row_tiles))
+    span = p.splits * p.terms
+    held = [ib * span + s + m * p.splits for ib in range(-(-I // span))
+            for s in range(p.splits) for m in range(p.terms) if ib * span + s + m * p.splits < I]
+    assert sorted(held) == list(range(I))
+    steps = -(-I // span) * -(-row_tiles // p.grid[1])
+    assert 1 <= p.stages <= min(scan_kernel.CONTRACT_STAGES, steps)
+    assert p.shared_bytes == scan_kernel.contract_shared_bytes(
+        p.rows, p.terms, p.coeff_warps, p.splits, p.stages) <= scan_kernel.SHARED_MAX_BYTES
+
+
+def _exact_contraction(x, w, moduli):
+    """out[r, k, j] = sum_i x[r, i, j] w[i, k, j] mod q_j in Python integers."""
+    xs = modular.numpy_u64(x).astype(object)
+    ws = modular.numpy_u64(w).astype(object)
+    q = np.array([int(m) for m in moduli], dtype=object)[:, None]
+    return (xs[:, :, None] * ws[None]).sum(axis=1) % q
+
+
+# (entry, R, I, chain bits, x offset in words) of the contraction's edges
+# under the emulation, and the plan field each one reaches: a ragged row
+# tile (7 rows in tiles of 2); row groups (G = 5, 2 stages); one stage (one
+# step); 8 split warps over two i-blocks with a ragged split (70 = 64 + 6);
+# a ragged split of 2 on the 128-bit path with x not 16-byte aligned; one
+# stage with split partials; 4 terms a thread on the one-word path
+CONTRACT_EDGES = [
+    ("E2", 7, None, (34, 36, 37), 0, {"rows": 2}),
+    ("E2", 64, None, (34, 36, 37), 0, {"stages": 2, "grid": (3, 5)}),
+    ("E2", 1, None, (26, 27, 28, 29), 0, {"stages": 1, "terms": 4}),
+    ("F2", 3, 70, (34, 36, 37), 0, {"splits": 8}),
+    ("F2", 5, 13, (58, 60, 61), 1, {"splits": 2, "path": 64}),
+    ("F2", 1, 20, (34, 36, 37), 0, {"splits": 4, "stages": 1}),
+    ("E2", 9, None, (26, 27, 28, 29), 1, {"terms": 4, "path": 32}),
+]
+
+
+def _offset(t, words):
+    """t copied into storage `words` words past an allocation's start."""
+    buf = torch.empty(t.numel() + words, dtype=t.dtype)
+    out = buf[words:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("top", [False, True], ids=["random", "q-1"])
+@pytest.mark.parametrize("entry,R,I,bits,offset,fields", CONTRACT_EDGES)
+def test_contraction_emulated_at_every_plan_edge(emulated_e, emulated_f, entry, R, I, bits,
+                                                 offset, fields, top):
+    """The contraction through E2's and F2's wrappers at each edge
+    contract_plan chooses (the plan reaches the fields named), with random
+    words and with every word at q - 1: equal to the entry's plain version
+    and to the sums in Python integers."""
+    from pir_tpu_torch.ops import keyswitch, scan
+
+    ctx = _ks_ctx(64, bits)
+    if entry == "E2":
+        x = _offset(_ks_words(ctx, (R, ctx.L), R, ctx.key_moduli, top), offset)
+        w = _ks_words(ctx, (ctx.L, 2), R + 1, ctx.key_moduli, top)
+        moduli, I = ctx.key_moduli, ctx.L
+        got = keyswitch.inner_product_cuda(ctx.limbs_qp, x, w)
+        assert torch.equal(got, keyswitch.inner_product_plain(ctx, x, w))
+    else:
+        x = _offset(_ks_words(ctx, (R, I), R, top=top), offset)
+        w = _ks_words(ctx, (I, 2), R + 1, top=top)
+        moduli = ctx.ct_moduli
+        got = scan.contract_dim_cuda(ctx.limbs_q, w, x)
+        assert torch.equal(got, scan.contract_dim_plain(ctx, w, x))
+    assert (x.data_ptr() % 16 != 0) == (offset % 2 == 1)
+    plan = scan_kernel.contract_plan(R, I, len(moduli), 64, max(moduli).bit_length())
+    assert {k: getattr(plan, k) for k in fields} == fields
+    assert R % plan.rows or fields != {"rows": 2}  # the ragged tile
+    assert np.array_equal(modular.numpy_u64(got).astype(object), _exact_contraction(x, w, moduli))
+    assert {**emulated_e, **emulated_f} == {"pir_ks.inner" if entry == "E2" else
+                                            "pir_upper.contract": 1}
+
+
+@pytest.mark.parametrize("entry,bits,extra", [(e, 47, x) for e in ("F2", "E2") for x in (-1, 0, 1, 5)]
+                         + [("F2", 48, x) for x in (0, 1, 5)])
+def test_contraction_exact_at_the_96_bit_chunk_edge(emulated_e, emulated_f, entry, bits, extra):
+    """The 96-bit path with every word at q - 1 where (q - 1)^2 is near 2^96
+    (scan_kernel.contract_chunk: 4 terms a sum at 47 bits, 1 at 48), over
+    terms just under, at, just over and past the chunk: a thread folds its
+    sums every chunk terms within a step.  Equal to the sums in Python
+    integers, and to the plain version (E2's, pir_tpu's 48-bit method,
+    sums its digits in 96 bits unreduced, so it is compared only up to the
+    chunk)."""
+    from pir_tpu_torch.ops import keyswitch, scan
+
+    probe = _ks_ctx(64, (bits,) * 3)
+    chunk = scan_kernel.contract_chunk(probe.ct_moduli)
+    m = (max(probe.ct_moduli) - 1) ** 2
+    assert chunk * m < 1 << 96 <= (chunk + 1) * m and chunk == (4 if bits == 47 else 1)
+    terms = chunk + extra
+    if entry == "F2":
+        ctx = probe
+        w = _ks_words(ctx, (terms, 2), 0, top=True)
+        x = _ks_words(ctx, (3, terms), 0, top=True)
+        got = scan.contract_dim_cuda(ctx.limbs_q, w, x)
+        assert torch.equal(got, scan.contract_dim_plain(ctx, w, x))
+        moduli = ctx.ct_moduli
+    else:
+        ctx = _ks_ctx(64, (bits,) * (terms + 1))
+        x = _ks_words(ctx, (3, ctx.L), 1, ctx.key_moduli, top=True)
+        w = _ks_words(ctx, (ctx.L, 2), 2, ctx.key_moduli, top=True)
+        got = keyswitch.inner_product_cuda(ctx.limbs_qp, x, w)
+        if extra <= 0:
+            assert torch.equal(got, keyswitch.inner_product_plain(ctx, x, w))
+        moduli = ctx.key_moduli
+    assert scan_kernel.contract_path(max(moduli).bit_length()) == 48
+    assert np.array_equal(modular.numpy_u64(got).astype(object), _exact_contraction(x, w, moduli))
