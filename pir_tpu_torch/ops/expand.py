@@ -20,6 +20,7 @@ import torch
 from pir_tpu_torch import kernels
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import keyswitch, modular, poly
+from pir_tpu_torch.utils import profiling
 from pir_tpu_torch.utils.math import ceil_log2, next_power_two
 
 
@@ -32,8 +33,9 @@ def expand_level(
     axis: which axis doubles — batched serving runs Q trees as
     int64[Q, B, 2, L, N] with axis=1 (every step is batched over leading
     axes)."""
-    sub = keyswitch.apply_galois(ctx, galois_keys, cts, (ctx.n >> j) + 1)
-    return combine(ctx, cts, sub, j, axis)
+    with profiling.span("pir.expand.level"):
+        sub = keyswitch.apply_galois(ctx, galois_keys, cts, (ctx.n >> j) + 1)
+        return combine(ctx, cts, sub, j, axis)
 
 
 def combine(ctx, cts: torch.Tensor, sub: torch.Tensor, j: int, axis: int = 0) -> torch.Tensor:
@@ -119,13 +121,14 @@ def expand_query(
             "number of ciphertexts doesn't match number of items for "
             "oblivious expansion"
         )
-    outs = []
-    remaining = total_items
-    for i in range(cts.shape[0]):
-        count = min(n, remaining)
-        outs.append(expand_single(ctx, galois_keys, cts[i], count))
-        remaining -= n
-    return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+    with profiling.span("pir.expand"):
+        outs = []
+        remaining = total_items
+        for i in range(cts.shape[0]):
+            count = min(n, remaining)
+            outs.append(expand_single(ctx, galois_keys, cts[i], count))
+            remaining -= n
+        return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
 
 
 def expand_single_batch(
@@ -158,14 +161,15 @@ def expand_query_batch(
             "number of ciphertexts doesn't match number of items for "
             "oblivious expansion"
         )
-    outs = []
-    remaining = total_items
-    for i in range(cts.shape[1]):
-        count = min(n, remaining)
-        if count > 0:
-            outs.append(expand_single_batch(ctx, galois_keys, cts[:, i], count))
-        remaining -= n
-    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    with profiling.span("pir.expand"):
+        outs = []
+        remaining = total_items
+        for i in range(cts.shape[1]):
+            count = min(n, remaining)
+            if count > 0:
+                outs.append(expand_single_batch(ctx, galois_keys, cts[:, i], count))
+            remaining -= n
+        return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
 def expand_single_sharded(

@@ -27,6 +27,7 @@ from pir_tpu_torch import kernels
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import modular
 from pir_tpu_torch.ops.modular import tensor_u64
+from pir_tpu_torch.utils import profiling
 
 MAX_LIMBS = 32  # the words one thread of kernel F3 holds (csrc/upper.cu::kMaxLimbs)
 
@@ -76,9 +77,10 @@ def mod_switch_to(ctx: PirContext, ct: torch.Tensor, keep: int) -> torch.Tensor:
     kernel F3 on a CUDA tensor, the plain version on a CPU one."""
     if keep < 1:
         raise ValueError("must keep at least one modulus")
-    if ct.is_cuda:
-        return mod_switch_cuda(ctx, ct, keep)
-    return mod_switch_plain(ctx, ct, keep)
+    with profiling.span("pir.modswitch"):
+        if ct.is_cuda:
+            return mod_switch_cuda(ctx, ct, keep)
+        return mod_switch_plain(ctx, ct, keep)
 
 
 def mod_switch_plain(ctx: PirContext, ct: torch.Tensor, keep: int) -> torch.Tensor:

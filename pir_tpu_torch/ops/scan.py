@@ -38,6 +38,7 @@ from pir_tpu_torch.bfv.multiply import bfv_multiply
 from pir_tpu_torch.core.context import PirContext
 from pir_tpu_torch.ops import decompose, modular, scan_kernel
 from pir_tpu_torch.ops.keyswitch import relinearize
+from pir_tpu_torch.utils import profiling
 
 # Lifted NTT-form digit plaintexts of one query an upper-level step holds.
 # A whole level's are 2·ER·L times its lower ciphertexts (20.2 GB at
@@ -263,13 +264,14 @@ def database_scan_decomp(
     inner = dims[-1]
     prefix = total // inner
     sv_last = sv_ntt[offsets[-1] : offsets[-1] + inner]
-    if db_planes is not None:
-        result = contract_dim_planes(ctx, sv_last, db_planes[0], db_planes[1])
-    else:
-        items = db_ntt.reshape(prefix, inner, *db_ntt.shape[1:])
-        shoup = db_shoup.reshape(items.shape) if db_shoup is not None else None
-        result = contract_dim(ctx, sv_last, items, shoup)  # [prefix, 2, L, N]
-    result = ctx.ntt_q.inverse(result)  # coefficient form
+    with profiling.span("pir.scan.inner"):
+        if db_planes is not None:
+            result = contract_dim_planes(ctx, sv_last, db_planes[0], db_planes[1])
+        else:
+            items = db_ntt.reshape(prefix, inner, *db_ntt.shape[1:])
+            shoup = db_shoup.reshape(items.shape) if db_shoup is not None else None
+            result = contract_dim(ctx, sv_last, items, shoup)  # [prefix, 2, L, N]
+        result = ctx.ntt_q.inverse(result)  # coefficient form
     if probe is not None:
         probe(f"dim {d - 1} (inner contraction)", result)
 
@@ -287,7 +289,8 @@ def database_scan_decomp(
                 return contract_dim_planes(ctx, sv_lvl, *items_to_planes(ctx, items))
             return contract_dim(ctx, sv_lvl, items)
 
-        result = _upper_level(ctx, result, prefix, dim, contract)
+        with profiling.span("pir.scan.upper"):
+            result = _upper_level(ctx, result, prefix, dim, contract)
         if probe is not None:
             probe(f"dim {level} (digit contraction)", result.reshape(-1, 2, ctx.L, ctx.n))
 
@@ -325,10 +328,11 @@ def database_scan_decomp_batched(
     inner = dims[-1]
     prefix = total // inner
     n, L = ctx.n, ctx.L
-    sv_last = sv_ntt_b[:, offsets[-1] : offsets[-1] + inner]  # [B, inner, 2, L, N]
-    sv_wide = sv_last.transpose(0, 1).reshape(inner, B * 2, L, n)
-    res = contract_dim_planes_wide(ctx, sv_wide, db_hi, db_lo)  # [prefix, B*2, L, N]
-    result = ctx.ntt_q.inverse(res.reshape(prefix, B, 2, L, n).transpose(0, 1))
+    with profiling.span("pir.scan.inner"):
+        sv_last = sv_ntt_b[:, offsets[-1] : offsets[-1] + inner]  # [B, inner, 2, L, N]
+        sv_wide = sv_last.transpose(0, 1).reshape(inner, B * 2, L, n)
+        res = contract_dim_planes_wide(ctx, sv_wide, db_hi, db_lo)  # [prefix, B*2, L, N]
+        result = ctx.ntt_q.inverse(res.reshape(prefix, B, 2, L, n).transpose(0, 1))
 
     for level in range(len(dims) - 2, -1, -1):
         dim = dims[level]
@@ -341,7 +345,8 @@ def database_scan_decomp_batched(
             return torch.stack([contract_dim_planes(ctx, sv_lvl[b], *items_to_planes(ctx, items[b]))
                                 for b in range(B)])
 
-        result = _upper_level(ctx, result, prefix, dim, contract)
+        with profiling.span("pir.scan.upper"):
+            result = _upper_level(ctx, result, prefix, dim, contract)
 
     if result.dim() == 5:
         result = result[:, :, None]
@@ -379,9 +384,11 @@ def database_scan_ctmult(
     # decomposition mode (SEAL's multiply_plain does this NTT round trip).
     inner = dims[-1]
     prefix = db_ntt.shape[0] // inner
-    sv_last_ntt = ctx.ntt_q.forward(sv[offsets[-1] : offsets[-1] + inner])
-    items = db_ntt.reshape(prefix, inner, *db_ntt.shape[1:])
-    result = ctx.ntt_q.inverse(contract_dim(ctx, sv_last_ntt, items, db_shoup.reshape(items.shape)))
+    with profiling.span("pir.scan.inner"):
+        sv_last_ntt = ctx.ntt_q.forward(sv[offsets[-1] : offsets[-1] + inner])
+        items = db_ntt.reshape(prefix, inner, *db_ntt.shape[1:])
+        result = ctx.ntt_q.inverse(
+            contract_dim(ctx, sv_last_ntt, items, db_shoup.reshape(items.shape)))
 
     lq = ctx.limbs_q
     for level in range(len(dims) - 2, -1, -1):
@@ -391,13 +398,16 @@ def database_scan_ctmult(
         blocks = result.reshape(prefix, dim, 2, ctx.L, ctx.n)
 
         def step(s, e, blocks=blocks, sv_lvl=sv_lvl):
-            prod3 = bfv_multiply(ctx, blocks[:, s:e], sv_lvl[None, s:e])  # [prefix, e-s, 3, L, N]
-            prod2 = relinearize(ctx, relin_key, prod3)  # [prefix, e-s, 2, L, N]
+            with profiling.span("pir.ctmult.multiply"):
+                prod3 = bfv_multiply(ctx, blocks[:, s:e], sv_lvl[None, s:e])  # [prefix, e-s, 3, L, N]
+            with profiling.span("pir.ctmult.relin"):
+                prod2 = relinearize(ctx, relin_key, prod3)  # [prefix, e-s, 2, L, N]
             return modular.barrett_reduce_64(prod2.sum(dim=1), lq.q, lq.ratio_hi)
 
         # sum over the dimension: reduced summands, a step per u64 headroom
         # or per CTMULT_STEP_BYTES, whichever is fewer rows
         rows = min(_max_chunk(ctx), ctmult_step_rows(prefix, ctx.L, ctx.n), dim)
-        result = scan_kernel.sum_row_chunks(step, dim, rows, lq.q)
+        with profiling.span("pir.scan.upper"):
+            result = scan_kernel.sum_row_chunks(step, dim, rows, lq.q)
 
     return result.reshape(1, 2, ctx.L, ctx.n)

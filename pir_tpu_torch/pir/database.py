@@ -48,6 +48,7 @@ from pir_tpu_torch.core.params import PirParams
 from pir_tpu_torch.ops import modular, scan, scan_kernel
 from pir_tpu_torch.ops.modular import numpy_u64, tensor_u64
 from pir_tpu_torch.pir.encoders import IntegerEncoder, StringEncoder
+from pir_tpu_torch.utils import profiling
 
 _PACK_ROWS = 2048  # plaintexts per step of the vectorized packer
 NTT_PREFIXES = 16  # prefix rows a step of the NTT / plane split and of its undoing
@@ -205,9 +206,10 @@ class PirDatabase:
                 budgets = [decryptor(cts[i]) for i in range(min(2, cts.shape[0]))]
                 print(f"noise budget after {desc}: {budgets}")
 
+        with profiling.span("pir.scan.inner"):  # the contraction follows in a span of its own
+            sv_ntt = self.ctx.ntt_q.forward(selection_vector)
         return scan.database_scan_decomp(
-            self.ctx, p.dimensions, self.ctx.ntt_q.forward(selection_vector),
-            **self.scan_operands(), probe=probe,
+            self.ctx, p.dimensions, sv_ntt, **self.scan_operands(), probe=probe,
         )
 
     @property

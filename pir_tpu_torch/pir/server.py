@@ -35,6 +35,7 @@ with the same request and gets the same Response.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -50,9 +51,11 @@ from pir_tpu_torch.ops.modular import pinned, resolve_device, tensor_u64
 from pir_tpu_torch.pir import seal_compat, wire
 from pir_tpu_torch.pir.database import PirDatabase
 from pir_tpu_torch.proto import payload_pb2 as pb
+from pir_tpu_torch.utils import profiling
 from pir_tpu_torch.utils.math import generate_galois_elts
 
 _KEY_CACHE_ENTRIES = 8
+_KEY_COUNTS = ("key_hits", "key_misses", "key_evictions")
 _REPLY_MARGIN_BITS = 12
 
 
@@ -107,11 +110,12 @@ class HostReplies(NamedTuple):
     """A request's replies on their way to the host: per piece [count, R,
     2, L', N] the host tensors of its words (:func:`_host_words`; pinned on
     a CUDA server), valid once `done` (a CUDA event, None on the CPU) has
-    completed."""
+    completed.  `request`: the id its spans carry (utils/profiling.py)."""
 
     done: "torch.cuda.Event | None"
     replies: list
     seal_ep: "object | None" = None
+    request: "int | None" = None
 
 
 # Query and reply arrays cross the host link as a tuple of parts: (u32 lo,
@@ -151,15 +155,21 @@ def _host_upload(device, hi_dtype):
 _END = object()
 
 
-def _complete(pend: deque) -> pb.Response:
+def _complete(pend: deque, stats: dict) -> pb.Response:
     """The oldest in-flight request's Response, once its worker and its
-    device work are done (also when the worker failed)."""
+    device work are done (also when the worker failed, which `stats`
+    counts)."""
     future, host = pend.popleft()
     try:
-        return future.result()
-    finally:
-        if host.done is not None:
-            host.done.synchronize()
+        with profiling.span("pir.stream.wait", host.request):
+            try:
+                return future.result()
+            finally:
+                if host.done is not None:
+                    host.done.synchronize()
+    except Exception:
+        stats["requests_failed"] += 1
+        raise
 
 
 class _StreamSlot:
@@ -194,7 +204,7 @@ class _StreamSlot:
             parts.append(buf.to(self.device, non_blocking=True))
         return _device_words(parts)
 
-    def download(self, pieces, seal_ep) -> HostReplies:
+    def download(self, pieces, seal_ep, request=None) -> HostReplies:
         """Enqueue the copies of the reply pieces' parts (a tuple of device
         tensors each, :meth:`PirServer._packed`) to pinned memory, then the
         event the worker waits on."""
@@ -202,7 +212,7 @@ class _StreamSlot:
                      for k, t in enumerate(parts))
                for i, parts in enumerate(pieces)]
         self.done.record(self.stream)
-        return HostReplies(self.done, out, seal_ep)
+        return HostReplies(self.done, out, seal_ep, request)
 
 
 class PirServer:
@@ -279,6 +289,10 @@ class PirServer:
         # Device-resident Galois keys, keyed by a digest of the whole key
         # blobs (clients resend identical keys with every request).
         self._key_cache: dict = {}
+        # the key cache's counts since the server was made (stream_stats
+        # holds a stream's share)
+        self._key_counts = dict.fromkeys(_KEY_COUNTS, 0)
+        self._request_ids = itertools.count()  # the ids the spans carry
         self._stream_slots: list = []
         self.stream_stats: dict = {}
         self.mesh = mesh
@@ -331,7 +345,8 @@ class PirServer:
             raise ValueError("the batched scan reads the planes layout (scan_impl='pallas')")
         ctx = self.ctx
         sv = expand.expand_query_batch(ctx, galois_keys, query_cts, self.params.dimensions_sum)
-        sv_ntt = ctx.ntt_q.forward(sv)
+        with profiling.span("pir.scan.inner"):  # the contraction follows in a span of its own
+            sv_ntt = ctx.ntt_q.forward(sv)
         reply = scan.database_scan_decomp_batched(
             ctx, self.params.dimensions, sv_ntt, self.db.db_planes
         )
@@ -352,21 +367,20 @@ class PirServer:
         return max(1, min(16, budget // max(1, lane_bytes)))
 
     def _batched_wide_async(
-        self, all_queries: np.ndarray, galois_keys, upload=None, seal_ep=None
+        self, stacks: list, galois_keys, upload=None, seal_ep=None
     ) -> BatchedReplies:
-        """Enqueue a host [Q, k, 2, L, N] query stack in chunks of
-        batch_lanes() queries, the ragged tail padded with the chunk's first
-        query.  upload(array, key) moves a chunk to the device."""
+        """Enqueue Q host query stacks of one shape [k, 2, L, N] in chunks
+        of batch_lanes() queries, the ragged tail padded with the chunk's
+        first query.  upload(array, key) moves a chunk to the device."""
         upload = upload or self._upload
-        lanes = min(self.batch_lanes(), all_queries.shape[0])
+        lanes = min(self.batch_lanes(), len(stacks))
         chunks = []
-        for start in range(0, all_queries.shape[0], lanes):
-            chunk = all_queries[start : start + lanes]
-            count = chunk.shape[0]
-            if count != lanes:
-                chunk = np.concatenate([chunk, chunk[:1].repeat(lanes - count, 0)])
-            replies = self.process_batch(upload(chunk, start), galois_keys)
-            chunks.append((replies, count))
+        for start in range(0, len(stacks), lanes):
+            part = stacks[start : start + lanes]
+            count = len(part)
+            with profiling.span("pir.query.upload"):
+                queries = upload(np.stack(part + part[:1] * (lanes - count)), start)
+            chunks.append((self.process_batch(queries, galois_keys), count))
         return BatchedReplies(chunks, seal_ep)
 
     # ------------------------------------------------------------------
@@ -374,11 +388,12 @@ class PirServer:
     def _key_digest(gal: bytes, rel: bytes) -> bytes:
         """Cache key for a request's evaluation-key blobs: blake2b over the
         whole of both blobs, each prefixed by its length."""
-        h = hashlib.blake2b(digest_size=16)
-        for blob in (gal, rel):
-            h.update(len(blob).to_bytes(8, "little"))
-            h.update(blob)
-        return h.digest()
+        with profiling.span("pir.keys.digest"):
+            h = hashlib.blake2b(digest_size=16)
+            for blob in (gal, rel):
+                h.update(len(blob).to_bytes(8, "little"))
+                h.update(blob)
+            return h.digest()
 
     def _device_keys(self, request: pb.Request) -> tuple:
         """(Galois keys {elt: int64[L, 2, Lp, N]}, relinearization key
@@ -393,7 +408,10 @@ class PirServer:
         digest = self._key_digest(request.galois_keys, request.relin_keys)
         cached = self._key_cache.get(digest)
         if cached is None:
+            self._key_counts["key_misses"] += 1
             cached = self._key_cache_entry(request, digest)
+        else:
+            self._key_counts["key_hits"] += 1
         keys, relin, uploaded = cached
         if uploaded is not None:
             stream = torch.cuda.current_stream(self.device)
@@ -403,24 +421,30 @@ class PirServer:
         return keys, relin
 
     def _key_cache_entry(self, request: pb.Request, digest: bytes) -> tuple:
-        """Load a request's key blobs (a SEAL key set's seeded c1 polynomials
-        are expanded on the host here, once per key set) and upload them."""
+        """Load a request's key blobs on the host (a SEAL key set's seeded c1
+        polynomials are expanded here, once per key set) and upload them."""
         ep = self.params.encryption_params
-        galois = wire.deserialize_galois_keys(request.galois_keys, self.device, ep)
-        keys = {e: k.data for e, k in galois.keys.items()}
-        missing = [e for e in self._expansion_elts if e not in keys]
-        if missing:
-            raise ValueError(f"request missing galois keys for elements {missing}")
-        relin = None
-        if self.params.use_ciphertext_multiplication and request.relin_keys:
-            relin = wire.deserialize_relin_keys(request.relin_keys, self.device, ep).key.data
-        uploaded = None
-        if self.device.type == "cuda":
-            uploaded = torch.cuda.Event()
-            uploaded.record(torch.cuda.current_stream(self.device))
-        if len(self._key_cache) >= _KEY_CACHE_ENTRIES:
-            self._key_cache.pop(next(iter(self._key_cache)))
-        entry = self._key_cache[digest] = (keys, relin, uploaded)
+        with profiling.span("pir.keys.load"):
+            galois = wire.deserialize_galois_keys(request.galois_keys, "cpu", ep)
+            keys = {e: k.data for e, k in galois.keys.items()}
+            missing = [e for e in self._expansion_elts if e not in keys]
+            if missing:
+                raise ValueError(f"request missing galois keys for elements {missing}")
+            relin = None
+            if self.params.use_ciphertext_multiplication and request.relin_keys:
+                relin = wire.deserialize_relin_keys(request.relin_keys, "cpu", ep).key.data
+            with profiling.span("pir.keys.upload"):
+                keys = {e: t.to(self.device) for e, t in keys.items()}
+                if relin is not None:
+                    relin = relin.to(self.device)
+                uploaded = None
+                if self.device.type == "cuda":
+                    uploaded = torch.cuda.Event()
+                    uploaded.record(torch.cuda.current_stream(self.device))
+            if len(self._key_cache) >= _KEY_CACHE_ENTRIES:
+                self._key_cache.pop(next(iter(self._key_cache)))
+                self._key_counts["key_evictions"] += 1
+            entry = self._key_cache[digest] = (keys, relin, uploaded)
         return entry
 
     def _reply_seal_ep(self, request: pb.Request):
@@ -474,9 +498,11 @@ class PirServer:
         request goes through the mesh pipeline.  upload(array, key) moves a
         host query array to the device (a blocking copy by default).  The
         replies' codec (:meth:`_reply_seal_ep`) is settled, or the request
-        refused, before any device work."""
+        refused, and the queries are parsed, before any device work."""
         upload = upload or self._upload
-        seal_ep = self._reply_seal_ep(request)
+        with profiling.span("pir.query.load"):
+            seal_ep = self._reply_seal_ep(request)
+            stacks = self._query_stacks(request)
         galois_keys, relin_key = self._device_keys(request)
         if (
             self.params.use_ciphertext_multiplication
@@ -487,7 +513,6 @@ class PirServer:
                 "ciphertext-multiplication mode with d > 1 requires "
                 "relinearization keys in the request"
             )
-        stacks = self._query_stacks(request)
         if self.mesh is not None:
             return self._process_request_async_mesh(
                 galois_keys, relin_key, stacks, upload, seal_ep
@@ -497,12 +522,13 @@ class PirServer:
             and len(stacks) > 1
             and len({s.shape for s in stacks}) == 1
         ):
-            return self._batched_wide_async(np.stack(stacks), galois_keys, upload, seal_ep)
-        return QueryReplies(
-            [self.process_query(upload(stack, qi), galois_keys, relin_key)
-             for qi, stack in enumerate(stacks)],
-            seal_ep,
-        )
+            return self._batched_wide_async(stacks, galois_keys, upload, seal_ep)
+        replies = QueryReplies([], seal_ep)
+        for qi, stack in enumerate(stacks):
+            with profiling.span("pir.query.upload"):
+                cts = upload(stack, qi)
+            replies.append(self.process_query(cts, galois_keys, relin_key))
+        return replies
 
     @staticmethod
     def _reply_pieces(pending) -> list:
@@ -528,22 +554,26 @@ class PirServer:
         replies, serialized natively), a :class:`BatchedReplies`, a
         :class:`MeshReplies`, or a :class:`HostReplies` (whose event this
         waits for; no device work is launched)."""
+        rid = getattr(pending, "request", None)
         if isinstance(pending, HostReplies):
+            parts = pending.replies
             if pending.done is not None:
-                pending.done.synchronize()
-            hosts = [_host_words(r) for r in pending.replies]
+                with profiling.span("pir.reply.wait", rid):
+                    pending.done.synchronize()
         else:
-            hosts = [_host_words([t.cpu() for t in self._packed(r)])
-                     for r in self._reply_pieces(pending)]
-        seal_ep = getattr(pending, "seal_ep", None)
-        response = pb.Response()
-        for host in hosts:
-            for reply in host:
-                wire.save_ciphertexts(reply, response.reply.add(), seal_ep=seal_ep)
-        return response
+            with profiling.span("pir.reply.wait", rid):  # the copies wait for the device
+                parts = [[t.cpu() for t in self._packed(r)] for r in self._reply_pieces(pending)]
+        with profiling.span("pir.reply.serialize", rid):
+            seal_ep = getattr(pending, "seal_ep", None)
+            response = pb.Response()
+            for part in parts:
+                for reply in _host_words(part):
+                    wire.save_ciphertexts(reply, response.reply.add(), seal_ep=seal_ep)
+            return response
 
     def process_request(self, request: pb.Request) -> pb.Response:
-        return self.finalize_response(self.process_request_async(request))
+        with profiling.request_scope(next(self._request_ids)):
+            return self.finalize_response(self.process_request_async(request))
 
     # ------------------------------------------------------------------
     def process_stream(self, requests, depth: int = 6):
@@ -560,9 +590,11 @@ class PirServer:
         without blocking, and the worker waits on the event recorded after
         the reply copies, not on the device.  On the CPU the same threads
         run with no streams.  ``stream_stats`` holds the run's counts:
-        ``max_in_flight`` (the most requests submitted and not yet yielded)
-        and ``max_device_pending`` (the most whose reply copy had not yet
-        completed when another was submitted).
+        ``max_in_flight`` (the most requests submitted and not yet yielded),
+        ``max_device_pending`` (the most whose reply copy had not yet
+        completed when another was submitted), ``requests_failed`` (on
+        submission or completion), and the device key cache's
+        ``key_hits``, ``key_misses`` and ``key_evictions`` in the run.
 
         Failure: the Responses of every request before the failing one are
         yielded in order, then the error is raised, whether the request
@@ -584,23 +616,29 @@ class PirServer:
         return self._stream_slots[n % depth]
 
     def _submit(self, request: pb.Request, slot) -> HostReplies:
-        if slot is None:
-            pending = self.process_request_async(request)
-            pieces = self._reply_pieces(pending)
-            return HostReplies(None, [self._packed(x) for x in pieces], pending.seal_ep)
-        with torch.cuda.stream(slot.stream):
-            try:
-                pending = self.process_request_async(request, upload=slot.upload)
-                pieces = [self._packed(x) for x in self._reply_pieces(pending)]
-                return slot.download(pieces, pending.seal_ep)
-            except BaseException:
-                slot.stream.synchronize()  # nothing it enqueued outlives the error
-                raise
+        rid = next(self._request_ids)
+        with profiling.request_scope(rid):
+            if slot is None:
+                pending = self.process_request_async(request)
+                with profiling.span("pir.reply.enqueue"):
+                    pieces = [self._packed(x) for x in self._reply_pieces(pending)]
+                return HostReplies(None, pieces, pending.seal_ep, rid)
+            with torch.cuda.stream(slot.stream):
+                try:
+                    pending = self.process_request_async(request, upload=slot.upload)
+                    with profiling.span("pir.reply.enqueue"):
+                        pieces = [self._packed(x) for x in self._reply_pieces(pending)]
+                        return slot.download(pieces, pending.seal_ep, rid)
+                except BaseException:
+                    slot.stream.synchronize()  # nothing it enqueued outlives the error
+                    raise
 
     def _stream(self, requests, depth: int):
         stats = self.stream_stats = {
             "depth": depth, "requests": 0, "max_in_flight": 0, "max_device_pending": 0,
+            "requests_failed": 0, **dict.fromkeys(_KEY_COUNTS, 0),
         }
+        keys_before = dict(self._key_counts)
         pend: deque = deque()  # (future of the Response, HostReplies), in order
         failure = None
         with ThreadPoolExecutor(1, thread_name_prefix="pir-stream") as worker:
@@ -613,8 +651,11 @@ class PirServer:
                             break
                         host = self._submit(request, self._stream_slot(stats["requests"], depth))
                     except Exception as e:  # a submission failed: finish the earlier ones
+                        stats["requests_failed"] += 1
                         failure = e
                         break
+                    finally:
+                        stats.update((k, n - keys_before[k]) for k, n in self._key_counts.items())
                     copying = 0
                     if host.done is not None:  # reply copies not yet completed
                         copying = 1 + sum(1 for _, h in pend if not h.done.query())
@@ -623,15 +664,15 @@ class PirServer:
                     stats["max_in_flight"] = max(stats["max_in_flight"], len(pend))
                     stats["max_device_pending"] = max(stats["max_device_pending"], copying)
                     while len(pend) >= depth:
-                        yield _complete(pend)
+                        yield _complete(pend, stats)
                 while pend:
-                    yield _complete(pend)
+                    yield _complete(pend, stats)
                 if failure is not None:
                     raise failure
             finally:
                 while pend:  # after an error or an early close: wait, drop
                     try:
-                        _complete(pend)
+                        _complete(pend, stats)
                     except Exception:
                         pass
 
@@ -643,14 +684,16 @@ class PirServer:
         pipeline is batched over its "batch" axis) go to process_request."""
         if self.mesh is not None or not self.db._use_planes:
             return self.process_request(request)
-        seal_ep = self._reply_seal_ep(request)
-        galois_keys, _ = self._device_keys(request)
-        stacks = self._query_stacks(request)
-        if len({s.shape for s in stacks}) != 1:
-            return self.process_request(request)
-        return self.finalize_response(
-            self._batched_wide_async(np.stack(stacks), galois_keys, seal_ep=seal_ep)
-        )
+        with profiling.request_scope(next(self._request_ids)):
+            with profiling.span("pir.query.load"):
+                seal_ep = self._reply_seal_ep(request)
+                stacks = self._query_stacks(request)
+            if len({s.shape for s in stacks}) != 1:
+                return self.process_request(request)
+            galois_keys, _ = self._device_keys(request)
+            return self.finalize_response(
+                self._batched_wide_async(stacks, galois_keys, seal_ep=seal_ep)
+            )
 
     # ------------------------------------------------------------------
     def oblivious_expansion(self, cts, total_items: int, galois_keys) -> torch.Tensor:

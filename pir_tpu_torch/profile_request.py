@@ -39,11 +39,12 @@ measures warm single-query requests, or with ``--batched Q`` warm
 With ``--stream D`` it measures ``process_stream`` at depth D instead of
 the stages (``stream``): ``--windows`` windows of ``--spread`` requests,
 served in turns sequentially and streamed (sequential, streamed, streamed,
-sequential, ...), their queries/s; in the streamed windows the caller
-thread's time a request in submission and the worker thread's time
-waiting for the reply copy and serializing, each against the window's wall
-time a request — the thread whose time a request is nearest the wall time
-sets the pace; and ``profiler`` over one streamed window.
+sequential, ...), their queries/s; from the spans of one more streamed
+window under torch.profiler (utils/profiling.py), the caller thread's time
+a request in submission and the worker thread's time waiting for the reply
+copy and serializing, each against the streamed windows' wall time a
+request — the thread whose time a request is nearest the wall time sets
+the pace; and ``profiler`` over one streamed window.
 
 Prints one line per section and, as the last line, the whole result as one
 JSON object, which it also writes to ``--out`` when one is given.
@@ -65,6 +66,7 @@ import torch
 import pir_tpu_torch as pt
 from pir_tpu_torch.ops import expand, modswitch, scan
 from pir_tpu_torch.pir import wire
+from pir_tpu_torch.utils import profiling
 from pir_tpu_torch.utils.math import ceil_log2
 
 ITEM_SIZE = 288
@@ -257,31 +259,12 @@ def stage_kernels(server, request) -> dict:
 
 
 def stream_profile(server, requests, depth: int, windows: int) -> dict:
-    """Sequential and streamed windows in turns, and the streamed windows'
-    per-thread times (caller: submission; worker: waiting on the reply
-    copy's event, then serializing), with the server's stream counts."""
-    from pir_tpu_torch.pir.server import HostReplies
-
-    submit_ms, wait_ms, serialize_ms = [], [], []
-    submit, finalize = server._submit, server.finalize_response
-
-    def timed_submit(request, slot):
-        t0 = time.perf_counter()
-        out = submit(request, slot)
-        submit_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    def timed_finalize(pending):
-        if not isinstance(pending, HostReplies):  # process_request's own
-            return finalize(pending)
-        t0 = time.perf_counter()
-        if pending.done is not None:
-            pending.done.synchronize()
-        t1 = time.perf_counter()
-        out = finalize(pending)
-        wait_ms.append((t1 - t0) * 1e3)
-        serialize_ms.append((time.perf_counter() - t1) * 1e3)
-        return out
+    """Sequential and streamed windows in turns, then one more streamed
+    window under torch.profiler, whose spans (utils/profiling.py) give the
+    per-thread times a request: the caller's submission (its stage spans),
+    the worker's wait on the reply copy's event and its serialization;
+    with the server's stream counts."""
+    from torch.profiler import ProfilerActivity, profile
 
     def window(streamed: bool) -> float:
         torch.cuda.synchronize()
@@ -296,24 +279,29 @@ def stream_profile(server, requests, depth: int, windows: int) -> dict:
         return len(requests) / dt
 
     list(server.process_stream(iter(requests), depth=depth))  # builds the streams' pools
-    server._submit, server.finalize_response = timed_submit, timed_finalize
     seq, streamed = [], []
-    try:
-        for w in range(windows):
-            order = (False, True) if w % 2 == 0 else (True, False)
-            for is_stream in order:
-                (streamed if is_stream else seq).append(window(is_stream))
-        stats = dict(server.stream_stats)
-    finally:
-        del server._submit, server.finalize_response
-    wall_ms = 1e3 / (sum(streamed) / len(streamed))
+    for w in range(windows):
+        order = (False, True) if w % 2 == 0 else (True, False)
+        for is_stream in order:
+            (streamed if is_stream else seq).append(window(is_stream))
+    stats = dict(server.stream_stats)
+    with profile(activities=[ProfilerActivity.CPU]):
+        window(True)
+    spans = profiling.span_summary()
+    worker = ("pir.reply.wait", "pir.reply.serialize")
+    submit_ms = sum(v["self_ms"] for name, v in spans.items()
+                    if name not in worker and name != "pir.stream.wait")
+
+    def a_request(ms: float) -> float:
+        return ms / len(requests)
+
     return {
         "depth": depth, "requests_a_window": len(requests),
         "sequential_qps": seq, "streamed_qps": streamed,
-        "streamed_wall_ms_a_request": wall_ms,
-        "caller_submit_ms_a_request": sum(submit_ms) / len(submit_ms),
-        "worker_wait_ms_a_request": sum(wait_ms) / len(wait_ms),
-        "worker_serialize_ms_a_request": sum(serialize_ms) / len(serialize_ms),
+        "streamed_wall_ms_a_request": 1e3 / (sum(streamed) / len(streamed)),
+        "caller_submit_ms_a_request": a_request(submit_ms),
+        "worker_wait_ms_a_request": a_request(spans.get(worker[0], {}).get("self_ms", 0.0)),
+        "worker_serialize_ms_a_request": a_request(spans[worker[1]]["self_ms"]),
         "stream_stats": stats,
     }
 
