@@ -34,7 +34,6 @@ with the same request and gets the same Response.
 
 from __future__ import annotations
 
-import hashlib
 import itertools
 import os
 from collections import deque
@@ -104,6 +103,17 @@ class MeshReplies(NamedTuple):
     replies: torch.Tensor
     count: int
     seal_ep: "object | None" = None
+
+
+class _CachedKeys(NamedTuple):
+    """A key-cache entry: the blobs a request carried and their keys on the
+    device, with the event recorded after their upload (None off a card)."""
+
+    galois_blob: bytes
+    relin_blob: bytes
+    keys: dict
+    relin: Optional[torch.Tensor]
+    uploaded: Optional[torch.cuda.Event]
 
 
 class HostReplies(NamedTuple):
@@ -286,9 +296,9 @@ class PirServer:
         )
         self._upload = _host_upload(self.device, self._hi_dtype)
         self._expansion_elts = tuple(generate_galois_elts(self.ctx.n))
-        # Device-resident Galois keys, keyed by a digest of the whole key
-        # blobs (clients resend identical keys with every request).
-        self._key_cache: dict = {}
+        # Device-resident keys with the host blobs they were loaded from,
+        # oldest first (clients resend identical keys with every request).
+        self._key_cache: list[_CachedKeys] = []
         # the key cache's counts since the server was made (stream_stats
         # holds a stream's share)
         self._key_counts = dict.fromkeys(_KEY_COUNTS, 0)
@@ -384,35 +394,26 @@ class PirServer:
         return BatchedReplies(chunks, seal_ep)
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _key_digest(gal: bytes, rel: bytes) -> bytes:
-        """Cache key for a request's evaluation-key blobs: blake2b over the
-        whole of both blobs, each prefixed by its length."""
-        with profiling.span("pir.keys.digest"):
-            h = hashlib.blake2b(digest_size=16)
-            for blob in (gal, rel):
-                h.update(len(blob).to_bytes(8, "little"))
-                h.update(blob)
-            return h.digest()
-
     def _device_keys(self, request: pb.Request) -> tuple:
         """(Galois keys {elt: int64[L, 2, Lp, N]}, relinearization key
-        int64[L, 2, Lp, N] or None) on the device, cached by the digest of
-        both blobs.  Only ciphertext-multiplication mode reads the relin
-        key, so only that mode uploads it.
+        int64[L, 2, Lp, N] or None) on the device, cached by both whole
+        blobs: a request hits the entry whose blobs equal its own byte for
+        byte.  Only ciphertext-multiplication mode reads the relin key, so
+        only that mode uploads it.
 
         On a card the keys are uploaded on whichever stream first sees them
         and read on others (process_stream): the current stream waits for
         the upload's event, and each key tensor records the stream, so an
         eviction cannot free memory that a stream still reads."""
-        digest = self._key_digest(request.galois_keys, request.relin_keys)
-        cached = self._key_cache.get(digest)
+        with profiling.span("pir.keys.digest"):
+            gal, rel = request.galois_keys, request.relin_keys  # each read copies
+            cached = self._lookup_keys(gal, rel)
         if cached is None:
             self._key_counts["key_misses"] += 1
-            cached = self._key_cache_entry(request, digest)
+            cached = self._key_cache_entry(gal, rel)
         else:
             self._key_counts["key_hits"] += 1
-        keys, relin, uploaded = cached
+        _, _, keys, relin, uploaded = cached
         if uploaded is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(uploaded)
@@ -420,19 +421,31 @@ class PirServer:
                 t.record_stream(stream)
         return keys, relin
 
-    def _key_cache_entry(self, request: pb.Request, digest: bytes) -> tuple:
+    def _lookup_keys(self, gal: bytes, rel: bytes) -> "_CachedKeys | None":
+        """The entry whose blobs equal gal and rel byte for byte, or None.
+        bytes == compares the lengths, then memcmp stops at the first byte
+        that differs: a hit costs one pass over each blob, and another
+        client's key set, whose random words differ from the start, almost
+        nothing."""
+        for entry in self._key_cache:
+            if entry.galois_blob == gal and entry.relin_blob == rel:
+                return entry
+        return None
+
+    def _key_cache_entry(self, gal: bytes, rel: bytes) -> "_CachedKeys":
         """Load a request's key blobs on the host (a SEAL key set's seeded c1
-        polynomials are expanded here, once per key set) and upload them."""
+        polynomials are expanded here, once per key set), upload them, and
+        cache them, the oldest entry evicted when the cache is full."""
         ep = self.params.encryption_params
         with profiling.span("pir.keys.load"):
-            galois = wire.deserialize_galois_keys(request.galois_keys, "cpu", ep)
+            galois = wire.deserialize_galois_keys(gal, "cpu", ep)
             keys = {e: k.data for e, k in galois.keys.items()}
             missing = [e for e in self._expansion_elts if e not in keys]
             if missing:
                 raise ValueError(f"request missing galois keys for elements {missing}")
             relin = None
-            if self.params.use_ciphertext_multiplication and request.relin_keys:
-                relin = wire.deserialize_relin_keys(request.relin_keys, "cpu", ep).key.data
+            if self.params.use_ciphertext_multiplication and rel:
+                relin = wire.deserialize_relin_keys(rel, "cpu", ep).key.data
             with profiling.span("pir.keys.upload"):
                 keys = {e: t.to(self.device) for e, t in keys.items()}
                 if relin is not None:
@@ -442,9 +455,10 @@ class PirServer:
                     uploaded = torch.cuda.Event()
                     uploaded.record(torch.cuda.current_stream(self.device))
             if len(self._key_cache) >= _KEY_CACHE_ENTRIES:
-                self._key_cache.pop(next(iter(self._key_cache)))
+                self._key_cache.pop(0)
                 self._key_counts["key_evictions"] += 1
-            entry = self._key_cache[digest] = (keys, relin, uploaded)
+            entry = _CachedKeys(gal, rel, keys, relin, uploaded)
+            self._key_cache.append(entry)
         return entry
 
     def _reply_seal_ep(self, request: pb.Request):

@@ -12,6 +12,7 @@ from pir_tpu.testing.fixtures import generate_test_db
 from pir_tpu.testing.params import tiny_pir_params
 import pir_tpu_torch as pt
 from pir_tpu_torch import convert
+from pir_tpu_torch.pir.server import _CachedKeys
 from pir_tpu_torch.proto import payload_pb2 as pb
 
 Q_BITS = (30, 30, 32)  # room in the noise budget for a one-limb reply
@@ -81,7 +82,11 @@ def test_database_from_pir_tpu_plaintexts(stack):
         assert (a is None and b is None) or bool((a == b).all())
 
 
-def test_key_cache_hashes_whole_blobs(stack):
+def _entry(gal, rel):
+    return _CachedKeys(gal, rel, {}, None, None)
+
+
+def test_key_cache_matches_whole_blobs(stack):
     params, raw, _, tdb = stack
     server = pt.PirServer(tdb, params)
     client = pt.PirClient(params, seed=12, device="cpu")
@@ -89,17 +94,65 @@ def test_key_cache_hashes_whole_blobs(stack):
     server.process_request(req)
     server.process_request(req)
     assert len(server._key_cache) == 1
-    # blobs that differ only outside sampled windows must not collide
-    d = pt.PirServer._key_digest
-    big = bytearray(1_000_000)
-    other = bytearray(big)
-    other[300_000] = 1
-    assert d(bytes(big), b"") != d(bytes(other), b"")
-    assert d(b"ab", b"") != d(b"a", b"b")
     client2 = pt.PirClient(params, seed=13, device="cpu")
     assert client2.process_response([4], server.process_request(
         client2.create_request([4]))) == [raw[4]]
     assert len(server._key_cache) == 2
+    # a one-byte difference anywhere is a miss, and so is a shifted boundary
+    big = bytearray(1_000_000)
+    other = bytearray(big)
+    other[300_000] = 1
+    server._key_cache[:] = [_entry(bytes(big), b""), _entry(b"ab", b"")]
+    assert server._lookup_keys(bytes(other), b"") is None
+    assert server._lookup_keys(b"a", b"b") is None
+    assert server._lookup_keys(bytes(big), b"") is server._key_cache[0]
+
+
+@pytest.mark.parametrize("at", ["first", "middle", "last"])
+@pytest.mark.parametrize("blob", ["galois_keys", "relin_keys"])
+def test_key_cache_misses_a_one_byte_edit(stack, blob, at):
+    """No entry matches a key set with one byte of either blob edited; the
+    same bytes in a freshly parsed Request (other bytes objects) hit."""
+    params, raw, _, tdb = stack
+    server = pt.PirServer(tdb, params)
+    client = pt.PirClient(params, seed=15, device="cpu")
+    req = client.create_request([6])
+    assert client.process_response([6], server.process_request(req)) == [raw[6]]
+    again = pb.Request.FromString(req.SerializeToString())
+    server.process_request(again)
+    assert (server._key_counts["key_hits"], server._key_counts["key_misses"]) == (1, 1)
+    edited = bytearray(getattr(req, blob))
+    i = {"first": 0, "middle": len(edited) // 2, "last": len(edited) - 1}[at]
+    edited[i] ^= 1
+    blobs = {"galois_keys": req.galois_keys, "relin_keys": req.relin_keys, blob: bytes(edited)}
+    assert server._lookup_keys(blobs["galois_keys"], blobs["relin_keys"]) is None
+    assert server._lookup_keys(again.galois_keys, again.relin_keys) is server._key_cache[0]
+
+
+@pytest.mark.parametrize(
+    "order,hits,evictions,cached",
+    [([0, 1, 0, 2, 1, 0], 3, 0, [0, 1, 2]),
+     ([*range(8), 0, 8, 0], 1, 2, [*range(2, 9), 0])],
+    ids=["repeats", "ninth-evicts-oldest"],
+)
+def test_key_cache_counts_over_a_stream(stack, order, hits, evictions, cached):
+    """process_stream's key counts, which key sets stay cached (first in,
+    first out at 8 entries; a hit does not refresh an entry), and every
+    client's reply decrypting to its item."""
+    params, raw, _, tdb = stack
+    server = pt.PirServer(tdb, params, reply_limbs=pt.reply_limbs_for(params))
+    clients = [pt.PirClient(params, seed=40 + c, device="cpu") for c in range(max(order) + 1)]
+    indexes = [(7 * i + 3) % params.num_items for i in range(len(order))]
+    reqs = [clients[c].create_request([ix]) for c, ix in zip(order, indexes)]
+    got = list(server.process_stream(iter(reqs), depth=3))
+    assert [clients[c].process_response([ix], r) for c, ix, r in zip(order, indexes, got)] == [
+        [raw[ix]] for ix in indexes
+    ]
+    stats = server.stream_stats
+    assert (stats["key_hits"], stats["key_misses"], stats["key_evictions"]) == (
+        hits, len(order) - hits, evictions)
+    held = [c._galois_bytes for c in clients]
+    assert [held.index(e.galois_blob) for e in server._key_cache] == cached
 
 
 def test_request_errors(stack):
