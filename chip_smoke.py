@@ -15,7 +15,9 @@ Phases, each of which raises on failure:
 2. build kernels A (NTT), B (scan), C (wide scan), D (Shoup-table scan),
    E (the key switch and the expansion's combine step) and F (the
    decomposition upper level's lift, contraction and plane split, and the
-   reply's mod switch) from pir_tpu_torch/csrc with nvcc and the native bulk encoder
+   reply's mod switch) and G (the BEHZ multiply's lift, tensor product and
+   floor + Shenoy-Kumaresan conversion) from pir_tpu_torch/csrc with nvcc
+   and the native bulk encoder
    (pir_tpu_torch/native/encoder.cpp) with g++, all at once;
 3. each kernel against its plain version on the card, bit for bit, at the
    shapes the main paths give it, with both times and the bound: A at each
@@ -46,7 +48,11 @@ Phases, each of which raises on failure:
    step at N=4096 (F1, F4), a 16-lane batch's step (F1 over the lanes, F4 on
    a lane), the Shoup-table layout's step at N=4096 (F2), the first and the
    ragged last step of phase 20's upper level at N=32768 (F1, F2), and the
-   reply's mod switch at N=4096 and at phase 20's N=32768 (F3);
+   reply's mod switch at N=4096 and at phase 20's N=32768 (F3); G's three
+   entries (G1 lift, G2 tensor product, G3 floor + Shenoy-Kumaresan) and
+   the whole bfv_multiply (G with kernel A's NTTs, against the plain steps
+   with the same NTTs) at kernel_times.behz_cases(): phase 13's ct-mult step
+   (114 rows at N=8192) and phase 22's (5 rows at N=32768);
 4. a small database (N=256) served on the card and on the CPU (plain
    versions): the Response bytes must be equal, and the card's request must
    have launched kernel A (the K3 row's launches);
@@ -109,7 +115,8 @@ Phases, each of which raises on failure:
    N=8192 d=2): every item decoded, each reply's invariant noise budget
    printed and > 0; the N=4096 d=2 row also served on the CPU (plain
    versions), its Response bytes equal to the card's.  Launches of kernel
-   A's growing and reducing butterflies (the BEHZ base) and of kernel D;
+   A's growing and reducing butterflies (the BEHZ base), of kernel D and,
+   above d=1, of kernel G's three entries;
 13. ciphertext-multiplication mode at real size: N=8192, SEAL's chain, the
    bench's 24-bit t, 2^20 stamped items of 288 B, d=2 (dims 114 x 114,
    12,946 plaintexts in NTT form + Shoup companions on the card), replies
@@ -225,25 +232,27 @@ runs (12 multiplies a butterfly of kernel A where it grows, every modulus
 below 2^min(50, 63 - log2 N); 16 where it reduces; 7 a scan product with a
 hi plane, 3 without; kernel E: 12 a one-word Barrett reduction or a 64 x 64
 -> 128-bit product, 40 a two-word reduction, 16 a Shoup product; kernel
-F the same, its lift and split moving bytes only).  Kernel
+F and G the same, F's lift and split moving bytes only).  Kernel
 times are device times of back-to-back launches queued behind a
 device-side sleep.  No single PyTorch
 call computes a modular contraction, a negacyclic NTT, an RNS
 decomposition, a scale-down by P, a signed shift-and-add mod q, a digit
-decomposition or an exact modulus switch, so library_ms is null for every
-kernel.
+decomposition, an exact modulus switch or an RNS base conversion, so
+library_ms is null for every kernel.
 
 The line before the last is {"kernels": [...]}, one row per KERNEL_ROWS
 entry (every TPU kernel body of pir_tpu/ops/pallas_*.py): its launches
 summed over the served paths named in the row, its numbers from the named
 check (K3's from phase 20's selection-vector NTT at N=32768, its
 launches the N=256 path's and phases 20 and 22's: a check's launches are
-not counted), then one row per XLA_KERNEL_ROWS entry (kernel E's and F's
-entries, which replace code pir_tpu leaves to XLA: a table of their own;
+not counted), then one row per XLA_KERNEL_ROWS entry (kernel E's, F's and
+G's entries, which replace code pir_tpu leaves to XLA: a table of their own;
 E's launches summed over every served path, their numbers from the main
 path's last expansion level, N=4096 on SEAL's chain; F's launches summed
 over the paths that serve it, their numbers from N=4096's upper step (the
-Shoup-table layout's for F2) and reply); the last line is
+Shoup-table layout's for F2) and reply; G's launches summed over the
+ciphertext-multiplication paths, their numbers from phase 13's step); the
+last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits
 non-zero before printing any result.
 """
@@ -385,6 +394,21 @@ XLA_KERNEL_ROWS += (
 # kernel F's numbers in the kernels line, by entry
 UPPER_HEAD = {"F1": "N=4096 upper step", "F2": "N=4096 Shoup upper step", "F3": "N=4096 reply",
               "F4": "N=4096 upper step"}
+# kernel G's entries: every ciphertext-multiplication path above d=1
+# multiplies (the relinearized product of each upper dimension)
+_CT_MULTIPLIED = ("ctmult_ref", "ctmult", "ctmult_ref_mesh", "ctmult_mesh", "ctmult16384",
+                  "n32768_ctmult")
+BEHZ_VARIANTS = ("pir_behz.lift", "pir_behz.tensor", "pir_behz.floor_sk")
+XLA_KERNEL_ROWS += (
+    KernelRow("BEHZ lift into Bsk (G1)", "behz.cu", ("pir_tpu/core/rns.py:156",),
+              tuple((p, "pir_behz.lift") for p in _CT_MULTIPLIED), "G1"),
+    KernelRow("BEHZ tensor product (G2)", "behz.cu", ("pir_tpu/bfv/multiply.py:53",),
+              tuple((p, "pir_behz.tensor") for p in _CT_MULTIPLIED), "G2"),
+    KernelRow("BEHZ floor and Shenoy-Kumaresan conversion (G3)", "behz.cu",
+              ("pir_tpu/core/rns.py:208", "pir_tpu/core/rns.py:220"),
+              tuple((p, "pir_behz.floor_sk") for p in _CT_MULTIPLIED), "G3"),
+)
+BEHZ_HEAD = "N=8192 ct-mult step"  # kernel G's numbers in the kernels line
 
 
 # ciphertext-multiplication rows of REFERENCE_MATRIX (tests/test_correctness.py):
@@ -554,6 +578,25 @@ def check_upper(device, gen) -> dict:
         log(kt.keyswitch_line(r))
     return {r["entry"]: {k: r[k] for k in NUMBERS} for r in rows
             if r["label"] == UPPER_HEAD[r["entry"]]}
+
+
+def check_behz(device, gen) -> dict:
+    """Kernel G's three entries and the whole bfv_multiply vs their plain
+    versions (tolerance 0), timed with their bounds, at
+    kernel_times.behz_cases(), with each case's multiply (G1 twice, G2, G3)
+    summed.  Returns each entry's BEHZ_HEAD numbers."""
+    rows = kt.time_behz(device, gen)
+    for r in rows:
+        log(kt.behz_line(r))
+    for case in dict.fromkeys(r["label"] for r in rows):
+        mine = {r["entry"]: r for r in rows if r["label"] == case}
+        four = ("G1", "G1", "G2", "G3")
+        log(f"kernel G at {case}: a multiply's four launches "
+            f"{sum(mine[e]['ms'] for e in four):.4f} ms, their plain versions "
+            f"{sum(mine[e]['plain_ms'] for e in four):.4f} ms, bound "
+            f"{mine['bfv_multiply']['bound_ms']:.4f} ms")
+    return {r["entry"]: {k: r[k] for k in NUMBERS} for r in rows
+            if r["label"] == BEHZ_HEAD and r["entry"] != "bfv_multiply"}
 
 
 def check_small_against_cpu(device) -> dict:
@@ -1424,8 +1467,8 @@ def serve_ctmult_reference(device) -> dict:
             same = "; Response bytes equal to the CPU server's (plain versions)"
         log(f"{label}, dims {params.dimensions}: {len(indexes)} queries in {ms:.2f} ms, every "
             f"item retrieved; noise budgets {budgets} bits{same}; launches {counts}")
-        require(counts, ("pir_ntt.grow", "pir_scan_shoup") + (("pir_ntt.reduce",) if d > 1 else ()),
-                label)
+        require(counts, ("pir_ntt.grow", "pir_scan_shoup")
+                + (("pir_ntt.reduce", *BEHZ_VARIANTS) if d > 1 else ()), label)
         add_counts(total, counts)
     return total
 
@@ -1631,6 +1674,7 @@ def main() -> int:
     shoup = check_scan_shoup(device, gen)
     keyswitch = check_keyswitch(device, gen)
     upper = check_upper(device, gen)
+    behz = check_behz(device, gen)
     ntt_large, reduce_launches = check_ntt_large(device, gen)
     small = check_small_against_cpu(device)
     single, params, client, raw = serve_bench_config(device, LOG2_ITEMS)
@@ -1680,7 +1724,7 @@ def main() -> int:
              "shard_mesh": shard_mesh, **checkpoint, **seal,
              "ctmult_ref_mesh": ctmult_ref_mesh, "ctmult_mesh": ctmult_mesh, **packed,
              **n32768}
-    checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup, **keyswitch, **upper}
+    checks = {**scan, **ntt, **ntt_large, **wide, "K7": shoup, **keyswitch, **upper, **behz}
     for row in KERNEL_ROWS + XLA_KERNEL_ROWS:  # every (path, variant) a row counts was launched
         for path, variant in row.launches:
             if path != "*":

@@ -15,7 +15,9 @@ SEAL 3.5 implements) needs
 Every per-limb constant is computed on the host with the original's numpy
 and Python-int code, so it is bit-equal to ``pir_tpu``'s, and lives on the
 tool's device as an int64 column [k, 1] (u64 bits) beside its Shoup
-companion.  The conversions are plain PyTorch on int64 tensors; their
+companion.  The conversions here are plain PyTorch on int64 tensors, the
+CPU path and the reference of kernel G (``csrc/behz.cu``, which does their
+work on the card and reads the same constants from ``kernel_table``); their
 forward and inverse NTTs over Bsk are kernel A on the card.
 """
 
@@ -148,6 +150,45 @@ class RnsTool:
         # plain-scaling constants (t mod each modulus)
         self.t_mod_q = _Const(_mod_cols(t, self.q_moduli), self.q_moduli, dev)
         self.t_mod_bsk = _Const(_mod_cols(t, self.bsk_moduli), self.bsk_moduli, dev)
+
+        self.kernel_table = tensor_u64(self._kernel_words(), dev)
+
+    def _kernel_words(self) -> np.ndarray:
+        """The constants of kernel G (csrc/behz.cu::Table), in its order, as
+        one u64 vector: the plain steps' numbers, where two of them always
+        multiply one after the other as their product (the same residue)."""
+        q, bsk, b = self.q_moduli, self.bsk_moduli, self.b_moduli
+        punct_q = [self.q // m for m in q]
+        punct_b = [self.prod_b // m for m in b]
+
+        def rows(moduli):
+            return [w for m in moduli for w in (m, *modular.barrett_ratio(m))]
+
+        def pairs(values, moduli):  # (w, its Shoup companion) a modulus
+            return [x for v, m in zip(values, moduli) for x in (v % m, ((v % m) << 64) // m)]
+
+        inv_punct_q = [pow(p % m, -1, m) for p, m in zip(punct_q, q)]
+        inv_q_bsk = [pow(self.q, -1, m) for m in bsk]
+        inv_punct_b = [pow(p % m, -1, m) for p, m in zip(punct_b, b)] + [1]
+        words = (
+            rows(q) + rows(bsk)
+            + pairs([_M_TILDE * v for v in inv_punct_q], q)
+            + [p % m for m in bsk for p in punct_q]
+            + [p % _M_TILDE for p in punct_q]
+            + pairs([self.q] * len(bsk), bsk)
+            + [self.q * _M_TILDE % m for m in bsk]
+            + pairs([pow(_M_TILDE, -1, m) for m in bsk], bsk)
+            + pairs([self.t * v for v in inv_punct_q], q)
+            + pairs([self.t] * len(bsk), bsk)
+            + pairs([u * v for u, v in zip(inv_q_bsk, inv_punct_b)], bsk)
+            + [p % m for m in q for p in punct_b]
+            + [p % self.m_sk for p in punct_b]
+            + pairs([self.prod_b] * len(q), q)
+            + [self.prod_b * self.m_sk % m for m in q]
+            + pairs([pow(self.prod_b, -1, self.m_sk)], [self.m_sk])
+            + [self.neg_inv_q_mod_mtilde, self.m_sk_half]
+        )
+        return np.array(words, dtype=np.uint64)
 
     # ------------------------------------------------------------------
     @staticmethod

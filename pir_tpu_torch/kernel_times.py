@@ -1,6 +1,7 @@
 """Device times of kernels A (NTT), B (scan), C (wide scan), D
-(Shoup-table scan), E (the key switch's entries E1-E4) and F (the upper
-level's and the mod switch's entries F1-F4) at the shapes one
+(Shoup-table scan), E (the key switch's entries E1-E4), F (the upper
+level's and the mod switch's entries F1-F4) and G (the BEHZ multiply's
+entries G1-G3) at the shapes one
 request at the bench configuration
 gives them (2^20 items of 288 B, d=2, N=4096, SEAL's chain; the tpu32
 profile and one rank of the meshes for kernel B's other cases; a batched
@@ -8,12 +9,13 @@ request of 16 queries for kernel C), and at the rings above N=4096
 (:func:`large_ring_shapes`, :func:`scan_cases`, :func:`wide_cases`,
 :func:`shoup_cases`), and kernel A at every launch of a served request at
 N=32768 in either mode (:func:`served_ntt_launches`), kernel E at
-:func:`keyswitch_cases` and kernel F at :func:`upper_cases` and
-:func:`modswitch_cases`, each checked bit-equal to its plain version first.
-``chip_smoke.py`` makes its checks of the six kernels through
-:func:`time_ntt`, :func:`time_ntt_large`, :func:`time_ntt_served`,
-:func:`time_scan`, :func:`time_wide`, :func:`time_shoup`,
-:func:`time_keyswitch` and :func:`time_upper`.
+:func:`keyswitch_cases`, kernel F at :func:`upper_cases` and
+:func:`modswitch_cases` and kernel G at :func:`behz_cases`, each checked
+bit-equal to its plain version first.  ``chip_smoke.py`` makes its checks of
+the seven kernels through :func:`time_ntt`, :func:`time_ntt_large`,
+:func:`time_ntt_served`, :func:`time_scan`, :func:`time_wide`,
+:func:`time_shoup`, :func:`time_keyswitch`, :func:`time_upper` and
+:func:`time_behz`.
 
     python3 pir_tpu_torch/kernel_times.py --out chiprun_out/times.json
     python3 pir_tpu_torch/kernel_times.py --root build/parent --label parent
@@ -889,6 +891,111 @@ def time_upper(device, gen, labels=None, plain: bool = True, reps: int = 10) -> 
     return rows_out
 
 
+def behz_cases() -> "list[tuple[str, int, int]]":
+    """(label, n, rows) of kernel G's served shapes: one upper-level step of
+    a 2^20-item ciphertext-multiplication request on SEAL's chain (prefix 1,
+    :func:`behz_step_rows` rows) at N=8192, the benchmark's ct-mult cell,
+    whose step is the whole dimension of 114 rows, and at N=32768."""
+    cases = []
+    for n in (8192, SERVED_N):
+        ep = encryption_params("seal", n)
+        rows = behz_step_rows(ep, request_dims(ep, ct_mult=True)[0])
+        cases.append((f"N={n} ct-mult step", n, rows))
+    return cases
+
+
+def behz_bounds(k: int, n: int, rows: int) -> dict:
+    """Kernel G's bounds at one step of `rows` ciphertexts multiplied by as
+    many selection ciphertexts over k ciphertext primes (k + 1 in Bsk).  G1
+    (one operand's lift) reads [rows, 2, k, N] and writes [rows, 2, k + 1,
+    N]: a Shoup product a q limb, and a Bsk limb k wide products, a two-word
+    reduction and two Shoup products; G2 reads both operands in both bases
+    and writes [rows, 3, 2k + 1, N], four wide products and three two-word
+    reductions a limb; G3 reads [rows, 3, 2k + 1, N] and writes [rows, 3,
+    k, N]: a Shoup product a q limb, then per Bsk limb k wide products, a
+    reduction and two Shoup products, m_sk's sum (k wide products, a
+    reduction, a Shoup product) and per q limb k wide products, a reduction
+    and a Shoup product.  "request": a multiply's four launches (G1 for
+    each operand), their bytes and multiplies summed."""
+    cols = rows * n
+    b = k + 1
+    sums = MULS_WIDE * k + MULS_BARRETT128
+    work = {  # entry -> (bytes, 32-bit multiplies)
+        "G1": (2 * cols * (k + b) * 8, 2 * cols * (k * MULS_SHOUP + b * (sums + 2 * MULS_SHOUP))),
+        "G2": (cols * 7 * (k + b) * 8, cols * (k + b) * (4 * MULS_WIDE + 3 * MULS_BARRETT128)),
+        "G3": (3 * cols * (k + b + k) * 8,
+               3 * cols * (k * MULS_SHOUP + b * (sums + 2 * MULS_SHOUP) + sums + MULS_SHOUP
+                           + k * (sums + MULS_SHOUP))),
+    }
+    work["request"] = (2 * work["G1"][0] + work["G2"][0] + work["G3"][0],
+                       2 * work["G1"][1] + work["G2"][1] + work["G3"][1])
+    return {entry: bound(*w) for entry, w in work.items()}
+
+
+def time_behz(device, gen, cases=None, plain: bool = True, reps: int = 10) -> "list[dict]":
+    """Kernel G's three entries at `cases` (default behz_cases()), each on
+    random words of the case's shape (selection ciphertexts [1, rows],
+    prefix 1, as the ct-mult scan multiplies them), and the whole
+    bfv_multiply on them: bit-equal to the plain versions (the multiply's
+    with kernel A's NTTs), then timed (and the plain version where `plain`),
+    with the bound.  One row per (case, entry)."""
+    import torch
+
+    from pir_tpu_torch.bfv import multiply
+    from pir_tpu_torch.core.context import PirContext
+    from pir_tpu_torch.core.params import create_pir_parameters
+
+    def plain_multiply(ctx, x, y):
+        swapped = {name: getattr(multiply, name) for name in ("lift", "tensor_product", "floor_sk")}
+        for name in swapped:
+            setattr(multiply, name, getattr(multiply, f"{name}_plain"))
+        try:
+            return multiply.bfv_multiply(ctx, x, y)
+        finally:
+            for name, fn in swapped.items():
+                setattr(multiply, name, fn)
+
+    rows_out = []
+    for label, n, rows in cases if cases is not None else behz_cases():
+        ep = encryption_params("seal", n)
+        ctx = PirContext.for_params(create_pir_parameters(
+            ITEMS, ITEM_BYTES, DIMS, ep, use_ciphertext_multiplication=True), device)
+        tool = multiply.rns_tool_for(ctx)
+        q, bsk = tool.q_moduli, tool.bsk_moduli
+        ct = random_residues(q, (1, rows, 2), n, device, gen)
+        sel = random_residues(q, (1, rows, 2), n, device, gen)
+        ops = [random_residues(m, (1, rows, 2), n, device, gen) for m in (q, bsk, q, bsk)]
+        prod_q = random_residues(q, (1, rows, 3), n, device, gen)
+        prod_b = random_residues(bsk, (1, rows, 3), n, device, gen)
+        entries = {
+            "G1": (lambda: multiply.lift_cuda(tool, ct), lambda: multiply.lift_plain(tool, ct)),
+            "G2": (lambda: multiply.tensor_product_cuda(tool, *ops),
+                   lambda: multiply.tensor_product_plain(tool, *ops)),
+            "G3": (lambda: multiply.floor_sk_cuda(tool, prod_q, prod_b),
+                   lambda: multiply.floor_sk_plain(tool, prod_q, prod_b)),
+            "bfv_multiply": (lambda: multiply.bfv_multiply(ctx, ct, sel),
+                             lambda: plain_multiply(ctx, ct, sel)),
+        }
+        bounds = behz_bounds(len(q), n, rows)
+        for entry, (kernel, reference) in entries.items():
+            got, want = kernel(), reference()
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            err = max(max_abs_err(a, b) for a, b in pairs)
+            if err:
+                raise AssertionError(f"kernel G {entry} differs from plain at {label}: {err}")
+            shape = got[1].shape if isinstance(got, tuple) else got.shape
+            work = "request" if entry == "bfv_multiply" else entry
+            row = {"label": label, "entry": entry, "shape": list(shape), "max_abs_err": err,
+                   "ms": device_ms(kernel, reps), **bounds[work]}
+            if plain:
+                row["plain_ms"] = device_ms(reference, 1 if n == SERVED_N else 3)
+            rows_out.append(row)
+            del got, want
+        del ct, sel, ops, prod_q, prod_b, entries
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def keyswitch_line(r) -> str:
     """A kernel E or F row (time_keyswitch's, time_upper's) as a log line."""
     return (f"kernel {r['entry']} {r['label']} -> {r['shape']}: bit-equal to plain "
@@ -896,6 +1003,18 @@ def keyswitch_line(r) -> str:
             + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else "")
             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.1%} of bound)")
+
+
+def behz_line(r) -> str:
+    """A kernel G row (time_behz's) as a log line: an entry's as kernel E's,
+    the whole multiply's beside the bound of its four G launches."""
+    if r["entry"] != "bfv_multiply":
+        return keyswitch_line(r)
+    return (f"bfv_multiply (G1 twice, G2, G3 and kernel A's NTTs) {r['label']} -> {r['shape']}: "
+            f"bit-equal to the plain steps with the same NTTs (max_abs_err {r['max_abs_err']}); "
+            f"{r['ms']:.4f} ms" + (f", plain steps {r['plain_ms']:.4f} ms" if "plain_ms" in r
+                                   else "")
+            + f"; its G launches' bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def ntt_line(r) -> str:
@@ -975,16 +1094,18 @@ def main(argv=None) -> int:
     shoup = time_shoup(device, gen)
     keyswitch = time_keyswitch(device, gen) if hasattr(kernels, "KEYSWITCH") else []
     upper = time_upper(device, gen) if hasattr(kernels, "UPPER") else []
+    behz = time_behz(device, gen) if hasattr(kernels, "BEHZ") else []
     request_ms, request_bound_ms = request_sums(ntt)
     result = {"label": args.label, "package": pir_tpu_torch.__file__, "card": card,
               "ntt": ntt, "ntt_large": large, "ntt_served": served,
               "ntt_served_ct_mult": served_ct, "scan": scan, "wide": wide, "shoup": shoup,
-              "keyswitch": keyswitch, "upper": upper,
+              "keyswitch": keyswitch, "upper": upper, "behz": behz,
               "ntt_request_ms": request_ms, "ntt_request_bound_ms": request_bound_ms}
     for line in ([ntt_line(r) for r in ntt + large + served + served_ct]
                  + [scan_line(r) for r in scan]
                  + [wide_line(r) for r in wide] + [shoup_line(r) for r in shoup]
-                 + [keyswitch_line(r) for r in keyswitch + upper]):
+                 + [keyswitch_line(r) for r in keyswitch + upper]
+                 + [behz_line(r) for r in behz]):
         print(f"[{args.label}] {line}", flush=True)
     print(f"[{args.label}] kernel A over one request's 22 launches: "
           f"{request_ms:.4f} ms (bound {request_bound_ms:.4f}); {card}")

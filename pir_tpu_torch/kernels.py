@@ -211,3 +211,16 @@ UPPER = CudaKernel(
     counted_as={"pir_digits_lift": "pir_upper.lift", "pir_contract": "pir_upper.contract",
                 "pir_mod_switch": "pir_upper.modswitch", "pir_split_planes": "pir_upper.split"},
 )
+# kernel G, the BEHZ multiply's RNS arithmetic (ciphertext-multiplication
+# mode):
+# in, in_row_stride, table, out, R, k, N, stream
+# a_q, a_b, b_q, b_b, table, out_q, out_b, outer, inner, a_so, b_so, k, N, stream
+# prod_q, prod_b, table, out, R, k, N, stream
+BEHZ = CudaKernel(
+    "behz", "behz.cu",
+    {"pir_behz_lift": [_P, _I64, _P, _P, _I64, _I32, _I64, _P],
+     "pir_behz_tensor": [_P] * 7 + [_I64] * 4 + [_I32, _I64, _P],
+     "pir_behz_floor_sk": [_P] * 4 + [_I64, _I32, _I64, _P]},
+    counted_as={"pir_behz_lift": "pir_behz.lift", "pir_behz_tensor": "pir_behz.tensor",
+                "pir_behz_floor_sk": "pir_behz.floor_sk"},
+)

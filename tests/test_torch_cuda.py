@@ -2,9 +2,11 @@
 ciphertext-multiplication shapes), B (scan, with and without a hi plane, and
 its runtime-moduli entry K6), C (the wide scan of batched serving, both
 variants), D (the Shoup-table scan, K7), E (the key switch's four
-entries, at every served shape of kernel_times.keyswitch_cases) and F (the
+entries, at every served shape of kernel_times.keyswitch_cases), F (the
 upper level's lift, contraction and plane split and the mod switch, at
-kernel_times.upper_cases and modswitch_cases) on the card
+kernel_times.upper_cases and modswitch_cases) and G (the BEHZ multiply's
+lift, tensor product and floor, at the ct-mult cell's step and one N=32768
+row, alone and as the whole bfv_multiply) on the card
 against their plain PyTorch versions, bit for bit (tolerance 0); the
 expansion and relinearization on the card through kernel E alone, the
 upper levels and the mod switch through kernel F alone; the port's server on the card
@@ -502,6 +504,11 @@ def test_ctmult_server_on_card_matches_cpu(dev, dims):
     on_cpu = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params).process_request(req)
     assert counts["pir_scan_shoup"] == 2 and counts["pir_ntt.grow"] > 0
     assert (counts.get("pir_ntt.reduce", 0) > 0) == (dims > 1)
+    # above d=1 each query's one upper dimension is one multiply: kernel G
+    # lifts both operands, takes the tensor product and floors it once
+    behz = {v: counts.get(v, 0) for v in ("pir_behz.lift", "pir_behz.tensor", "pir_behz.floor_sk")}
+    assert behz == ({"pir_behz.lift": 4, "pir_behz.tensor": 2, "pir_behz.floor_sk": 2} if dims > 1
+                    else dict.fromkeys(behz, 0))
     assert on_card.SerializeToString() == on_cpu.SerializeToString()
     assert client.process_response([3, 47], on_card) == [raw[3], raw[47]]
     ct = wire.load_ciphertexts(on_card.reply[0], client.ctx)[0]
@@ -907,6 +914,7 @@ def test_upper_levels_and_mod_switch_on_card_use_kernel_f_only(dev, monkeypatch,
     torch.cuda.synchronize()
     assert got == want
     counts = kernels.variant_launch_counts()
+    assert not any(v.startswith("pir_behz.") for v in counts)  # decomposition never multiplies
     upper = "pir_upper.split" if scan_impl == "pallas" else "pir_upper.contract"
     assert counts["pir_upper.lift"] > 0 and counts[upper] > 0
     assert counts["pir_upper.modswitch"] == (2 if scan_impl == "pallas" else 3)
@@ -929,3 +937,76 @@ def test_upper_kernel_launch_failure_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="upper kernel launch failed"):
         scan.contract_dim_cuda(limbs, sv, items)
     assert kernels.UPPER.launches == before
+
+
+@pytest.mark.parametrize("case", ["N=8192 ct-mult step", "N=32768 one row"])
+def test_behz_kernels_match_plain_at_served_shapes(dev, case):
+    """Kernel G's entries (G1 lift, G2 tensor product, G3 floor and
+    Shenoy-Kumaresan conversion) and the whole bfv_multiply at the ct-mult
+    cell's step ([1, 114, 2, 4, 8192]) and at one row at N=32768 (15 | 16
+    limbs): bit-equal to the plain steps, each entry launched and counted."""
+    cases = kernel_times.behz_cases() + [("N=32768 one row", 32768, 1)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(case))
+    kernels.reset_launch_counts()
+    rows = kernel_times.time_behz(dev, gen, cases=[c for c in cases if c[0] == case],
+                                  plain=False, reps=1)
+    torch.cuda.synchronize()
+    assert [r["entry"] for r in rows] == ["G1", "G2", "G3", "bfv_multiply"]
+    assert all(r["max_abs_err"] == 0 for r in rows)
+    counts = kernels.variant_launch_counts()
+    assert all(counts[v] > 0 for v in ("pir_behz.lift", "pir_behz.tensor", "pir_behz.floor_sk"))
+
+
+def test_bfv_multiply_on_card_uses_kernel_g_without_a_host_sync(dev, monkeypatch):
+    """bfv_multiply of the ct-mult scan's operands (blocks [2, 3] against
+    selection ciphertexts [1, 3], broadcast over the prefixes) on the card:
+    the words of the same multiply on the CPU, the plain steps never
+    reached, four launches of kernel G a multiply, and no host sync once
+    the tool's tables are on the card."""
+    from pir_tpu_torch.bfv import multiply
+    from pir_tpu_torch.core.context import PirContext
+
+    params = _ctmult_params()
+    cpu, card = PirContext(params, "cpu"), PirContext(params, dev)
+    rng = np.random.default_rng(22)
+
+    def words(shape):
+        return modular.tensor_u64(np.stack([rng.integers(0, q, (*shape, cpu.n), dtype=np.uint64)
+                                            for q in cpu.ct_moduli], axis=-2))
+
+    blocks, sel = words((2, 3, 2)), words((1, 3, 2))
+    want = multiply.bfv_multiply(cpu, blocks, sel)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain step of the BEHZ multiply")
+
+    for name in ("lift_plain", "tensor_product_plain", "floor_sk_plain"):
+        monkeypatch.setattr(multiply, name, refuse)
+    blocks, sel = blocks.to(dev), sel.to(dev)
+    multiply.bfv_multiply(card, blocks, sel)  # the tool's tables and the kernels' first load
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = multiply.bfv_multiply(card, blocks, sel)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.cpu(), want)
+    counts = kernels.variant_launch_counts()
+    assert {v: counts[v] for v in ("pir_behz.lift", "pir_behz.tensor", "pir_behz.floor_sk")} == {
+        "pir_behz.lift": 2, "pir_behz.tensor": 1, "pir_behz.floor_sk": 1}
+
+
+def test_behz_kernel_launch_failure_raises(dev):
+    """A launch kernel G refuses (here G2 with no rows to write) raises;
+    nothing falls back."""
+    from pir_tpu_torch.core.rns import RnsTool
+
+    tool = RnsTool(primes.coeff_modulus_from_bits(64, [40, 41]), 64, primes.get_prime(128, 12),
+                   device=dev)
+    before = kernels.BEHZ.launches
+    with pytest.raises(RuntimeError, match="behz kernel launch failed"):
+        kernels.BEHZ.launch("pir_behz_tensor", *[0] * 7, 0, 1, 0, 0, 2, 64,
+                            kernels.stream_handle(tool.kernel_table))
+    assert kernels.BEHZ.launches == before

@@ -1,6 +1,6 @@
 """Kernels A (csrc/ntt.cu), B (csrc/scan.cu), C (csrc/scan_wide.cu), E
-(csrc/keyswitch.cu) and F (csrc/upper.cu), E and F through their Python
-wrappers, run on the CPU: the CUDA sources themselves, their csrc/*.cuh headers inlined,
+(csrc/keyswitch.cu), F (csrc/upper.cu) and G (csrc/behz.cu), E, F and G
+through their Python wrappers, run on the CPU: the CUDA sources themselves, their csrc/*.cuh headers inlined,
 compiled by g++ against a small emulation of the CUDA runtime (one
 std::thread per CUDA thread, a std::barrier for __syncthreads, a byte
 buffer for the block's shared memory; a thread-block cluster's blocks run
@@ -14,7 +14,9 @@ kernel C at every edge of scan_wide_plan's layout, kernel E's four
 entries at tiny rings under each of pir_tpu's inner-product methods, and
 kernel F's four (the upper level's lift, contraction and plane split, and
 the mod switch) on SEAL-like, tpu32-like and 60-bit chains in both
-re-encode modes, with every word at q - 1 too.
+re-encode modes, with every word at q - 1 too, and kernel G's three (the
+BEHZ multiply's lift, tensor product and floor) against the plain RnsTool
+methods from 1 to 15 ciphertext limbs, whose 128-bit sums pass 2^125.
 
 What this shows is the kernels' index arithmetic, twiddle choice,
 exchange layout, lazy-reduction bounds, row-split sums and kernel C's ring
@@ -248,13 +250,13 @@ def _compile(d: pathlib.Path, name: str, source: str):
 def libs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cuda_emulation")
     out = {name: _compile(d, name, emulation_source(name))
-           for name in ("ntt", "scan", "scan_wide", "keyswitch", "upper")}
+           for name in ("ntt", "scan", "scan_wide", "keyswitch", "upper", "behz")}
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     out["ntt"].pir_ntt.argtypes = kernels.NTT_ARGS
     out["scan"].pir_scan.argtypes = [P, P, P, P, P, I32, I64, I32, I32, I64, I64, I64, I64,
                                      I32, I32, I32, I32, P]
     out["scan_wide"].pir_scan_wide.argtypes = kernels.SCAN_WIDE._entry_points["pir_scan_wide"]
-    for kernel in (kernels.KEYSWITCH, kernels.UPPER):
+    for kernel in (kernels.KEYSWITCH, kernels.UPPER, kernels.BEHZ):
         lib = out[kernel.source.stem]
         for fn, argtypes in kernel._entry_points.items():
             getattr(lib, fn).argtypes = argtypes
@@ -1058,3 +1060,138 @@ def test_contraction_exact_at_the_96_bit_chunk_edge(emulated_e, emulated_f, entr
         moduli = ctx.key_moduli
     assert scan_kernel.contract_path(max(moduli).bit_length()) == 48
     assert np.array_equal(modular.numpy_u64(got).astype(object), _exact_contraction(x, w, moduli))
+
+
+# ---------------------------------------------------------------------------
+# kernel G: the BEHZ multiply's lift (G1), tensor product (G2) and floor +
+# Shenoy-Kumaresan conversion (G3)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def emulated_g(libs, monkeypatch):
+    """Kernel G's wrappers on CPU tensors, launching the emulation."""
+    monkeypatch.setattr(kernels.BEHZ, "_lib", libs["behz"])
+    monkeypatch.setattr(kernels, "require_cuda", lambda x, name, kernel: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda t: None)
+    kernels.BEHZ.variant_launches.clear()
+    return kernels.BEHZ.variant_launches
+
+
+def _seal_ct_moduli(n: int) -> tuple:
+    from pir_tpu_torch.core.params import generate_encryption_params
+
+    return tuple(int(q) for q in generate_encryption_params(n, 24).ct_modulus)
+
+
+# (ring N of the chain, or None: 61-bit primes; ciphertext limbs k), all
+# served at a ring of 64: SEAL's chains at N=4096 (2 x 36 bits), N=8192 (the
+# ct-mult cell's 43/44-bit primes), N=16384 (8 limbs) and N=32768 (15 x 55
+# bits, Bsk 16 limbs), and 61-bit chains of 1, 5, 9 and 15 limbs (each of
+# the kernel's register templates, full and part used; the widest words,
+# whose sums pass 2^125)
+BEHZ_CHAINS = [(4096, 2), (8192, 4), (16384, 8), (32768, 15), (None, 1), (None, 5), (None, 9),
+               (None, 15)]
+
+
+def _behz_tool(chain, k):
+    from pir_tpu_torch.core.rns import RnsTool
+
+    moduli = (_seal_ct_moduli(chain) if chain else
+              tuple(primes.coeff_modulus_from_bits(64, [61] * k)))
+    assert len(moduli) == k
+    return RnsTool(moduli, 64, primes.get_prime(128, 20), device="cpu")
+
+
+def _behz_words(moduli, shape, seed, fill):
+    """int64[*shape, len(moduli), 64]: random residues, or every word at
+    q - 1 ("top") or 0 ("zero")."""
+    if fill == "random":
+        return _residues(np.random.default_rng(seed), moduli, (*shape, 64), -2)
+    col = torch.tensor(moduli, dtype=torch.int64)[:, None] - 1
+    return (col if fill == "top" else torch.zeros_like(col)).expand(*shape, -1, 64).contiguous()
+
+
+@pytest.mark.parametrize("fill", ["random", "top", "zero"])
+@pytest.mark.parametrize("chain,k", BEHZ_CHAINS)
+def test_kernel_g_emulated_equals_plain(emulated_g, chain, k, fill):
+    """G1 (on a stack of ciphertexts and on a strided view of their second
+    polynomials), G2 (operands of one shape, a selection vector [1, 3]
+    broadcast over 2 prefixes, read in place, and a broadcast of both
+    operands, copied out) and G3 against the plain RnsTool methods
+    they replace, bit for bit, on random words, every word at q - 1 and
+    every word 0."""
+    from pir_tpu_torch.bfv import multiply
+
+    tool = _behz_tool(chain, k)
+    q, bsk = tool.q_moduli, tool.bsk_moduli
+    ct = _behz_words(q, (2, 3, 2), k, fill)
+    for x in (ct, ct[:, :, 1]):
+        assert torch.equal(multiply.lift_cuda(tool, x), multiply.lift_plain(tool, x))
+
+    for a_shape, b_shape in (((2, 3), (2, 3)), ((2, 3), (1, 3)), ((2, 1), (1, 3))):
+        a_q = _behz_words(q, (*a_shape, 2), k + 1, fill)
+        a_b = _behz_words(bsk, (*a_shape, 2), k + 2, fill)
+        b_q = _behz_words(q, (*b_shape, 2), k + 3, fill)
+        b_b = _behz_words(bsk, (*b_shape, 2), k + 4, fill)
+        got = multiply.tensor_product_cuda(tool, a_q, a_b, b_q, b_b)
+        want = multiply.tensor_product_plain(tool, a_q, a_b, b_q, b_b)
+        assert got[0].shape == (2, 3, 3, k, 64) and got[1].shape == (2, 3, 3, k + 1, 64)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    prod_q, prod_b = _behz_words(q, (2, 3), k + 5, fill), _behz_words(bsk, (2, 3), k + 6, fill)
+    assert torch.equal(multiply.floor_sk_cuda(tool, prod_q, prod_b),
+                       multiply.floor_sk_plain(tool, prod_q, prod_b))
+    assert emulated_g == {"pir_behz.lift": 2, "pir_behz.tensor": 3, "pir_behz.floor_sk": 1}
+
+
+@pytest.mark.parametrize("chain", [8192, 32768])
+def test_kernel_g_emulated_bfv_multiply_equals_plain(emulated_g, monkeypatch, chain):
+    """The whole multiply with its three steps on kernel G (the NTTs plain):
+    the words of the plain bfv_multiply, on the ct-mult scan's shapes
+    (blocks [prefix 2, 3 rows] against the selection ciphertexts [1, 3])."""
+    from pir_tpu_torch.bfv import multiply
+    from pir_tpu_torch.core.context import PirContext
+    from pir_tpu_torch.core.params import EncryptionParams, create_pir_parameters
+
+    ep = EncryptionParams(poly_modulus_degree=64, plain_modulus=primes.get_prime(128, 20),
+                          coeff_modulus=_seal_ct_moduli(chain) + tuple(
+                              primes.coeff_modulus_from_bits(64, [60])))
+    ctx = PirContext(create_pir_parameters(40, 8, 2, ep, use_ciphertext_multiplication=True),
+                     "cpu")
+    blocks = _behz_words(ctx.ct_moduli, (2, 3, 2), 1, "random")
+    sel = _behz_words(ctx.ct_moduli, (1, 3, 2), 2, "random")
+    want = multiply.bfv_multiply(ctx, blocks, sel)
+    for name in ("lift", "tensor_product", "floor_sk"):
+        monkeypatch.setattr(multiply, name, getattr(multiply, f"{name}_cuda"))
+    assert torch.equal(multiply.bfv_multiply(ctx, blocks, sel), want)
+    assert emulated_g == {"pir_behz.lift": 2, "pir_behz.tensor": 1, "pir_behz.floor_sk": 1}
+
+
+def test_kernel_g_refuses_what_it_cannot_take(libs, emulated_g):
+    """Launches with no work, or more limbs than the kernel holds, or rows
+    that overlap, are refused before anything runs; the wrappers refuse a
+    chain of 16 ciphertext limbs, limbs other than the tool's and operands
+    whose bases disagree."""
+    from pir_tpu_torch.bfv import multiply
+
+    lib = libs["behz"]
+    assert lib.pir_behz_lift(None, 64, None, None, 0, 4, 64, None) != 0
+    assert lib.pir_behz_lift(None, 64, None, None, 2, 16, 64, None) != 0
+    assert lib.pir_behz_lift(None, 63, None, None, 2, 1, 64, None) != 0
+    assert lib.pir_behz_tensor(*[None] * 7, 1, 1, 0, 0, 0, 64, None) != 0
+    assert lib.pir_behz_tensor(*[None] * 7, 1, 2, -1, 0, 2, 64, None) != 0
+    assert lib.pir_behz_floor_sk(None, None, None, None, 1, 16, 64, None) != 0
+
+    wide = _behz_tool(None, 15)
+    long = type(wide)(primes.coeff_modulus_from_bits(64, [61] * 16), 64, wide.t, device="cpu")
+    with pytest.raises(ValueError, match="at most 15"):
+        multiply.lift_cuda(long, _behz_words(long.q_moduli, (1,), 0, "random"))
+    tool = _behz_tool(8192, 4)
+    with pytest.raises(ValueError, match="3 limbs"):
+        multiply.lift_cuda(tool, _behz_words(tool.q_moduli[:3], (1,), 0, "random"))
+    x_q = _behz_words(tool.q_moduli, (1, 2), 0, "random")
+    with pytest.raises(ValueError, match="kernel G2 takes"):
+        multiply.tensor_product_cuda(tool, x_q, x_q, x_q, x_q)
+    with pytest.raises(ValueError, match="prod_b must be"):
+        multiply.floor_sk_cuda(tool, x_q, x_q)
+    assert emulated_g == {}

@@ -1,5 +1,5 @@
 """chip_smoke.py's kernel table names every TPU kernel of pir_tpu, and its
-table of kernels for work pir_tpu leaves to XLA (kernels E and F) names
+table of kernels for work pir_tpu leaves to XLA (kernels E, F and G) names
 what each entry replaces.
 
 Every kernel body that a ``pl.pallas_call`` in ``pir_tpu/ops/pallas_*.py``
@@ -121,7 +121,7 @@ def test_xla_kernel_rows_name_kernel_f():
     contracting (F2, Shoup table), and a headline case for each."""
     import ast
 
-    rows = chip_smoke.XLA_KERNEL_ROWS[4:]
+    rows = chip_smoke.XLA_KERNEL_ROWS[4:8]
     assert [r.check for r in rows] == ["F1", "F2", "F3", "F4"]
     variants = ["pir_upper.lift", "pir_upper.contract", "pir_upper.modswitch", "pir_upper.split"]
     assert [{v for _, v in r.launches} for r in rows] == [{v} for v in variants]
@@ -144,3 +144,26 @@ def test_xla_kernel_rows_name_kernel_f():
 
     labels = {c[0] for c in kt.upper_cases()} | {c[0] for c in kt.modswitch_cases()}
     assert set(chip_smoke.UPPER_HEAD.values()) <= labels
+
+
+def test_xla_kernel_rows_name_kernel_g():
+    """Kernel G's rows close the table: one row per entry (G1 lift, G2
+    tensor product, G3 floor and Shenoy-Kumaresan conversion) in
+    csrc/behz.cu, each naming the defs of pir_tpu's BEHZ steps it replaces
+    (RnsTool's conversions, bfv_multiply's tensor product), counted under its
+    own name on every ciphertext-multiplication path chip_smoke.py drives."""
+    import ast
+
+    rows = chip_smoke.XLA_KERNEL_ROWS[8:]
+    assert [r.check for r in rows] == ["G1", "G2", "G3"]
+    assert [{v for _, v in r.launches} for r in rows] == [{v} for v in chip_smoke.BEHZ_VARIANTS]
+    for row in rows:
+        assert row.source == "behz.cu"
+        assert (REPO / "pir_tpu_torch" / "csrc" / row.source).exists()
+        for ref in row.replaces:
+            path, line = ref.split(":")
+            assert path in ("pir_tpu/core/rns.py", "pir_tpu/bfv/multiply.py"), ref
+            defs = {f.lineno for f in ast.walk(ast.parse((REPO / path).read_text()))
+                    if isinstance(f, ast.FunctionDef)}
+            assert int(line) in defs, ref
+        assert [p for p, _ in row.launches] == list(chip_smoke._CT_MULTIPLIED)
