@@ -193,8 +193,9 @@ Phases, each of which raises on failure:
    decoded, every reply budget and recomposed inner budget > 0, first and
    warm latency, a request's peak device memory, and the launches of
    kernel A (reducing butterflies: 3 x kernel_times.served_ntt_launches'
-   count) and kernel D (one a request); then one more warm request in
-   synchronized stages (profile_request.staged_request), byte-equal;
+   count) and kernel D (one a request); then one more warm request's stage
+   profile (profile_request.stage_profile: each span's host and device ms
+   and device operations, from one profiler session);
 21. packed transfer on phase 6's stamped server: the same query arrays
    served with packed_transfer=True (the default: queries and replies as
    u32 lo + u8 hi words) and by a server with packed_transfer=False on the
@@ -213,9 +214,9 @@ Phases, each of which raises on failure:
    request's peak device memory above the database and keys held (the
    upper level multiplies in scan.CTMULT_STEP_BYTES steps), kernel A's
    reducing launches (3 x phase 11's served ct-mult count, the BEHZ base's
-   among them) and kernel D's (one a request); then a warm request in
-   synchronized stages (profile_request.staged_request: the BEHZ multiply
-   and the relinearization apart), byte-equal.
+   among them) and kernel D's (one a request); then a warm request's stage
+   profile (profile_request.stage_profile: the BEHZ multiply and the
+   relinearization are spans of their own).
 
 Phase 5 also prints the invariant noise budget of each decomposition
 reply at reply_limbs_for, which must be > 0, and of the inner ciphertexts
@@ -1122,7 +1123,7 @@ def serve_n32768(device, ct_mult: bool = False) -> dict:
     from pir_tpu_torch import kernels, native
     from pir_tpu_torch.pir import database
     from pir_tpu_torch.pir.encoders import StringEncoder
-    from pir_tpu_torch.profile_request import staged_request
+    from pir_tpu_torch.profile_request import stage_lines, stage_profile
     from pir_tpu_torch.proto import payload_pb2 as pb
 
     n = kt.SERVED_N
@@ -1207,16 +1208,14 @@ def serve_n32768(device, ct_mult: bool = False) -> dict:
         f"{', '.join(f'{x:.2f}' for x in latencies[1:])} ms; a request's peak device memory "
         f"{peak:.2f} GB above the {base / 1e9:.2f} GB held; launches {counts}")
     require(counts, ("pir_ntt.reduce", "pir_scan_shoup"), label)
-    stages, levels = {}, [0.0] * 16
-    staged = staged_request(server, requests[1], stages, levels)
-    if staged.SerializeToString() != responses[1].SerializeToString():
-        raise AssertionError(f"{label}: the staged request's Response differs")
-    log(f"{label}: a warm request in synchronized stages (profile_request.staged_request, "
-        f"Response byte-equal): {', '.join(f'{k} {v:.2f} ms' for k, v in stages.items())}; "
-        f"expansion levels {', '.join(f'{x:.2f}' for x in levels if x)} ms")
-    scan_ms = sum(v for k, v in stages.items() if k.startswith("database scan"))
-    log(f"{label}: the staged request's database scan {scan_ms:.2f} ms, mod switch "
-        f"{stages['mod switch']:.2f} ms")
+    profile = stage_profile(server.process_request, [requests[1]])
+    for line in stage_lines(profile):
+        log(f"{label}, a warm request's stage profile: {line}")
+    stages = profile["stages"]
+    scan_ms = sum(st["device_ms"] for name, st in stages.items()
+                  if name.startswith(("pir.scan", "pir.ctmult")))
+    log(f"{label}: the profiled request's database scan {scan_ms:.2f} device ms, mod switch "
+        f"{stages['pir.modswitch']['device_ms']:.2f}")
     del server, db, client
     torch.cuda.empty_cache()
     return {"n32768_ctmult" if ct_mult else "n32768": counts}

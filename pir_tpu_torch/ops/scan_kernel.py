@@ -374,10 +374,10 @@ def contract_wide_cuda(sv, db_hi, db_lo, limbs, j_begin: int = 0) -> torch.Tenso
 # (CONTRACT_BUILT, the instances csrc/contract.cuh::run is built for; 4
 # rows of 2 terms spill at the register budget); a ring of up to
 # CONTRACT_STAGES steps in at most CONTRACT_RING_BYTES, so
-# CONTRACT_MIN_BLOCKS blocks share an SM.  Rows, stages and the budget are
-# contract_variants.py's choices (PERF.md): 2 rows and 2 stages
-# were the fastest at the served shapes, and 80 registers a thread (3
-# blocks) beat 128 (2) and 64 (4).
+# CONTRACT_MIN_BLOCKS blocks share an SM.  Rows, stages and the budget were
+# timed against their alternatives on the H100 (PERF.md §6, the contraction's
+# build): 2 rows and 2 stages were the fastest at the served shapes, and 80
+# registers a thread (3 blocks) beat 128 (2) and 64 (4).
 SM_COUNT = 132  # the H100's streaming multiprocessors
 SHARED_SM_BYTES = 233472  # shared memory an SM holds (228 KB)
 SHARED_BLOCK_RESERVE = 1024  # the part of it the card keeps for each resident block

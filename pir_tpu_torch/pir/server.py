@@ -73,35 +73,14 @@ def reply_limbs_for(params: PirParams) -> int:
     return limbs
 
 
-# Every pending handle carries `seal_ep`: the encryption parameters the
-# replies are serialized as SEAL streams with, or None for the native codec.
+class DeviceReplies(NamedTuple):
+    """A request's pending replies, still on the device: pieces int64[count,
+    R, 2, L', N] in query order (a query's reply, a batched chunk's real
+    lanes, or a mesh batch's real queries; views, the padding lanes left
+    out), and `seal_ep`: the encryption parameters the replies are
+    serialized as SEAL streams with, or None for the native codec."""
 
-
-class QueryReplies(list):
-    """A request's pending replies, query by query: device tensors
-    int64[R, 2, L', N]."""
-
-    def __init__(self, replies, seal_ep=None):
-        super().__init__(replies)
-        self.seal_ep = seal_ep
-
-
-class BatchedReplies(NamedTuple):
-    """A batched request's pending replies: per chunk, the device replies
-    int64[lanes, R, 2, L', N] and how many of its lanes are real queries
-    (the ragged tail's padding lanes are dropped)."""
-
-    chunks: list
-    seal_ep: "object | None" = None
-
-
-class MeshReplies(NamedTuple):
-    """A mesh request's pending replies: int64[Qp, R, 2, L', N] on the
-    device, of which the first `count` are real queries (the rest pad the
-    batch axis)."""
-
-    replies: torch.Tensor
-    count: int
+    pieces: list
     seal_ep: "object | None" = None
 
 
@@ -378,20 +357,20 @@ class PirServer:
 
     def _batched_wide_async(
         self, stacks: list, galois_keys, upload=None, seal_ep=None
-    ) -> BatchedReplies:
+    ) -> DeviceReplies:
         """Enqueue Q host query stacks of one shape [k, 2, L, N] in chunks
         of batch_lanes() queries, the ragged tail padded with the chunk's
         first query.  upload(array, key) moves a chunk to the device."""
         upload = upload or self._upload
         lanes = min(self.batch_lanes(), len(stacks))
-        chunks = []
+        pieces = []
         for start in range(0, len(stacks), lanes):
             part = stacks[start : start + lanes]
             count = len(part)
             with profiling.span("pir.query.upload"):
                 queries = upload(np.stack(part + part[:1] * (lanes - count)), start)
-            chunks.append((self.process_batch(queries, galois_keys), count))
-        return BatchedReplies(chunks, seal_ep)
+            pieces.append(self.process_batch(queries, galois_keys)[:count])
+        return DeviceReplies(pieces, seal_ep)
 
     # ------------------------------------------------------------------
     def _device_keys(self, request: pb.Request) -> tuple:
@@ -493,7 +472,7 @@ class PirServer:
         from pir_tpu_torch.parallel import sharded
 
         if not stacks:
-            return MeshReplies(None, 0, seal_ep)
+            return DeviceReplies([], seal_ep)
         if len({s.shape for s in stacks}) != 1:
             raise ValueError(
                 "mesh serving requires equal query shapes per request "
@@ -501,11 +480,11 @@ class PirServer:
             )
         queries = sharded.pad_axis(np.stack(stacks), 0, self.mesh.size("batch"))
         replies = self._mesh_pipeline(upload(queries, 0), galois_keys, relin_key)
-        return MeshReplies(replies, len(stacks), seal_ep)
+        return DeviceReplies([replies[: len(stacks)]], seal_ep)
 
-    def process_request_async(self, request: pb.Request, upload=None):
-        """Enqueue a request's device work and return a pending handle
-        (the replies, still on the device) for :meth:`finalize_response`.
+    def process_request_async(self, request: pb.Request, upload=None) -> DeviceReplies:
+        """Enqueue a request's device work and return its pending replies,
+        still on the device, for :meth:`finalize_response`.
         On the planes layout a multi-query request whose query stacks share
         one shape takes the batched path (pir_tpu's reroute); its replies
         are byte-identical to the per-query path's.  With a mesh, the
@@ -537,22 +516,12 @@ class PirServer:
             and len({s.shape for s in stacks}) == 1
         ):
             return self._batched_wide_async(stacks, galois_keys, upload, seal_ep)
-        replies = QueryReplies([], seal_ep)
+        pieces = []
         for qi, stack in enumerate(stacks):
             with profiling.span("pir.query.upload"):
                 cts = upload(stack, qi)
-            replies.append(self.process_query(cts, galois_keys, relin_key))
-        return replies
-
-    @staticmethod
-    def _reply_pieces(pending) -> list:
-        """A pending handle's real replies as device tensors [count, R, 2,
-        L', N], in query order."""
-        if isinstance(pending, MeshReplies):
-            return [pending.replies[: pending.count]] if pending.count else []
-        if isinstance(pending, BatchedReplies):
-            return [replies[:count] for replies, count in pending.chunks]
-        return [reply[None] for reply in pending]
+            pieces.append(self.process_query(cts, galois_keys, relin_key)[None])
+        return DeviceReplies(pieces, seal_ep)
 
     def _packed(self, x: torch.Tensor) -> tuple:
         """A reply piece's parts as they cross to the host: its packed (lo,
@@ -561,28 +530,26 @@ class PirServer:
             return (x.contiguous(),)
         return packing.split_device(x, self._hi_dtype)
 
-    def finalize_response(self, pending) -> pb.Response:
-        """Copy a process_request_async handle's replies to the host and
-        serialize them into a Response, in the codec the handle carries.
-        The handle is a :class:`QueryReplies` (or a plain list of per-query
-        replies, serialized natively), a :class:`BatchedReplies`, a
-        :class:`MeshReplies`, or a :class:`HostReplies` (whose event this
-        waits for; no device work is launched)."""
-        rid = getattr(pending, "request", None)
+    def finalize_response(self, pending: "DeviceReplies | HostReplies") -> pb.Response:
+        """Copy a request's pending replies to the host and serialize them
+        into a Response, in the codec the handle carries: a
+        :class:`DeviceReplies` from process_request_async, or a
+        :class:`HostReplies` (whose event this waits for; no device work is
+        launched)."""
         if isinstance(pending, HostReplies):
-            parts = pending.replies
+            rid, parts = pending.request, pending.replies
             if pending.done is not None:
                 with profiling.span("pir.reply.wait", rid):
                     pending.done.synchronize()
         else:
-            with profiling.span("pir.reply.wait", rid):  # the copies wait for the device
-                parts = [[t.cpu() for t in self._packed(r)] for r in self._reply_pieces(pending)]
+            rid = None
+            with profiling.span("pir.reply.wait"):  # the copies wait for the device
+                parts = [[t.cpu() for t in self._packed(r)] for r in pending.pieces]
         with profiling.span("pir.reply.serialize", rid):
-            seal_ep = getattr(pending, "seal_ep", None)
             response = pb.Response()
             for part in parts:
                 for reply in _host_words(part):
-                    wire.save_ciphertexts(reply, response.reply.add(), seal_ep=seal_ep)
+                    wire.save_ciphertexts(reply, response.reply.add(), seal_ep=pending.seal_ep)
             return response
 
     def process_request(self, request: pb.Request) -> pb.Response:
@@ -635,13 +602,13 @@ class PirServer:
             if slot is None:
                 pending = self.process_request_async(request)
                 with profiling.span("pir.reply.enqueue"):
-                    pieces = [self._packed(x) for x in self._reply_pieces(pending)]
+                    pieces = [self._packed(x) for x in pending.pieces]
                 return HostReplies(None, pieces, pending.seal_ep, rid)
             with torch.cuda.stream(slot.stream):
                 try:
                     pending = self.process_request_async(request, upload=slot.upload)
                     with profiling.span("pir.reply.enqueue"):
-                        pieces = [self._packed(x) for x in self._reply_pieces(pending)]
+                        pieces = [self._packed(x) for x in pending.pieces]
                         return slot.download(pieces, pending.seal_ep, rid)
                 except BaseException:
                     slot.stream.synchronize()  # nothing it enqueued outlives the error

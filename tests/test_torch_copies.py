@@ -130,7 +130,7 @@ def test_string_encoder_equal(bits_per_coeff):
 def test_import_leaves_jax_out():
     code = (
         "import sys, pir_tpu_torch, pir_tpu_torch.convert, pir_tpu_torch.kernels,"
-        " pir_tpu_torch.profile_request, pir_tpu_torch.scan_wide_variants,"
+        " pir_tpu_torch.profile_request, pir_tpu_torch.kernel_times,"
         " pir_tpu_torch.parallel.sharded, pir_tpu_torch.pir.seal_compat,"
         " pir_tpu_torch.parallel.distributed, pir_tpu_torch.parallel.mesh_worker,"
         " pir_tpu_torch.utils.profiling, pir_tpu_torch.examples.basic_pir,"

@@ -281,9 +281,11 @@ def test_ct_mult_refusals(tmp_path):
         dist.destroy_process_group()
 
 
-def test_staged_profile_request_equals_process_request_ct_mult():
-    """profile_request's stage-by-stage run is process_request in
-    ciphertext-multiplication mode too, byte for byte."""
+def test_stage_profile_of_process_request_ct_mult():
+    """profile_request's stage profile in ciphertext-multiplication mode:
+    the BEHZ multiply and the relinearization come from their own spans,
+    one of each a step of the upper dimension, with no device time on the
+    CPU; the Response is process_request's."""
     from pir_tpu_torch import profile_request
 
     params = _ct_mult_params(30, 8, 2, 64, 12, 0)
@@ -291,11 +293,17 @@ def test_staged_profile_request_equals_process_request_ct_mult():
     client = pt.PirClient(params, seed=4, compress_queries=True, device="cpu")
     server = pt.PirServer(pt.PirDatabase.create(raw, params, device="cpu"), params)
     req = client.create_request([21])
-    stages, levels = {}, [0.0] * 3
-    got = profile_request.staged_request(server, req, stages, levels)
-    assert got.SerializeToString() == server.process_request(req).SerializeToString()
-    assert list(stages) == ["load query + keys", "oblivious expansion",
-                            "database scan (inner scan, sums)", "BEHZ multiply",
-                            "relinearization", "mod switch",
-                            "reply copy to host + serialize"]
-    assert client.process_response([21], got) == [raw[21]]
+    want = server.process_request(req).SerializeToString()  # the key set in the cache
+    got = []
+    prof = profile_request.stage_profile(lambda r: got.append(server.process_request(r)), [req])
+    assert [r.SerializeToString() for r in got] == [want]
+    assert client.process_response([21], got[0]) == [raw[21]]
+    stages = prof["stages"]
+    assert list(stages) == ["pir.query.load", "pir.keys.digest", "pir.query.upload",
+                            "pir.expand", "pir.expand.level", "pir.scan.inner",
+                            "pir.scan.upper", "pir.ctmult.multiply", "pir.ctmult.relin",
+                            "pir.reply.wait", "pir.reply.serialize"]
+    steps = stages["pir.ctmult.multiply"]["count"]
+    assert steps >= 1 and stages["pir.ctmult.relin"]["count"] == steps
+    assert all(st["host_self_ms"] > 0 and st["device_ms"] == 0 for st in stages.values())
+    assert prof["device_ms_total"] == 0

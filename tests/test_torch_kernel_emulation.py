@@ -206,10 +206,10 @@ def _replace_body(src: str, fname: str, body: str) -> str:
     return src[:j] + body + src[k + 1:]
 
 
-def emulation_source(name: str, src: "str | None" = None) -> str:
-    """csrc/<name>.cu (or `src`, a variant of it) with its launches,
-    dynamic shared memory and PTX turned into the emulation's C++."""
-    src = (CSRC / f"{name}.cu").read_text() if src is None else src
+def emulation_source(name: str) -> str:
+    """csrc/<name>.cu with its launches, dynamic shared memory and PTX
+    turned into the emulation's C++."""
+    src = (CSRC / f"{name}.cu").read_text()
     seen = set()  # headers inlined, each where it is first included, so REPLACED reaches them
     while (m := re.search(r'#include "(\w+\.cuh)"', src)) is not None:
         text = "" if m[1] in seen else (CSRC / m[1]).read_text().replace("#pragma once", "")
@@ -542,68 +542,6 @@ def test_kernel_c_refuses_a_launch_that_does_not_cover_the_work(libs):
                 {"prefixes": 64, "columns": 8, "grid": (4, 1, 4), "shared_bytes": 232448}):
         assert _emulated_wide(libs["scan_wide"], sv, hi, lo, table, 0,
                               dataclasses.replace(plan, **bad))[0] != 0, bad
-
-
-def test_scan_wide_variants_edit_the_kernel_as_they_say():
-    """pir_tpu_torch/scan_wide_variants.py builds kernel C with parts taken
-    out by text edits of csrc/scan_wide.cu: each edit must find its text in
-    the source exactly once, so that a change of the kernel cannot leave a
-    variant timing something else."""
-    from pir_tpu_torch import scan_wide_variants
-
-    src = (CSRC / "scan_wide.cu").read_text()
-    for name, edits in scan_wide_variants.EDITS.items():
-        out = scan_wide_variants.variant_source(name)
-        assert (out == src) == (not edits), name
-
-
-def test_ntt_cluster_variants_edit_the_kernel_as_they_say():
-    """pir_tpu_torch/ntt_cluster_variants.py builds kernel A with parts
-    taken out by text edits of csrc/ntt.cu: each edit must find its text
-    once, so that a change of the kernel cannot leave a variant timing
-    something else."""
-    from pir_tpu_torch import ntt_cluster_variants
-
-    src = (CSRC / "ntt.cu").read_text()
-    for name, edits in ntt_cluster_variants.EDITS.items():
-        assert (ntt_cluster_variants.variant_source(name) == src) == (not edits), name
-
-
-def test_contract_variants_edit_the_kernel_as_they_say():
-    """pir_tpu_torch/contract_variants.py builds the contraction behind
-    kernels E2 and F2 with parts taken out by text edits of
-    csrc/contract.cuh: each edit must find its text in the source exactly
-    once, so that a change of the kernel cannot leave a variant timing
-    something else."""
-    from pir_tpu_torch import contract_variants
-
-    src = (CSRC / "contract.cuh").read_text()
-    for name, edits in contract_variants.EDITS.items():
-        for old, _ in edits:
-            assert src.count(old) == 1, (name, old)
-        assert (contract_variants.variant_source(name) == src) == (not edits), name
-
-
-@pytest.mark.parametrize("n,bits", [(16384, (48, 49)), (32768, (55, 56))])
-def test_ntt_cluster_variant_half_the_ctas_equals_plain(tmp_path, n, bits):
-    """The variants script's other cluster size, 8,192-word sub-blocks (2
-    CTAs of 1,024 threads a cluster at N=16384, 4 at 32768), computes the
-    transform too: bit-equal to the plain version, forward and inverse."""
-    from pir_tpu_torch import ntt_cluster_variants
-
-    name = "half the CTAs"
-    lib = _compile(tmp_path, "ntt", emulation_source(
-        "ntt", ntt_cluster_variants.variant_source(name)))
-    lib.pir_ntt.argtypes = kernels.NTT_ARGS
-    tables = tntt.NttTables(primes.coeff_modulus_from_bits(n, list(bits)), n, "cpu")
-    ctas = n >> ntt_cluster_variants.SUB_LOG[name]
-    plan = dataclasses.replace(tntt.ntt_plan(n, len(bits)), cluster_ctas=ctas,
-                               blocks=len(bits) * ctas)
-    x = _residues(np.random.default_rng(n), tables.moduli, (1, n), 1)
-    for inverse in (False, True):
-        rc, out = _emulated_ntt(lib, tables, x, inverse, plan)
-        assert rc == 0
-        assert torch.equal(out, tntt.ntt_plain(tables, x, inverse)), inverse
 
 
 # ---------------------------------------------------------------------------

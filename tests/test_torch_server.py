@@ -70,7 +70,8 @@ def test_process_query_core_and_async(stack):
     )
     query = convert.to_tensor(pt.pir.wire.load_ciphertexts(req.query[0], server.ctx))
     reply = server.process_query(query, keys)
-    assert np.array_equal(convert.to_numpy(reply), convert.to_numpy(pending[0]))
+    assert [tuple(p.shape) for p in pending.pieces] == [(1, *reply.shape)]
+    assert np.array_equal(convert.to_numpy(reply), convert.to_numpy(pending.pieces[0][0]))
     resp = server.finalize_response(pending)
     assert client.process_response([11], resp) == [raw[11]]
 
@@ -172,39 +173,59 @@ def test_request_errors(stack):
 
 
 @pytest.mark.parametrize("reply_limbs", [None, 1])
-def test_staged_profile_request_equals_process_request(stack, reply_limbs):
-    """profile_request's stage-by-stage run is process_request, byte for byte."""
+def test_stage_profile_names_every_span_of_process_request(stack, reply_limbs):
+    """profile_request's stage profile runs process_request itself under the
+    profiler: every stage span the request opens, in the order first
+    opened, one pir.expand.level a doubling level, host self time in each,
+    and no device time on the CPU; the Response is process_request's."""
     from pir_tpu_torch import profile_request
     from pir_tpu_torch.utils.math import ceil_log2
 
-    params, _, _, tdb = stack
+    params, raw, _, tdb = stack
     client = pt.PirClient(params, seed=13, compress_queries=True, device="cpu")
     server = pt.PirServer(tdb, params, reply_limbs=reply_limbs)
     req = client.create_request([5])
+    want = server.process_request(req).SerializeToString()  # the key set in the cache
+    got = []
+    prof = profile_request.stage_profile(lambda r: got.append(server.process_request(r)), [req])
+    assert [r.SerializeToString() for r in got] == [want]
+    assert client.process_response([5], got[0]) == [raw[5]]
+    d = len(params.dimensions)
     n = params.encryption_params.poly_modulus_degree
-    stages, levels = {}, [0.0] * ceil_log2(min(params.dimensions_sum, n))
-    got = profile_request.staged_request(server, req, stages, levels)
-    assert got.SerializeToString() == server.process_request(req).SerializeToString()
-    assert list(stages) == [
-        "load query + keys", "oblivious expansion", "selection-vector NTT",
-        "database scan (all dimensions)", "mod switch",
-        "reply copy to host + serialize",
-    ]
-    assert levels and all(ms > 0 for ms in levels)
+    counts = {"pir.query.load": 1, "pir.keys.digest": 1, "pir.query.upload": 1, "pir.expand": 1,
+              "pir.expand.level": ceil_log2(min(params.dimensions_sum, n)), "pir.scan.inner": 2,
+              **({"pir.scan.upper": d - 1} if d > 1 else {}),
+              **({"pir.modswitch": 1} if reply_limbs else {}),
+              "pir.reply.wait": 1, "pir.reply.serialize": 1}
+    assert {k: st["count"] for k, st in prof["stages"].items()} == counts
+    assert list(prof["stages"]) == list(counts)
+    assert all(st["host_self_ms"] > 0 for st in prof["stages"].values())
+    assert all(st["device_ms"] == 0 and not st["kernels"] for st in prof["stages"].values())
+    assert prof["outside"] == {"device_ms": 0.0, "kernels": {}}
+    assert prof["device_ms_total"] == 0 and prof["requests"] == 1
 
 
-def test_stage_kernels_counts_each_stage(stack):
-    """profile_request.stage_kernels runs a staged request under the
-    profiler with a mark after each stage: every stage gets a count (0 on
-    the CPU, which has no device kernels)."""
-    from pir_tpu_torch import profile_request
+def test_stage_profile_puts_device_time_down_to_the_innermost_span():
+    """The attribution on a hand-built event list: a device operation counts
+    in the innermost span open when it was launched, so a child span's
+    kernels are not in its parent's device time; operations launched
+    outside every span land on the outside line, and one whose launch was
+    not recorded in neither."""
+    from pir_tpu_torch.profile_request import attribute_device_time
 
-    params, _, _, tdb = stack
-    client = pt.PirClient(params, seed=13, compress_queries=True, device="cpu")
-    counts = profile_request.stage_kernels(pt.PirServer(tdb, params), client.create_request([5]))
-    assert counts == {name: 0 for name in (
-        "load query + keys", "oblivious expansion", "selection-vector NTT",
-        "database scan (all dimensions)", "mod switch", "reply copy to host + serialize")}
+    spans = [("pir.expand", 0, 100), ("pir.expand.level", 10, 40), ("pir.expand.level", 50, 90),
+             ("pir.reply.wait", 200, 300)]
+    work = [(20, "ntt_kernel", 125_000), (40, "add_kernel", 250_000),  # in the first level
+            (60, "ntt_kernel", 125_000),  # the second level
+            (45, "cat_kernel", 500_000), (100, "cat_kernel", 250_000),  # the expansion's own
+            (150, "Memcpy DtoH", 250_000),  # outside every span
+            (None, "unknown_kernel", 1_000_000)]  # its launch not recorded
+    stages, outside = attribute_device_time(spans, work)
+    assert stages == {
+        "pir.expand.level": {"device_ms": 0.5, "kernels": {"ntt_kernel": 2, "add_kernel": 1}},
+        "pir.expand": {"device_ms": 0.75, "kernels": {"cat_kernel": 2}},
+    }
+    assert outside == {"device_ms": 0.25, "kernels": {"Memcpy DtoH": 1}}
 
 
 @pytest.mark.parametrize(
@@ -220,10 +241,13 @@ def test_stage_kernels_counts_each_stage(stack):
      ("(anonymous namespace)::ks_inner_kernel(unsigned long const*, unsigned long const*", "E"),
      ("(anonymous namespace)::ks_moddown_kernel(unsigned long const*, unsigned long const*", "E"),
      ("(anonymous namespace)::expand_combine_kernel(unsigned long const*, unsigned long", "E"),
+     ("void (anonymous namespace)::behz_lift_kernel<4>(unsigned long const*, long", "G"),
+     ("(anonymous namespace)::behz_tensor_kernel(unsigned long const*, unsigned long const*", "G"),
+     ("void (anonymous namespace)::behz_floor_sk_kernel<4>(unsigned long const*", "G"),
      ("void at::native::vectorized_elementwise_kernel<4, at::native::BitwiseAndFunctor", None)],
 )
 def test_profile_names_each_hand_written_kernel(name, kernel):
-    """The device profile sums a request's time in kernels A-E by their
+    """The device profile sums a request's time in kernels A-G by their
     device functions' names, and in nothing else."""
     from pir_tpu_torch import profile_request
 
