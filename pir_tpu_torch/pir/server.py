@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
@@ -50,7 +51,7 @@ from pir_tpu_torch.ops.modular import pinned, resolve_device, tensor_u64
 from pir_tpu_torch.pir import seal_compat, wire
 from pir_tpu_torch.pir.database import PirDatabase
 from pir_tpu_torch.proto import payload_pb2 as pb
-from pir_tpu_torch.utils import profiling
+from pir_tpu_torch.utils import hostmem, profiling
 from pir_tpu_torch.utils.math import generate_galois_elts
 
 _KEY_CACHE_ENTRIES = 8
@@ -414,7 +415,10 @@ class PirServer:
     def _key_cache_entry(self, gal: bytes, rel: bytes) -> "_CachedKeys":
         """Load a request's key blobs on the host (a SEAL key set's seeded c1
         polynomials are expanded here, once per key set), upload them, and
-        cache them, the oldest entry evicted when the cache is full."""
+        cache them, the oldest entry evicted when the cache is full.  A key
+        set with a blob above glibc's mmap ceiling switches the process to
+        keeping large host buffers in its heap (utils/hostmem.py): each of
+        its requests is parsed and read into buffers that size."""
         ep = self.params.encryption_params
         with profiling.span("pir.keys.load"):
             galois = wire.deserialize_galois_keys(gal, "cpu", ep)
@@ -438,6 +442,8 @@ class PirServer:
                 self._key_counts["key_evictions"] += 1
             entry = _CachedKeys(gal, rel, keys, relin, uploaded)
             self._key_cache.append(entry)
+        if max(len(gal), len(rel)) > hostmem.MMAP_CEILING:
+            hostmem.keep_large_buffers(len(gal) + len(rel))
         return entry
 
     def _reply_seal_ep(self, request: pb.Request):
@@ -574,8 +580,13 @@ class PirServer:
         ``max_in_flight`` (the most requests submitted and not yet yielded),
         ``max_device_pending`` (the most whose reply copy had not yet
         completed when another was submitted), ``requests_failed`` (on
-        submission or completion), and the device key cache's
-        ``key_hits``, ``key_misses`` and ``key_evictions`` in the run.
+        submission or completion), the device key cache's
+        ``key_hits``, ``key_misses`` and ``key_evictions`` in the run,
+        ``caller_minor_faults`` (the minor page faults of the thread that
+        drives the stream, from its start to its end; None where the
+        platform does not count them, or the stream changed threads) and
+        ``host_heap_keep_bytes`` (the heap the allocator keeps for large
+        buffers, 0 while it maps them afresh; utils/hostmem.py).
 
         Failure: the Responses of every request before the failing one are
         yielded in order, then the error is raised, whether the request
@@ -618,8 +629,10 @@ class PirServer:
         stats = self.stream_stats = {
             "depth": depth, "requests": 0, "max_in_flight": 0, "max_device_pending": 0,
             "requests_failed": 0, **dict.fromkeys(_KEY_COUNTS, 0),
+            "caller_minor_faults": None, "host_heap_keep_bytes": hostmem.kept_bytes(),
         }
         keys_before = dict(self._key_counts)
+        caller, faults_before = threading.get_ident(), hostmem.thread_minor_faults()
         pend: deque = deque()  # (future of the Response, HostReplies), in order
         failure = None
         with ThreadPoolExecutor(1, thread_name_prefix="pir-stream") as worker:
@@ -656,6 +669,9 @@ class PirServer:
                         _complete(pend, stats)
                     except Exception:
                         pass
+                if faults_before is not None and threading.get_ident() == caller:
+                    stats["caller_minor_faults"] = hostmem.thread_minor_faults() - faults_before
+                stats["host_heap_keep_bytes"] = hostmem.kept_bytes()
 
     def process_request_batched(self, request: pb.Request) -> pb.Response:
         """Like process_request, with every query (one included) on the

@@ -14,6 +14,7 @@ import pir_tpu_torch as pt
 from pir_tpu_torch import convert
 from pir_tpu_torch.pir.server import _CachedKeys
 from pir_tpu_torch.proto import payload_pb2 as pb
+from pir_tpu_torch.utils import hostmem
 
 Q_BITS = (30, 30, 32)  # room in the noise budget for a one-limb reply
 
@@ -154,6 +155,35 @@ def test_key_cache_counts_over_a_stream(stack, order, hits, evictions, cached):
         hits, len(order) - hits, evictions)
     held = [c._galois_bytes for c in clients]
     assert [held.index(e.galois_blob) for e in server._key_cache] == cached
+
+
+@pytest.mark.parametrize("large", [False, True], ids=["small-key-set", "large-key-set"])
+def test_large_key_sets_keep_host_buffers(stack, monkeypatch, large):
+    """A key-cache miss on a key set with a blob above hostmem.MMAP_CEILING
+    asks, once, for large host buffers to stay in the heap, with the key
+    set's bytes; smaller key sets never ask.  The stream's stats carry the
+    caller's page faults and the heap kept."""
+    params, raw, _, tdb = stack
+    server = pt.PirServer(tdb, params, reply_limbs=pt.reply_limbs_for(params))
+    client = pt.PirClient(params, seed=44, device="cpu")
+    reqs = [client.create_request([i]) for i in (2, 9, 2)]
+    gal, rel = reqs[0].galois_keys, reqs[0].relin_keys
+    asked = []
+    monkeypatch.setattr(hostmem, "keep_large_buffers", asked.append)
+    if large:  # the ceiling just under the key set's larger blob
+        monkeypatch.setattr(hostmem, "MMAP_CEILING", max(len(gal), len(rel)) - 1)
+    got = list(server.process_stream(iter(reqs), depth=2))
+    assert [client.process_response([i], r) for i, r in zip((2, 9, 2), got)] == [
+        [raw[i]] for i in (2, 9, 2)]
+    assert asked == ([len(gal) + len(rel)] if large else [])
+    stats = server.stream_stats
+    assert (stats["key_hits"], stats["key_misses"]) == (2, 1)
+    assert stats["host_heap_keep_bytes"] == hostmem.kept_bytes()
+    faults = stats["caller_minor_faults"]
+    if hostmem.thread_minor_faults() is None:  # no RUSAGE_THREAD, or a kernel that counts none
+        assert faults is None
+    else:
+        assert isinstance(faults, int) and faults >= 0
 
 
 def test_request_errors(stack):
