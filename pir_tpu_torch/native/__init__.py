@@ -84,11 +84,13 @@ def available() -> bool:
 
 
 def pack_db(
-    buffer: bytes, num_pt: int, bytes_per_pt: int, bits_per_coeff: int, n: int
+    buffer: bytes, num_pt: int, bytes_per_pt: int, bits_per_coeff: int, n: int,
+    out: "np.ndarray | None" = None,
 ) -> np.ndarray:
     """Pack a contiguous item buffer into u64[num_pt, n], MSB-first
-    (``pack_items``' semantics).  Raises ValueError at a width that
-    :func:`exact` refuses."""
+    (``pack_items``' semantics): a new array, or `out` (C-contiguous u64
+    [num_pt, n], every word written).  Raises ValueError at a width that
+    :func:`exact` refuses.  The packing runs without the GIL."""
     lib = _load()
     if 0 < bits_per_coeff <= 62 and not exact(bits_per_coeff):
         raise ValueError(f"encoder.cpp's accumulator cannot pack {bits_per_coeff} bits a "
@@ -96,7 +98,10 @@ def pack_db(
     if len(buffer) != num_pt * bytes_per_pt:
         raise ValueError("buffer size does not match num_pt * bytes_per_pt")
     src = np.frombuffer(buffer, dtype=np.uint8)
-    out = np.zeros((num_pt, n), dtype=np.uint64)
+    if out is None:
+        out = np.zeros((num_pt, n), dtype=np.uint64)
+    elif out.shape != (num_pt, n) or out.dtype != np.uint64 or not out.flags.c_contiguous:
+        raise ValueError(f"out must be C-contiguous uint64 {(num_pt, n)}")
     rc = lib.pack_db(src.ctypes.data, num_pt, bytes_per_pt, bits_per_coeff, n, out.ctypes.data)
     if rc != 0:
         raise ValueError(f"native pack_db failed with code {rc}")

@@ -35,7 +35,10 @@ Persistence is ``pir_tpu``'s, file for file: :meth:`PirDatabase.save` /
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
@@ -51,6 +54,7 @@ from pir_tpu_torch.pir.encoders import IntegerEncoder, StringEncoder
 from pir_tpu_torch.utils import profiling
 
 _PACK_ROWS = 2048  # plaintexts per step of the vectorized packer
+PACK_CHUNK = 2048  # plaintexts a chunk of the database's packer, on a thread each
 NTT_PREFIXES = 16  # prefix rows a step of the NTT / plane split and of its undoing
 SHOUP_STEP_BYTES = 256 << 20  # NTT words a step of the companions' computation
 
@@ -94,14 +98,46 @@ def pack_items(
 
 
 def pack_rows(
-    buffer: bytes, num_pt: int, bytes_per_pt: int, bits_per_coeff: int, n: int
+    buffer: bytes, num_pt: int, bytes_per_pt: int, bits_per_coeff: int, n: int,
+    out: "np.ndarray | None" = None,
 ) -> np.ndarray:
     """The database's packer: the native encoder, or :func:`pack_items` at
     a width the native encoder cannot pack exactly (``native.exact``).
-    Both give the reference's plaintexts."""
+    Both give the reference's plaintexts, in a new array or in `out`
+    (u64 [num_pt, n])."""
     if native.exact(bits_per_coeff):
-        return native.pack_db(buffer, num_pt, bytes_per_pt, bits_per_coeff, n)
-    return pack_items(buffer, num_pt, bytes_per_pt, bits_per_coeff, n)
+        return native.pack_db(buffer, num_pt, bytes_per_pt, bits_per_coeff, n, out=out)
+    packed = pack_items(buffer, num_pt, bytes_per_pt, bits_per_coeff, n)
+    if out is None:
+        return packed
+    out[...] = packed
+    return out
+
+
+def pack_uniform(
+    rawdb: Sequence[bytes], items_per_pt: int, item_bytes: int, num_pt: int,
+    bits_per_coeff: int, n: int,
+) -> np.ndarray:
+    """Items of `item_bytes` bytes each, `items_per_pt` a plaintext, packed
+    into u64[num_pt, n] by :func:`pack_rows`, PACK_CHUNK plaintexts a chunk
+    and the chunks spread over the host's cores (the native packer runs
+    without the GIL): the items are never joined whole.  Zero-padding the
+    final partial plaintext's bytes yields the same coefficients as the
+    reference's shorter encode."""
+    bytes_per_pt = items_per_pt * item_bytes
+    pts = np.empty((num_pt, n), dtype=np.uint64)
+
+    def pack(r0: int) -> None:
+        r1 = min(num_pt, r0 + PACK_CHUNK)
+        buffer = b"".join(rawdb[r0 * items_per_pt : r1 * items_per_pt])
+        if len(buffer) < (r1 - r0) * bytes_per_pt:
+            buffer += bytes((r1 - r0) * bytes_per_pt - len(buffer))
+        pack_rows(buffer, r1 - r0, bytes_per_pt, bits_per_coeff, n, out=pts[r0:r1])
+
+    chunks = range(0, num_pt, PACK_CHUNK)
+    with ThreadPoolExecutor(max(1, min(len(chunks), len(os.sched_getaffinity(0))))) as ex:
+        list(ex.map(pack, chunks))
+    return pts
 
 
 def default_scan_impl(moduli) -> str:
@@ -127,6 +163,9 @@ class PirDatabase:
         self.db_ntt_shoup: Optional[torch.Tensor] = None
         # db_planes hold one mesh rank's block only (set_rank_planes)
         self.rank_local = False
+        # what the last build made: plaintexts, NTT steps, the layout's bytes
+        # on the device and db_pts' on the host, the host encode's seconds
+        self.build_stats: dict = {}
         if scan_impl == "auto":
             scan_impl = default_scan_impl(self.ctx.ct_moduli)
         if scan_impl not in ("pallas", "xla"):
@@ -232,23 +271,19 @@ class PirDatabase:
                 f"{p.num_items}"
             )
         enc = StringEncoder(self.ctx.n, self.ctx.t, p.bits_per_coeff)
-        if all(len(item) == p.bytes_per_item for item in rawdb):
-            # zero-padding the final partial plaintext's bytes yields the same
-            # coefficients as the reference's shorter encode
-            bytes_per_pt = p.items_per_plaintext * p.bytes_per_item
-            buffer = b"".join(bytes(item) for item in rawdb)
-            buffer += b"\0" * (p.num_pt * bytes_per_pt - len(buffer))
-            pts = pack_rows(
-                buffer, p.num_pt, bytes_per_pt, enc.bits_per_coeff, self.ctx.n
-            )
-        else:
-            pts = np.zeros((p.num_pt, self.ctx.n), dtype=np.uint64)
-            for i in range(p.num_pt):
-                chunk = rawdb[
-                    i * p.items_per_plaintext : (i + 1) * p.items_per_plaintext
-                ]
-                pts[i] = enc.encode_many(chunk)
-        self._finalize(pts)
+        t0 = time.perf_counter()
+        with profiling.span("pir.db.pack"):
+            if all(len(item) == p.bytes_per_item for item in rawdb):
+                pts = pack_uniform(rawdb, p.items_per_plaintext, p.bytes_per_item, p.num_pt,
+                                   enc.bits_per_coeff, self.ctx.n)
+            else:
+                pts = np.zeros((p.num_pt, self.ctx.n), dtype=np.uint64)
+                for i in range(p.num_pt):
+                    chunk = rawdb[
+                        i * p.items_per_plaintext : (i + 1) * p.items_per_plaintext
+                    ]
+                    pts[i] = enc.encode_many(chunk)
+        self._finalize(pts, time.perf_counter() - t0)
 
     def populate_ints(self, rawdb: Sequence[int]) -> None:
         """One integer a plaintext, SEAL's base-2 ``IntegerEncoder``."""
@@ -259,10 +294,12 @@ class PirDatabase:
                 f"{p.num_items}"
             )
         enc = IntegerEncoder(self.ctx.n, self.ctx.t)
-        pts = np.zeros((p.num_pt, self.ctx.n), dtype=np.uint64)
-        for i, v in enumerate(rawdb):
-            pts[i] = enc.encode(int(v))
-        self._finalize(pts)
+        t0 = time.perf_counter()
+        with profiling.span("pir.db.pack"):
+            pts = np.zeros((p.num_pt, self.ctx.n), dtype=np.uint64)
+            for i, v in enumerate(rawdb):
+                pts[i] = enc.encode(int(v))
+        self._finalize(pts, time.perf_counter() - t0)
 
     def _row_step(self) -> int:
         return NTT_PREFIXES * self.params.dimensions[-1]
@@ -270,15 +307,21 @@ class PirDatabase:
     def _ntt_rows(self, pts: np.ndarray):
         """(row0, int64 NTT form [rows, L, N]) for the zero-padded hypercube,
         NTT_PREFIXES prefix rows at a time (the whole NTT-form database is
-        never a temporary)."""
+        never a temporary); each step's upload and transform is one
+        ``pir.db.ntt`` span.  A whole step is uploaded straight from its
+        rows of ``pts``: no host copy, so no fresh host pages a step."""
         ctx = self.ctx
         step = self._row_step()
         for r0 in range(0, self.padded_size, step):
             r1 = min(self.padded_size, r0 + step)
-            rows = np.zeros((r1 - r0, ctx.n), dtype=np.uint64)
-            have = pts[r0:r1]
-            rows[: have.shape[0]] = have
-            yield r0, evaluator.plaintext_to_ntt(ctx, tensor_u64(rows, self.device))
+            with profiling.span("pir.db.ntt"):
+                rows = have = pts[r0:r1]
+                if have.shape[0] < r1 - r0:  # the hypercube's zero padding
+                    rows = np.zeros((r1 - r0, ctx.n), dtype=np.uint64)
+                    rows[: have.shape[0]] = have
+                words = torch.from_numpy(np.ascontiguousarray(rows, np.uint64).view(np.int64))
+                ntt = evaluator.plaintext_to_ntt(ctx, words.to(self.device, copy=True))
+            yield r0, ntt
 
     def _stored_rows(self, db_ntt: np.ndarray):
         """The same steps read from a stored NTT form u64 [padded, L, N]."""
@@ -286,35 +329,46 @@ class PirDatabase:
         for r0 in range(0, self.padded_size, step):
             yield r0, tensor_u64(db_ntt[r0 : r0 + step], self.device)
 
-    def _finalize(self, pts: np.ndarray) -> None:
-        """Plaintexts u64[num_pt, N] -> the layout's NTT-form operands on
-        the device."""
+    def _finalize(self, pts: np.ndarray, pack_s: float = 0.0) -> None:
+        """Plaintexts u64[num_pt, N], encoded in `pack_s` seconds -> the
+        layout's NTT-form operands on the device."""
         self.db_pts = pts
-        self._fill(self._ntt_rows(pts))
+        self._fill(self._ntt_rows(pts), pack_s)
 
-    def _fill(self, ntt_steps) -> None:
+    def _fill(self, ntt_steps, pack_s: float = 0.0) -> None:
         """The layout's device operands from (row0, NTT rows) steps that
-        cover the padded hypercube in order."""
+        cover the padded hypercube in order, in one ``pir.db.layout`` span
+        (the steps' ``pir.db.ntt`` spans inside it); then ``build_stats``."""
         ctx = self.ctx
         shape = (self.padded_size, ctx.L, ctx.n)
-        if not self._use_planes:
-            lq = ctx.limbs_q
-            self.db_ntt = torch.empty(shape, dtype=torch.int64, device=self.device)
-            self.db_ntt_shoup = torch.empty_like(self.db_ntt)
-            # the companions' temporaries are several times their input:
-            # SHOUP_STEP_BYTES of NTT words at a time
-            sub = max(1, SHOUP_STEP_BYTES // (ctx.L * ctx.n * 8))
-            for r0, ntt in ntt_steps:
-                self.db_ntt[r0 : r0 + ntt.shape[0]] = ntt
-                for s0 in range(0, ntt.shape[0], sub):
-                    s1 = min(ntt.shape[0], s0 + sub)
-                    self.db_ntt_shoup[r0 + s0 : r0 + s1] = modular.shoup_precompute_device(
-                        ntt[s0:s1], lq.q, lq.ratio_hi, lq.ratio_lo
-                    )
-            return
-        self.db_planes = rows_to_planes(
-            ctx, ctx.L, self.params.dimensions[-1], self.padded_size, ntt_steps
-        )
+        with profiling.span("pir.db.layout"):
+            if self._use_planes:
+                self.db_planes = rows_to_planes(
+                    ctx, ctx.L, self.params.dimensions[-1], self.padded_size, ntt_steps
+                )
+                operands = self.db_planes
+            else:
+                lq = ctx.limbs_q
+                self.db_ntt = torch.empty(shape, dtype=torch.int64, device=self.device)
+                self.db_ntt_shoup = torch.empty_like(self.db_ntt)
+                # the companions' temporaries are several times their input:
+                # SHOUP_STEP_BYTES of NTT words at a time
+                sub = max(1, SHOUP_STEP_BYTES // (ctx.L * ctx.n * 8))
+                for r0, ntt in ntt_steps:
+                    self.db_ntt[r0 : r0 + ntt.shape[0]] = ntt
+                    for s0 in range(0, ntt.shape[0], sub):
+                        s1 = min(ntt.shape[0], s0 + sub)
+                        self.db_ntt_shoup[r0 + s0 : r0 + s1] = modular.shoup_precompute_device(
+                            ntt[s0:s1], lq.q, lq.ratio_hi, lq.ratio_lo
+                        )
+                operands = (self.db_ntt, self.db_ntt_shoup)
+        self.build_stats = {
+            "plaintexts": self.params.num_pt,
+            "ntt_steps": len(range(0, self.padded_size, self._row_step())),
+            "device_bytes": sum(t.numel() * t.element_size() for t in operands if t is not None),
+            "host_bytes": self.db_pts.nbytes,
+            "pack_s": pack_s,
+        }
 
     def _host_ntt(self) -> np.ndarray:
         """The NTT form u64 [padded, L, N] on the host; the planes layout

@@ -14,7 +14,8 @@ seeded queries, replies mod-switched by ``reply_limbs_for``) — with
 (``chip_smoke.py``'s phase 13), with ``--n32768`` at N=32768 on SEAL's
 55/56-bit chain (``chip_smoke.py``'s phase 20: the Shoup-table layout, the
 client's keys made on the card; with ``--ct-mult`` too, phase 22) — fills
-the key cache with one request, then measures warm single-query
+the key cache with one request (after printing the database's
+``build_stats``, also kept in the result), then measures warm single-query
 ``process_request`` calls, or with ``--batched Q`` warm
 ``process_request_batched`` calls of Q queries each:
 
@@ -298,6 +299,7 @@ def main(argv=None) -> int:
     )
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    print(f"database build: {db.build_stats}", flush=True)
     server = pt.PirServer(db, params, reply_limbs=pt.reply_limbs_for(params))
     client = pt.PirClient(params, seed=CLIENT_SEED, compress_queries=True,
                           device=device if args.n32768 else "cpu")
@@ -324,6 +326,7 @@ def main(argv=None) -> int:
                    "ct_mult": args.ct_mult, "batched": args.batched, "plain_bits": 24,
                    "reply_limbs": server.reply_limbs},
         "database_build_s": build_s,
+        "build_stats": db.build_stats,
         "stages": stages,
         "latency_ms": latency,
         "profiler": prof,
