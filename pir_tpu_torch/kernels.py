@@ -16,11 +16,14 @@ of the variant it launched (``entry_point.variant``, e.g. ``pir_scan.u32``,
 kernel may count an entry point under a name of its own, e.g. kernel E's
 ``pir_ks.inner`` or kernel F's ``pir_upper.contract``) — the counts a run
 reads to show that its main path went through each kernel and each of its
-variants.
+variants.  A CUDA graph's capture records its launches instead of counting
+them (:func:`recorded_launches`), and each replay counts them
+(:func:`add_launches`), so the counts stay those of the kernels that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -136,6 +139,37 @@ def launch_counts() -> "dict[str, int]":
 def variant_launch_counts() -> "dict[str, int]":
     """Launches per entry point and variant, e.g. ``pir_scan.hi``."""
     return {v: c for k in REGISTRY.values() for v, c in k.variant_launches.items()}
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Launches made inside are recorded, not counted: a CUDA graph's
+    capture, whose kernels run only when the graph is replayed.  Yields a
+    dict that holds them on exit, {kernel: (launches, {variant: count})},
+    for :func:`add_launches` to count at each replay."""
+    before = {name: (k.launches, dict(k.variant_launches)) for name, k in REGISTRY.items()}
+    recorded: dict = {}
+    try:
+        yield recorded
+    finally:
+        for name, k in REGISTRY.items():
+            launches, variants = before.get(name, (0, {}))
+            made = {v: c - variants.get(v, 0) for v, c in k.variant_launches.items()
+                    if c != variants.get(v, 0)}
+            if made:
+                recorded[name] = (k.launches - launches, made)
+            k.launches = launches
+            k.variant_launches.clear()
+            k.variant_launches.update(variants)
+
+
+def add_launches(recorded: dict) -> None:
+    """Count the launches :func:`recorded_launches` recorded, once."""
+    for name, (launches, variants) in recorded.items():
+        k = REGISTRY[name]
+        k.launches += launches
+        for v, c in variants.items():
+            k.variant_launches[v] = k.variant_launches.get(v, 0) + c
 
 
 def require_cuda(x, name: str, kernel: str) -> None:

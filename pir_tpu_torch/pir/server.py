@@ -45,6 +45,7 @@ import numpy as np
 
 import torch
 
+from pir_tpu_torch import kernels
 from pir_tpu_torch.core.params import PirParams
 from pir_tpu_torch.ops import expand, modswitch, packing, scan
 from pir_tpu_torch.ops.modular import pinned, resolve_device, tensor_u64
@@ -56,6 +57,7 @@ from pir_tpu_torch.utils.math import generate_galois_elts
 
 _KEY_CACHE_ENTRIES = 8
 _KEY_COUNTS = ("key_hits", "key_misses", "key_evictions")
+_GRAPH_COUNTS = ("graph_captures", "graph_replays")
 _REPLY_MARGIN_BITS = 12
 
 
@@ -87,13 +89,17 @@ class DeviceReplies(NamedTuple):
 
 class _CachedKeys(NamedTuple):
     """A key-cache entry: the blobs a request carried and their keys on the
-    device, with the event recorded after their upload (None off a card)."""
+    device, with the event recorded after their upload (None off a card).
+    `keys` maps each expansion element to its switch key, a view of
+    `stacked` (int64[elements, L, 2, Lp, N], in the server's element
+    order), which a stream slot's CUDA graph copies whole."""
 
     galois_blob: bytes
     relin_blob: bytes
     keys: dict
     relin: Optional[torch.Tensor]
     uploaded: Optional[torch.cuda.Event]
+    stacked: Optional[torch.Tensor] = None
 
 
 class HostReplies(NamedTuple):
@@ -162,12 +168,74 @@ def _complete(pend: deque, stats: dict) -> pb.Response:
         raise
 
 
+def graphs_serve(device: torch.device, mesh, use_planes: bool, shapes) -> bool:
+    """Whether a streamed request with query stacks of `shapes` goes query
+    by query through its stream slot's CUDA graphs (:class:`_QueryGraph`):
+    on a card and without a mesh, unless it takes the batched path (more
+    than one stack, all of one shape, on the planes layout), which stays
+    eager."""
+    if device.type != "cuda" or mesh is not None:
+        return False
+    return not (use_planes and len(shapes) > 1 and len(set(shapes)) == 1)
+
+
+def graph_fits(depth: int, need_bytes: int, free_bytes: int) -> bool:
+    """Whether `depth` stream slots can each keep a query shape's graph:
+    what the shape's eager query took above what was held (its transients,
+    which the graph's private pool keeps, and the graph's copy of the
+    keys), `depth` times, within the card's free memory."""
+    return depth * need_bytes <= free_bytes
+
+
+class _QueryGraph:
+    """One query's device work on a stream slot, captured once as a CUDA
+    graph and replayed for each later query of its shape:
+    :meth:`PirServer.process_query` and the reply's packing, from buffers
+    of its own (`query`: the query's parts, filled from the slot's pinned
+    buffers; `keys` and `relin`: each replay's copy of its key-cache
+    entry) to the reply's parts (`out`).  Capture runs no kernel, so its
+    launches are recorded (kernels.recorded_launches) and each replay
+    counts them."""
+
+    def __init__(self, server: "PirServer", stack: np.ndarray, keys: _CachedKeys):
+        device = server.device
+        self.query = [torch.empty(p.shape, dtype=packing.storage_dtype(p.dtype), device=device)
+                      for p in _host_parts(stack, server._hi_dtype)]
+        self.keys = torch.empty_like(keys.stacked)
+        self.relin = None if keys.relin is None else torch.empty_like(keys.relin)
+        galois = dict(zip(server._expansion_elts, self.keys))
+        self.graph = torch.cuda.CUDAGraph()
+        # the worker thread waits on events while the caller captures
+        with kernels.recorded_launches() as self.launches:
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                reply = server.process_query(_device_words(self.query), galois, self.relin)
+                self.out = server._packed(reply[None])
+            finally:
+                self.graph.capture_end()
+
+    def replay(self, staged, keys: _CachedKeys) -> tuple:
+        """Copy a query's staged parts and its keys in, replay: the reply's
+        parts, valid until the next replay."""
+        for dst, src in zip(self.query, staged):
+            dst.copy_(src, non_blocking=True)
+        self.keys.copy_(keys.stacked)
+        if self.relin is not None:
+            self.relin.copy_(keys.relin)
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.out
+
+
 class _StreamSlot:
     """One in-flight request of :meth:`PirServer.process_stream` on a CUDA
-    server: its stream, the event recorded after its reply copies, and its
+    server: its stream, the event recorded after its reply copies, its
     pinned host buffers (reused by the slot's next request, which starts
     only after this one was completed), one for each part that crosses the
-    link."""
+    link, and its CUDA graphs, one for each query shape (and key layout):
+    `fits` holds whether a shape's graph fits (:func:`graph_fits`),
+    measured around the slot's first, eager query of that shape; its next
+    query captures the graph, every later one replays it."""
 
     def __init__(self, device: torch.device, hi_dtype=None):
         self.device = device
@@ -178,6 +246,9 @@ class _StreamSlot:
         self.stream.wait_stream(torch.cuda.current_stream(device))
         self.done = torch.cuda.Event()
         self._pinned: dict = {}
+        self.depth = 1  # of the stream it serves
+        self.fits: dict = {}
+        self.graphs: dict = {}
 
     def _buffer(self, key, shape, dtype=torch.int64) -> torch.Tensor:
         buf = self._pinned.get(key)
@@ -185,24 +256,35 @@ class _StreamSlot:
             buf = self._pinned[key] = pinned(shape, dtype)
         return buf
 
-    def upload(self, arr, key) -> torch.Tensor:
-        """Host u64 query array -> the card, non-blocking on this stream."""
-        parts = []
+    def stage(self, arr, key) -> list:
+        """Host u64 query array -> its parts in this slot's pinned buffers."""
+        staged = []
         for i, part in enumerate(_host_parts(arr, self.hi_dtype)):
             buf = self._buffer(("up", key, i), part.shape, packing.storage_dtype(part.dtype))
             packing.from_storage(buf)[...] = part
-            parts.append(buf.to(self.device, non_blocking=True))
-        return _device_words(parts)
+            staged.append(buf)
+        return staged
 
-    def download(self, pieces, seal_ep, request=None) -> HostReplies:
-        """Enqueue the copies of the reply pieces' parts (a tuple of device
-        tensors each, :meth:`PirServer._packed`) to pinned memory, then the
-        event the worker waits on."""
-        out = [tuple(self._buffer(("down", i, k), t.shape, t.dtype).copy_(t, non_blocking=True)
+    def upload(self, arr, key) -> torch.Tensor:
+        """Host u64 query array -> the card, non-blocking on this stream."""
+        return _device_words([buf.to(self.device, non_blocking=True)
+                              for buf in self.stage(arr, key)])
+
+    def copy_out(self, i: int, parts) -> tuple:
+        """Enqueue the copies of reply piece i's parts (device tensors,
+        :meth:`PirServer._packed`) to pinned memory."""
+        return tuple(self._buffer(("down", i, k), t.shape, t.dtype).copy_(t, non_blocking=True)
                      for k, t in enumerate(parts))
-               for i, parts in enumerate(pieces)]
+
+    def finish(self, out: list, seal_ep, request=None) -> HostReplies:
+        """Record the event the worker waits on after the pieces' copies."""
         self.done.record(self.stream)
         return HostReplies(self.done, out, seal_ep, request)
+
+    def download(self, pieces, seal_ep, request=None) -> HostReplies:
+        """Enqueue the copies of the reply pieces, then the event."""
+        return self.finish([self.copy_out(i, parts) for i, parts in enumerate(pieces)],
+                           seal_ep, request)
 
 
 class PirServer:
@@ -279,9 +361,10 @@ class PirServer:
         # Device-resident keys with the host blobs they were loaded from,
         # oldest first (clients resend identical keys with every request).
         self._key_cache: list[_CachedKeys] = []
-        # the key cache's counts since the server was made (stream_stats
-        # holds a stream's share)
+        # the key cache's and the stream slots' graphs' counts since the
+        # server was made (stream_stats holds a stream's share)
         self._key_counts = dict.fromkeys(_KEY_COUNTS, 0)
+        self._graph_counts = dict.fromkeys(_GRAPH_COUNTS, 0)
         self._request_ids = itertools.count()  # the ids the spans carry
         self._stream_slots: list = []
         self.stream_stats: dict = {}
@@ -374,12 +457,13 @@ class PirServer:
         return DeviceReplies(pieces, seal_ep)
 
     # ------------------------------------------------------------------
-    def _device_keys(self, request: pb.Request) -> tuple:
-        """(Galois keys {elt: int64[L, 2, Lp, N]}, relinearization key
-        int64[L, 2, Lp, N] or None) on the device, cached by both whole
-        blobs: a request hits the entry whose blobs equal its own byte for
-        byte.  Only ciphertext-multiplication mode reads the relin key, so
-        only that mode uploads it.
+    def _device_keys(self, request: pb.Request) -> _CachedKeys:
+        """The key-cache entry of the request's keys: Galois keys {elt:
+        int64[L, 2, Lp, N]} and relinearization key int64[L, 2, Lp, N] or
+        None on the device, cached by both whole blobs: a request hits the
+        entry whose blobs equal its own byte for byte.  Only
+        ciphertext-multiplication mode reads the relin key, so only that
+        mode uploads it.
 
         On a card the keys are uploaded on whichever stream first sees them
         and read on others (process_stream): the current stream waits for
@@ -393,13 +477,13 @@ class PirServer:
             cached = self._key_cache_entry(gal, rel)
         else:
             self._key_counts["key_hits"] += 1
-        _, _, keys, relin, uploaded = cached
-        if uploaded is not None:
+        if cached.uploaded is not None:
             stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(uploaded)
-            for t in [*keys.values(), *([relin] if relin is not None else [])]:
-                t.record_stream(stream)
-        return keys, relin
+            stream.wait_event(cached.uploaded)
+            for t in (cached.stacked, cached.relin):
+                if t is not None:
+                    t.record_stream(stream)
+        return cached
 
     def _lookup_keys(self, gal: bytes, rel: bytes) -> "_CachedKeys | None":
         """The entry whose blobs equal gal and rel byte for byte, or None.
@@ -430,7 +514,12 @@ class PirServer:
             if self.params.use_ciphertext_multiplication and rel:
                 relin = wire.deserialize_relin_keys(rel, "cpu", ep).key.data
             with profiling.span("pir.keys.upload"):
-                keys = {e: t.to(self.device) for e, t in keys.items()}
+                first = keys[self._expansion_elts[0]]
+                stacked = torch.empty((len(self._expansion_elts), *first.shape),
+                                      dtype=first.dtype, device=self.device)
+                for row, e in zip(stacked, self._expansion_elts):
+                    row.copy_(keys[e])
+                keys = dict(zip(self._expansion_elts, stacked))
                 if relin is not None:
                     relin = relin.to(self.device)
                 uploaded = None
@@ -440,7 +529,7 @@ class PirServer:
             if len(self._key_cache) >= _KEY_CACHE_ENTRIES:
                 self._key_cache.pop(0)
                 self._key_counts["key_evictions"] += 1
-            entry = _CachedKeys(gal, rel, keys, relin, uploaded)
+            entry = _CachedKeys(gal, rel, keys, relin, uploaded, stacked)
             self._key_cache.append(entry)
         if max(len(gal), len(rel)) > hostmem.MMAP_CEILING:
             hostmem.keep_large_buffers(len(gal) + len(rel))
@@ -498,20 +587,30 @@ class PirServer:
         host query array to the device (a blocking copy by default).  The
         replies' codec (:meth:`_reply_seal_ep`) is settled, or the request
         refused, and the queries are parsed, before any device work."""
-        upload = upload or self._upload
+        seal_ep, stacks, keys = self._load_request(request)
+        return self._enqueue(stacks, keys.keys, keys.relin, upload or self._upload, seal_ep)
+
+    def _load_request(self, request: pb.Request) -> tuple:
+        """A request's host half: (the replies' codec, its query stacks, its
+        key-cache entry), or the request refused."""
         with profiling.span("pir.query.load"):
             seal_ep = self._reply_seal_ep(request)
             stacks = self._query_stacks(request)
-        galois_keys, relin_key = self._device_keys(request)
+        keys = self._device_keys(request)
         if (
             self.params.use_ciphertext_multiplication
-            and relin_key is None
+            and keys.relin is None
             and len(self.params.dimensions) > 1
         ):
             raise ValueError(
                 "ciphertext-multiplication mode with d > 1 requires "
                 "relinearization keys in the request"
             )
+        return seal_ep, stacks, keys
+
+    def _enqueue(self, stacks, galois_keys, relin_key, upload, seal_ep) -> DeviceReplies:
+        """Enqueue the device work of a request's query stacks (see
+        :meth:`process_request_async`)."""
         if self.mesh is not None:
             return self._process_request_async_mesh(
                 galois_keys, relin_key, stacks, upload, seal_ep
@@ -575,13 +674,20 @@ class PirServer:
         (a pool of min(depth, requests) streams, kept by the server), its
         queries uploaded from and its replies copied to pinned host buffers
         without blocking, and the worker waits on the event recorded after
-        the reply copies, not on the device.  On the CPU the same threads
-        run with no streams.  ``stream_stats`` holds the run's counts:
+        the reply copies, not on the device.  There a request that is not
+        batched goes query by query, and each query after a stream slot's
+        first of its shape replays the slot's CUDA graph of that shape (the
+        same kernels on the same words, launched by one call), where
+        ``depth`` such graphs fit beside what the card holds (see
+        :meth:`_submit_by_query`).  On the CPU the same threads run with no
+        streams.  ``stream_stats`` holds the run's counts:
         ``max_in_flight`` (the most requests submitted and not yet yielded),
         ``max_device_pending`` (the most whose reply copy had not yet
         completed when another was submitted), ``requests_failed`` (on
         submission or completion), the device key cache's
-        ``key_hits``, ``key_misses`` and ``key_evictions`` in the run,
+        ``key_hits``, ``key_misses`` and ``key_evictions`` in the run, the
+        queries that captured a graph (``graph_captures``) and that replayed
+        one (``graph_replays``; every other query ran eager),
         ``caller_minor_faults`` (the minor page faults of the thread that
         drives the stream, from its start to its end; None where the
         platform does not count them, or the stream changed threads) and
@@ -605,7 +711,9 @@ class PirServer:
             return None
         while len(self._stream_slots) <= min(n, depth - 1):
             self._stream_slots.append(_StreamSlot(self.device, self._hi_dtype))
-        return self._stream_slots[n % depth]
+        slot = self._stream_slots[n % depth]
+        slot.depth = depth
+        return slot
 
     def _submit(self, request: pb.Request, slot) -> HostReplies:
         rid = next(self._request_ids)
@@ -617,7 +725,11 @@ class PirServer:
                 return HostReplies(None, pieces, pending.seal_ep, rid)
             with torch.cuda.stream(slot.stream):
                 try:
-                    pending = self.process_request_async(request, upload=slot.upload)
+                    seal_ep, stacks, keys = self._load_request(request)
+                    if graphs_serve(self.device, self.mesh, self.db._use_planes,
+                                    [s.shape for s in stacks]):
+                        return self._submit_by_query(slot, stacks, keys, seal_ep, rid)
+                    pending = self._enqueue(stacks, keys.keys, keys.relin, slot.upload, seal_ep)
                     with profiling.span("pir.reply.enqueue"):
                         pieces = [self._packed(x) for x in pending.pieces]
                         return slot.download(pieces, pending.seal_ep, rid)
@@ -625,13 +737,59 @@ class PirServer:
                     slot.stream.synchronize()  # nothing it enqueued outlives the error
                     raise
 
+    def _submit_by_query(self, slot: _StreamSlot, stacks, keys: _CachedKeys, seal_ep,
+                         rid) -> HostReplies:
+        """A streamed request's queries one by one on its slot, each reply
+        copied out before the next query: a shape's first query on the slot
+        runs eager (process_query) and measures what a graph of it would
+        keep; where the stream's depth of those fit, its second captures
+        the slot's graph of the shape and replays it, as does every later
+        one."""
+        out = []
+        for qi, stack in enumerate(stacks):
+            shape = (stack.shape, keys.relin is not None)
+            graph = slot.graphs.get(shape)
+            if graph is None and slot.fits.get(shape):
+                graph = slot.graphs[shape] = _QueryGraph(self, stack, keys)
+                self._graph_counts["graph_captures"] += 1
+            if graph is not None:
+                with profiling.span("pir.query.upload"):
+                    staged = slot.stage(stack, qi)
+                with profiling.span("pir.reply.enqueue"):
+                    out.append(slot.copy_out(qi, graph.replay(staged, keys)))
+                self._graph_counts["graph_replays"] += 1
+                continue
+            first = shape not in slot.fits
+            if first:
+                held = torch.cuda.memory_allocated(self.device)
+                reserved = torch.cuda.memory_reserved(self.device)
+            with profiling.span("pir.query.upload"):
+                cts = slot.upload(stack, qi)
+            reply = self.process_query(cts, keys.keys, keys.relin)
+            with profiling.span("pir.reply.enqueue"):
+                out.append(slot.copy_out(qi, self._packed(reply[None])))
+            if first:
+                # a graph's pool holds the query's transients as fragmented
+                # as the segments a slot's fresh stream reserved for them;
+                # the process's peak since its last reset bounds their sum
+                need = max(torch.cuda.max_memory_allocated(self.device) - held,
+                           torch.cuda.memory_reserved(self.device) - reserved)
+                need += sum(t.nbytes for t in (keys.stacked, keys.relin) if t is not None)
+                slot.fits[shape] = graph_fits(slot.depth, need,
+                                              torch.cuda.mem_get_info(self.device)[0])
+        with profiling.span("pir.reply.enqueue"):
+            return slot.finish(out, seal_ep, rid)
+
+    def _counts(self) -> dict:
+        return {**self._key_counts, **self._graph_counts}
+
     def _stream(self, requests, depth: int):
         stats = self.stream_stats = {
             "depth": depth, "requests": 0, "max_in_flight": 0, "max_device_pending": 0,
-            "requests_failed": 0, **dict.fromkeys(_KEY_COUNTS, 0),
+            "requests_failed": 0, **dict.fromkeys(_KEY_COUNTS + _GRAPH_COUNTS, 0),
             "caller_minor_faults": None, "host_heap_keep_bytes": hostmem.kept_bytes(),
         }
-        keys_before = dict(self._key_counts)
+        counts_before = self._counts()
         caller, faults_before = threading.get_ident(), hostmem.thread_minor_faults()
         pend: deque = deque()  # (future of the Response, HostReplies), in order
         failure = None
@@ -649,7 +807,7 @@ class PirServer:
                         failure = e
                         break
                     finally:
-                        stats.update((k, n - keys_before[k]) for k, n in self._key_counts.items())
+                        stats.update((k, n - counts_before[k]) for k, n in self._counts().items())
                     copying = 0
                     if host.done is not None:  # reply copies not yet completed
                         copying = 1 + sum(1 for _, h in pend if not h.done.query())
@@ -687,7 +845,7 @@ class PirServer:
                 stacks = self._query_stacks(request)
             if len({s.shape for s in stacks}) != 1:
                 return self.process_request(request)
-            galois_keys, _ = self._device_keys(request)
+            galois_keys = self._device_keys(request).keys
             return self.finalize_response(
                 self._batched_wide_async(stacks, galois_keys, seal_ep=seal_ep)
             )
